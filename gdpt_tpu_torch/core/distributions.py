@@ -1,0 +1,113 @@
+"""Tabulated sampling distributions, built on the host in numpy.
+
+Counterpart of gdpt_tpu/core/distributions.py (reference:
+src/table_dist.h/.cpp). Only the table constructors are ported: the brute-force
+path samples its light CDF with torch.searchsorted directly.
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from gdpt_tpu_torch.core.dtypes import INT, REAL, asarray
+
+
+class TableDist1D(NamedTuple):
+    pmf: torch.Tensor  # (n,)
+    cdf: torch.Tensor  # (n + 1,)
+
+
+def make_table_dist_1d(f) -> TableDist1D:
+    f = np.asarray(f, dtype=np.float64)
+    n = f.shape[0]
+    cdf = np.concatenate([[0.0], np.cumsum(f)])
+    total = cdf[-1]
+    if total > 0:
+        pmf = f / total
+        cdf = cdf / total
+    else:
+        # Degenerate input: uniform (reference: src/table_dist.cpp:17-24).
+        pmf = np.full(n, 1.0 / n)
+        cdf = np.arange(n + 1) / n
+    cdf[-1] = 1.0
+    return TableDist1D(asarray(pmf, REAL), asarray(cdf, REAL))
+
+
+class TableDist2D(NamedTuple):
+    """Piecewise-constant 2D distribution over [0,1]^2 (reference:
+    src/table_dist.h:27-36): per-row conditional CDFs plus a marginal."""
+
+    cdf_rows: torch.Tensor       # (h, w + 1)
+    pdf_rows: torch.Tensor       # (h, w)
+    cdf_marginals: torch.Tensor  # (h + 1,)
+    pdf_marginals: torch.Tensor  # (h,)
+    total_values: float
+    width: int
+    height: int
+
+
+def make_table_dist_2d(f, width, height) -> TableDist2D:
+    f = np.asarray(f, dtype=np.float64).reshape(height, width)
+    cdf_rows = np.zeros((height, width + 1))
+    cdf_rows[:, 1:] = np.cumsum(f, axis=1)
+    row_integrals = cdf_rows[:, -1].copy()
+    pdf_rows = np.empty_like(f)
+    for y in range(height):
+        if row_integrals[y] > 0:
+            cdf_rows[y, :-1] /= row_integrals[y]
+            pdf_rows[y] = f[y] / row_integrals[y]
+        else:
+            pdf_rows[y] = 1.0 / width
+            cdf_rows[y, :-1] = np.arange(width) / width
+        cdf_rows[y, -1] = 1.0
+
+    cdf_marginals = np.concatenate([[0.0], np.cumsum(row_integrals)])
+    total = cdf_marginals[-1]
+    pdf_marginals = np.empty(height)
+    if total > 0:
+        cdf_marginals /= total
+        pdf_marginals[:] = row_integrals / total
+    else:
+        pdf_marginals[:] = 1.0 / height
+        cdf_marginals[:-1] = np.arange(height + 1)[:-1] / height
+    cdf_marginals[-1] = 1.0
+
+    return TableDist2D(
+        asarray(cdf_rows, REAL),
+        asarray(pdf_rows, REAL),
+        asarray(cdf_marginals, REAL),
+        asarray(pdf_marginals, REAL),
+        float(total),
+        width,
+        height,
+    )
+
+
+def build_alias_table(weights):
+    """Vose alias table (cut f32[N], alias i32[N]) for O(1) categorical
+    sampling: keep k where frac < cut[k], else take alias[k]."""
+    w = np.asarray(weights, np.float64).ravel()
+    n = w.shape[0]
+    if n == 0:
+        return torch.zeros(0, dtype=REAL), torch.zeros(0, dtype=INT)
+    total = w.sum()
+    if not np.isfinite(total) or total <= 0:
+        w = np.ones(n)
+        total = float(n)
+    p = w * (n / total)  # mean 1
+    cut = np.ones(n)
+    alias = np.arange(n, dtype=np.int64)
+    small = [i for i in range(n) if p[i] < 1.0]
+    large = [i for i in range(n) if p[i] >= 1.0]
+    while small and large:
+        s = small.pop()
+        l = large.pop()
+        cut[s] = p[s]
+        alias[s] = l
+        p[l] = (p[l] + p[s]) - 1.0
+        (small if p[l] < 1.0 else large).append(l)
+    for i in small + large:
+        cut[i] = 1.0
+        alias[i] = i
+    return asarray(cut, REAL), asarray(alias, INT)

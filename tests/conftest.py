@@ -27,3 +27,8 @@ jax.config.update("jax_platforms", "cpu")
 # full optimization (e.g. to chase a suspected XLA-pass miscompile).
 if os.environ.get("GDPT_TEST_OPT", "0") != "1":
     jax.config.update("jax_disable_most_optimizations", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skips without one)")
