@@ -2,9 +2,9 @@
 
 Counterpart of gdpt_tpu/accel/pallas_intersect.py. The hand-written
 Hopper kernels live in csrc/brute_intersect.cu; this module builds them
-at first use (nvcc, keyed by a hash of the source and flags, into
-build/gdpt_tpu_torch/ of the checkout), binds them with ctypes and
-launches them on PyTorch's current stream.
+at first use (accel/native_build.py: nvcc, keyed by a hash of the source
+and flags, into build/gdpt_tpu_torch/ of the checkout), binds them with
+ctypes and launches them on PyTorch's current stream.
 
 Each wrapper takes its plain PyTorch version only for tensors on the
 CPU. For CUDA tensors it launches the kernel or raises: there is no
@@ -17,59 +17,25 @@ minimum, which is the kernel's lowest-index tie rule).
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from gdpt_tpu_torch.accel import native_build
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL
 
 MAX_PRIMS = 128  # per soup; the shared-memory staging size of the kernels
 
 LAUNCHES = {"intersect": 0, "occluded": 0}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "brute_intersect.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gdpt_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = "brute_intersect.cu"
 
 _lib = None
 
 
-def _nvcc():
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found (looked on PATH and in {cuda_home}/bin)")
-    return path
-
-
-def build(verbose=False) -> Path:
-    """Compile csrc/brute_intersect.cu unless this source and these flags
-    were built before; returns the shared library's path."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libbrute_intersect_{key}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
-    return out
+def build(verbose=False):
+    """Compile csrc/brute_intersect.cu (see native_build.build)."""
+    return native_build.build(SOURCE, verbose)
 
 
 def _load():

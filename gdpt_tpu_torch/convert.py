@@ -13,6 +13,7 @@ import typing
 import numpy as np
 import torch
 
+from gdpt_tpu_torch.accel.packet_trace import PacketTable
 from gdpt_tpu_torch.core.dtypes import resolve_device
 from gdpt_tpu_torch.scene import model as M
 from gdpt_tpu_torch.scene.build import DeviceScene, Scene, SceneStatic
@@ -64,3 +65,18 @@ def scene_from_numpy(leaves, static_fields, device=None) -> Scene:
     if next(it, None) is not None:
         raise ValueError("more leaves than the port's DeviceScene holds")
     return Scene(dev, static)
+
+
+def packet_table_from_numpy(table, bbox, geo9, entry_ref, entry_bbox, stack_n,
+                            width, device=None) -> PacketTable:
+    """The reference's PacketTable as the port's: its array leaves as
+    numpy arrays, its stack size (the length of its stack_dummy) and its
+    width (32 where it carries a wide marker, else 16)."""
+    device = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype, copy=True)).to(device)
+
+    return PacketTable(put(table, np.int32), put(bbox, np.float32), put(geo9, np.float32),
+                       put(entry_ref, np.int32), put(entry_bbox, np.float32),
+                       int(stack_n), int(width))

@@ -5,11 +5,12 @@ Russian roulette (reference: src/path_tracing.h:13-348) over (N,)
 component tensors, with the same RNG streams and use-site counters, so
 that at low spp the port is held against the reference pixel by pixel.
 
-Ported: the banded ``render_soa`` loop and ``trace_paths_soa`` for
-brute-force scenes (at most 128 primitives) with Lambertian materials,
-constant/checkerboard textures, mesh and sphere area lights. Not yet:
-envmaps, image textures, the other BSDFs, BVH scenes, the wavefront
-renderer, sharding and resume (see ROADMAP.md).
+Ported: the banded loop (``trace_paths_soa``) and the wavefront
+renderer (``render_soa_wavefront``, the default for BVH scenes) behind
+``render_soa``, with Lambertian materials, constant/checkerboard
+textures, mesh and sphere area lights. Not yet: envmaps, image textures,
+the other BSDFs, the pool-sorted wavefront, sharding and resume (see
+ROADMAP.md).
 
 Every tensor is made on the device the scene lives on.
 """
@@ -614,9 +615,11 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
         new_spread = torch.clamp_min(
             spec_spread * (1.0 - samp.roughness) + 0.2 * samp.roughness, 0.0)
 
-        # K1 casts every lane; retired lanes' hits are masked below.
+        # Retired lanes are dead rays (tfar < tnear) to the BVH walk; K1
+        # casts every lane, and their hits are masked below.
         nxt_hit, nxt_gn = trs.intersect_soa_gn(
-            static, sc.geom, v.position, d_out, eps_isect)
+            static, sc.geom, v.position, d_out, eps_isect,
+            torch.where(active, BIG, -1.0))
         nxt = shade_hit(static, sc, v.position, d_out, nxt_hit, nxt_gn,
                         ray_radius=v.radius, ray_spread=new_spread)
         nxt_ok = nxt.valid > 0
@@ -660,6 +663,343 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
     return radiance, rays
 
 
+_M32 = 0xFFFFFFFF
+
+# A wavefront dispatch is sized in whole quanta of this many lanes (the
+# reference's 1024-ray packet), so pool widths match the reference's.
+LANE_QUANTUM = 1024
+
+
+def _wavefront_body(static, camera, sc, st):
+    """One wavefront iteration: regenerate dead lanes with the next
+    (pixel, sample) work items, trace pending rays, collect emitter
+    radiance with carried-pdf MIS, NEE, sample the next bounce, RR.
+
+    Estimator-identical to trace_paths_soa (same RNG streams/counters per
+    (pixel, sample), same MIS/RR math) but runs a fixed-size lane pool at
+    ~full occupancy instead of letting the whole image drain to its
+    slowest path. This is the wavefront analog of the reference's
+    per-thread serial loop (src/render.cpp:82-117) — sample regeneration
+    replaces tile scheduling.
+
+    The work queue counts (pixel, sample) items in uint32 arithmetic
+    carried in int64 (masked to 32 bits, as core/soa.py's RNG). The
+    accumulators of st are updated in place.
+    """
+    used = static.used_material_kinds
+    n_pix = static.width * static.height
+    md = static.options.max_depth
+    n_iters = HARD_BOUNCE_CAP if md < 0 else max(md - 1, 0)
+    P = st["alive"].shape[0]
+    device = st["alive"].device
+    zero = torch.zeros(P, dtype=REAL, device=device)
+    zero3 = V3(zero, zero, zero)
+    one3 = V3(zero + 1.0, zero + 1.0, zero + 1.0)
+    eps_isect = static.intersection_epsilon
+    seed = st["seed"]
+
+    # --- regenerate dead lanes from the work queue ---
+    dead = st["alive"] <= 0
+    rank = torch.cumsum(dead.to(torch.int64), dim=0) - 1
+    item = (st["next_item"] + torch.where(dead, rank, 0)) & _M32
+    # item >= next_item also rejects uint32 wraparound of next_item +
+    # rank for totals just below 2^32 (a wrapped item would alias an
+    # early (pixel, sample) and drop the true tail).
+    fresh = dead & (item < st["total"]) & (item >= st["next_item"])
+    pixel = torch.where(fresh, item % n_pix, st["pixel"])
+    sample = torch.where(fresh, item // n_pix, st["sample"])
+    xs = (pixel % static.width).to(REAL)
+    ys = (pixel // static.width).to(REAL)
+    u0, u1 = soa.uniform2(seed, pixel, _CTR_PIXEL, sample)
+    porg, pd = primary_rays_soa(static, camera, xs, ys, u0, u1)
+    org = soa.where(fresh, porg, st["org"])
+    d = soa.where(fresh, pd, st["d"])
+    tp = soa.where(fresh, one3, st["tp"])
+    pdf_prev = torch.where(fresh, 0.0, st["pdf_prev"])
+    eta_scale = torch.where(fresh, 1.0, st["eta_scale"])
+    bounce = torch.where(fresh, 0, st["bounce"])
+    alive = fresh | (st["alive"] > 0)
+    # rr_prev: survival prob divided out of tp at sample time; the
+    # emission collected at this ray's hit must NOT carry that division
+    # (the banded loop adds the emitter-hit contribution before RR).
+    # cont: RR verdict — a killed lane still traces this ray for its
+    # emission, then dies (matching the banded loop's trace-then-kill).
+    rr_prev = torch.where(fresh, 1.0, st["rr_prev"])
+    cont = fresh | (st["cont"] > 0)
+    next_item = (st["next_item"] + fresh.sum()) & _M32
+    # Ray differentials: fresh lanes restart at radius 0 / camera spread
+    # (reference: src/ray.h:36-38).
+    radius = torch.where(fresh, 0.0, st["radius"])
+    spread = torch.where(fresh, 0.25 / max(static.width, static.height),
+                         st["spread"])
+
+    # --- trace pending rays (primary tnear = 0, bounce tnear = eps) ---
+    tnear = torch.where(bounce == 0, 0.0, eps_isect)
+    tfar = torch.where(alive, BIG, -1.0)
+    hit, gn_raw = trs.intersect_soa_gn(static, sc.geom, org, d, tnear, tfar)
+    v = shade_hit(static, sc, org, d, hit, gn_raw,
+                  ray_radius=radius, ray_spread=spread)
+    rays = st["rays"] + alive.to(REAL).sum()
+    v_ok = (v.valid > 0) & alive
+    is_primary = pdf_prev <= 0
+
+    # --- radiance carried into this hit (reference:
+    # src/path_tracing.h:291-325; carried-pdf form of the banded MIS) ---
+    contrib = zero3
+    tp_emit = tp * rr_prev
+    if static.n_lights > 0:
+        hit_is_light = v_ok & (v.light_id >= 0)
+        l_emit = emission(sc, v, -1.0 * d)
+        dist2 = soa.length_squared(v.position - org)
+        g2 = torch.abs(soa.dot(d, v.gn)) / torch.clamp_min(dist2, 1e-20)
+        p2a = pdf_prev * g2
+        p1h = hit_light_pdf_soa(static, sc, org, v, d, dist2)
+        w2 = p2a * p2a / torch.clamp_min(p1h * p1h + p2a * p2a, 1e-30)
+        wgt = torch.where(is_primary, 1.0, w2)
+        contrib = contrib + soa.where(hit_is_light, tp_emit * l_emit * wgt, zero3)
+
+    # --- NEE + next bounce at the hit vertex ---
+    b = bounce + 1
+
+    def ctr(c):
+        return b.to(torch.int64) * _CTR_STRIDE + c
+
+    ext = v_ok & cont & (bounce < n_iters)
+    params = msoa.gather_params_soa(
+        sc.mat_tables, used, v.material_id, v.uv_u, v.uv_v,
+        static.spec_image_slots, float_tex_slots=static.float_tex_slots)
+    dir_view = -d
+    if static.n_lights > 0:
+        lu0, lu1 = soa.uniform2(seed, pixel, ctr(_CTR_LIGHT_UV), sample)
+        lw, lsw = soa.uniform2(seed, pixel, ctr(_CTR_LIGHT_W), sample)
+        nee, shadow_mask = nee_soa(static, sc, v, params, dir_view, used,
+                                   lu0, lu1, lw, lsw, ext)
+        contrib = contrib + tp * nee
+        rays = rays + shadow_mask.sum()
+
+    bu0, bu1 = soa.uniform2(seed, pixel, ctr(_CTR_BSDF_UV), sample)
+    w_lobe, u_rr = soa.uniform2(seed, pixel, ctr(_CTR_BSDF_W), sample)
+    samp = msoa.sample_bsdf_soa(params, dir_view, v.gn, v.frame,
+                                bu0, bu1, w_lobe, used)
+    f_b = msoa.eval_bsdf_soa(params, dir_view, samp.dir_out, v.gn, v.frame, used)
+    pdf_b = msoa.pdf_bsdf_soa(params, dir_view, samp.dir_out, v.gn, v.frame, used)
+    valid = ext & (samp.valid > 0) & (pdf_b > 0)
+    is_tr = samp.eta != 0
+    eta2 = torch.where(
+        is_tr, eta_scale / torch.where(is_tr, samp.eta, 1.0) ** 2, eta_scale)
+    # Spread update for the sampled bounce (reference: src/ray.h:41-57).
+    spec_spread = spread + 2.0 * v.mean_curv * v.radius
+    spec_spread = torch.where(
+        is_tr, spec_spread / torch.where(is_tr, samp.eta, 1.0), spec_spread)
+    spread_next = torch.clamp_min(
+        spec_spread * (1.0 - samp.roughness) + 0.2 * samp.roughness, 0.0)
+    tp_new = tp * f_b * (1.0 / torch.clamp_min(pdf_b, 1e-30))
+
+    # Russian roulette (reference: src/path_tracing.h:334-341). The
+    # sampled ray is traced either way (next iteration) so its emitter
+    # hit is collected; a killed lane stops after that (cont=False),
+    # matching the banded loop's add-emission-then-kill ordering.
+    do_rr = (bounce + 2) >= static.options.rr_depth
+    rr_prob = torch.where(
+        do_rr,
+        torch.clamp_max(soa.vmax(tp_new) / torch.clamp_min(eta2, 1e-20), 0.95),
+        1.0,
+    )
+    survive = (~do_rr) | (u_rr <= rr_prob)
+    tp_new = tp_new * (1.0 / torch.clamp_min(rr_prob, 1e-20))
+    alive_next = valid
+
+    # --- accumulate into the image (f32 scatter-add: on CUDA the sum's
+    # order is not fixed, so cuda and cpu images agree to a tolerance) ---
+    st["acc_x"].index_add_(0, pixel, contrib.x)
+    st["acc_y"].index_add_(0, pixel, contrib.y)
+    st["acc_z"].index_add_(0, pixel, contrib.z)
+
+    st.update(
+        org=soa.where(alive_next, v.position, org),
+        d=soa.where(alive_next, samp.dir_out, d),
+        tp=soa.where(alive_next, tp_new, tp),
+        pdf_prev=torch.where(alive_next, pdf_b, pdf_prev),
+        eta_scale=torch.where(alive_next, eta2, eta_scale),
+        rr_prev=torch.where(alive_next, rr_prob, rr_prev),
+        cont=torch.where(alive_next, survive, cont).to(REAL),
+        radius=torch.where(alive_next, v.radius, radius),
+        spread=torch.where(alive_next, spread_next, spread),
+        pixel=pixel,
+        sample=sample,
+        bounce=torch.where(alive_next, b, bounce),
+        alive=alive_next.to(REAL),
+        next_item=next_item,
+        rays=rays,
+        # Occupancy telemetry: mean live fraction per iteration.
+        occ_sum=st["occ_sum"] + alive.to(REAL).mean(),
+        iters=st["iters"] + 1,
+    )
+    return st
+
+
+# Lane-pool state entries (everything pool-shaped; accumulators and
+# scalars stay put when the pool shrinks).
+_POOL_KEYS = ("org", "d", "tp", "pdf_prev", "eta_scale", "rr_prev",
+              "cont", "radius", "spread", "pixel", "sample", "bounce",
+              "alive")
+
+
+def _compact_take_order(keep, new_pool):
+    """Stable keep-first permutation, sliced to the new pool width."""
+    return torch.argsort((~keep).to(torch.int8), stable=True)[:new_pool]
+
+
+def _shrink_pool_state(st, new_pool, pool_keys=_POOL_KEYS, keep=None):
+    """Compact live lanes into a fresh pool of width new_pool.
+
+    Tail compaction: once the work queue drains, lanes die at different
+    depths and every dispatch would still pay full-width sort, ray cast
+    and shading cost. The slots past the live prefix hold dead lanes,
+    which regenerate nothing once the queue is empty; accumulators are
+    n_pix-shaped and stay put.
+    """
+    if keep is None:
+        keep = st["alive"] > 0
+    order = _compact_take_order(keep, new_pool)
+    out = dict(st)
+    for k in pool_keys:
+        out[k] = soa.tree_map(lambda a: a[order], st[k])
+    return out
+
+
+def _tail_bucket(n_alive, cur_pool, lane_q):
+    """Target pool width for the drain tail: next power-of-two >=
+    n_alive, quantized to whole dispatch quanta, floored at one. Returns
+    None unless it at least halves the pool."""
+    target = lane_q
+    while target < n_alive:
+        target *= 2
+    target = -(-target // lane_q) * lane_q
+    if target <= cur_pool // 2:
+        return target
+    return None
+
+
+def _pool_width(total, pool=None):
+    """Lane-pool width: 2^18 lanes unless asked otherwise, no wider than
+    the work, in whole dispatch quanta."""
+    lane_q = LANE_QUANTUM
+    if pool is None:
+        pool = 1 << 18
+    pool = min(pool, -(-total // lane_q) * lane_q)
+    return -(-pool // lane_q) * lane_q
+
+
+def _wavefront_state(n_pix, pool, total, seed, device):
+    """The wavefront's state before its first iteration: an all-dead
+    lane pool, the work queue at item 0 of `total`, zeroed accumulators."""
+    def z(dtype=REAL, n=pool):
+        return torch.zeros(n, dtype=dtype, device=device)
+
+    def scalar(v, dtype):
+        return torch.tensor(v, dtype=dtype, device=device)
+
+    i64 = torch.int64
+    return dict(
+        org=V3(z(), z(), z()),
+        d=V3(z() + 1.0, z(), z()),
+        tp=V3(z(), z(), z()),
+        pdf_prev=z(),
+        eta_scale=z() + 1.0,
+        rr_prev=z() + 1.0,
+        cont=z() + 1.0,
+        radius=z(),
+        spread=z(),
+        pixel=z(i64),
+        sample=z(i64),
+        bounce=z(INT),
+        alive=z(),
+        next_item=scalar(0, i64),
+        total=scalar(total, i64),
+        seed=int(seed) & _M32,
+        rays=scalar(0.0, REAL),
+        occ_sum=scalar(0.0, REAL),
+        iters=scalar(0, i64),
+        acc_x=z(n=n_pix), acc_y=z(n=n_pix), acc_z=z(n=n_pix),
+    )
+
+
+def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
+                         pool=None, k_iters=8, compact=True):
+    """Wavefront path render: fixed lane pool + sample regeneration.
+
+    Produces the same estimate as the banded loop (identical RNG streams
+    per (pixel, sample)); accumulation happens on the device in f32,
+    drained into a host f64 buffer every 64 spp-equivalents. k_iters
+    iterations run between host reads of the queue position; compact
+    turns the tail compaction on. The iteration count and mean occupancy
+    of the last render are left in render_soa_wavefront.last_iters and
+    .last_occupancy.
+    """
+    static = scene.static
+    w, h = static.width, static.height
+    n_pix = w * h
+    total = n_pix * spp
+    if total >= 2 ** 32:
+        # The work queue indexes (pixel, sample) items with a uint32
+        # counter; beyond 2^32 it would silently wrap and drop samples.
+        # render_soa routes such renders to the banded loop instead.
+        raise ValueError(
+            f"wavefront work queue: n_pix*spp = {total} >= 2^32; "
+            "use render_soa (banded loop) for renders this large")
+    sc = scene_soa_from_aos(scene)
+    camera = scene.device.camera
+    device = camera.sample_to_cam.device
+
+    pool = _pool_width(total, pool)
+    st = _wavefront_state(n_pix, pool, total, seed, device)
+    lane_q = LANE_QUANTUM
+    # Device accumulation is f32 (scatter-add); to keep high-spp sums
+    # from losing mantissa bits against a large accumulator, drain into
+    # a host f64 buffer every ~64 started spp-equivalents. Safe mid-
+    # flight: lanes scatter later contributions onto the zeroed f32
+    # buffer and the final drain picks them up.
+    host_acc = np.zeros((3, n_pix), np.float64)
+    drain_step = n_pix * 64
+    last_drain = 0
+
+    def drain():
+        for c, key in enumerate(("acc_x", "acc_y", "acc_z")):
+            host_acc[c] += st[key].cpu().numpy().astype(np.float64)
+            st[key].zero_()
+
+    cur_pool = pool
+    while True:
+        for _ in range(k_iters):
+            st = _wavefront_body(static, camera, sc, st)
+        ni = int(st["next_item"])
+        if ni >= total:
+            n_alive = int((st["alive"] > 0).sum())
+            if n_alive == 0:
+                break
+            # Drain tail: queue exhausted, surviving lanes at mixed
+            # depths — compact them into the smallest pool bucket so
+            # sort/cast/shade cost tracks the live count.
+            if compact:
+                tgt = _tail_bucket(n_alive, cur_pool, lane_q)
+                if tgt is not None:
+                    st = _shrink_pool_state(st, tgt)
+                    cur_pool = tgt
+        if ni - last_drain >= drain_step:
+            drain()
+            last_drain = ni
+    drain()
+    img = (host_acc / spp).T.reshape(h, w, 3).astype(np.float32)
+    img = np.where(np.isfinite(img), img, 0.0)
+    iters = int(st["iters"])
+    render_soa_wavefront.last_iters = iters
+    render_soa_wavefront.last_occupancy = float(st["occ_sum"]) / max(iters, 1)
+    if return_stats:
+        return img, float(st["rays"])
+    return img
+
+
 def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     """n_samples samples summed in f32 for the whole ray batch; returns
     (radiance V3, total rays as an f32 0-d tensor)."""
@@ -673,18 +1013,27 @@ def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     return acc, rays
 
 
-def render_soa(scene: Scene, spp=None, seed=0, return_stats=False):
-    """Banded SoA render loop for the path integrator on the scene's
-    device: passes of up to 2^26 / n_pixels samples, each summed in f32
-    on the device, accumulated in float64 on the host. Returns an
-    (h, w, 3) float32 numpy image (and the traced ray count)."""
+def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None):
+    """SoA render loop for the path integrator on the scene's device.
+    Returns an (h, w, 3) float32 numpy image (and the traced ray count).
+
+    wavefront=None takes the wavefront renderer for BVH scenes whose
+    work queue fits (n_pix * spp < 2^32) and the banded loop otherwise;
+    True or False picks one. The banded loop runs passes of samples, each
+    summed in f32 on the device and accumulated in float64 on the host.
+    """
     static = scene.static
-    if not static.use_brute_force:
-        raise NotImplementedError(
-            "BVH scenes and the wavefront renderer are not ported yet; see ROADMAP.md")
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
+    if wavefront is None:
+        # BVH scenes: the wavefront pool keeps every dispatch at ~full
+        # occupancy (sample regeneration); the banded loop pays
+        # full-batch sort/gather/material cost per bounce even when most
+        # lanes are dead.
+        wavefront = not static.use_brute_force and n * spp < 2 ** 32
+    if wavefront:
+        return render_soa_wavefront(scene, spp, seed=seed, return_stats=return_stats)
     sc = scene_soa_from_aos(scene)
     camera = scene.device.camera
     device = camera.sample_to_cam.device
@@ -694,7 +1043,8 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False):
     ray_idx = torch.arange(n, dtype=torch.int64, device=device)
 
     # Brute scenes are throughput-bound: big sample batches per pass.
-    batch = max(1, (1 << 26) // n)
+    # BVH scenes take one sample per pass, as the reference does.
+    batch = max(1, (1 << 26) // n) if static.use_brute_force else 1
     acc = np.zeros((3, n), np.float64)
     total_rays = 0.0
     done = 0

@@ -2,7 +2,9 @@
 
 Counterpart of gdpt_tpu/integrators/render.py. The scene (built on the
 host) is carried to `device` — the CUDA card unless the caller passes
-device="cpu" — and rendered there. Only the "path" integrator is ported.
+device="cpu" — and rendered there. Only the "path" integrator is
+ported: brute-force scenes through the banded loop, BVH scenes (above
+128 primitives) through the packet table and the wavefront renderer.
 """
 
 from gdpt_tpu_torch.core.dtypes import resolve_device

@@ -3,8 +3,10 @@
 Counterpart of gdpt_tpu/scene/build.py (reference: src/scene.cpp:4-53):
 the same DeviceScene and SceneStatic fields, built on the host in numpy
 and held as CPU tensors; ``scene_to`` carries a scene to a device, as
-model weights are carried. Only the brute-force regime (at most
-BRUTE_FORCE_THRESHOLD primitives) is ported: BVH scenes raise.
+model weights are carried. Scenes above BRUTE_FORCE_THRESHOLD primitives
+(or built with force_bvh) get a host BVH (accel/bvh.py) in the
+Geometry.bvh_* fields; the packet table over it is made per render, on
+the scene's device (accel/traverse_soa.geom_soa_from_aos).
 """
 
 from dataclasses import dataclass
@@ -13,6 +15,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from gdpt_tpu_torch.accel import bvh as gbvh
 from gdpt_tpu_torch.core import spectrum as gspec
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.distributions import TableDist1D, TableDist2D, make_table_dist_1d, make_table_dist_2d
@@ -38,7 +41,7 @@ def use_brute_force(n_prims: int) -> bool:
 
 class Geometry(NamedTuple):
     """Flattened scene geometry (gdpt_tpu/accel/traverse.py:25). The BVH
-    fields stay empty in the brute-force regime."""
+    fields (accel/bvh.BVHArrays) stay empty in the brute-force regime."""
 
     tri_v0: torch.Tensor       # (T, 3)
     tri_e1: torch.Tensor
@@ -175,12 +178,16 @@ class SceneStatic:
 class Scene(NamedTuple):
     device: DeviceScene
     static: SceneStatic
+    # Which BVH builder made Geometry.bvh_* ("native" or "numpy"; "" for
+    # brute-force scenes and scenes carried over by convert.py). A
+    # record, not a switch.
+    bvh_builder: str = ""
 
 
 def scene_to(scene: Scene, device) -> Scene:
     """The same scene with every tensor on `device`."""
     dev = soa.tree_map(lambda t: t.to(device), scene.device)
-    return Scene(dev, scene.static)
+    return scene._replace(device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -390,7 +397,10 @@ def build_scene(
     media=(),
     options: M.RenderOptions = None,
     force_bvh: bool = False,
+    bvh_builder: str = None,
 ) -> Scene:
+    """bvh_builder: "native", "numpy" or None (native where a C++
+    compiler is present), see accel/bvh.build_bvh."""
     options = options or M.RenderOptions()
     pools = _PoolBuilder()
     mat_table = _build_materials(list(materials), pools)
@@ -464,12 +474,18 @@ def build_scene(
     tri_v1 = vtx_pos[tri_index[:, 1]] if n_tris else np.zeros((0, 3))
     tri_v2 = vtx_pos[tri_index[:, 2]] if n_tris else np.zeros((0, 3))
 
-    if force_bvh or not use_brute_force(n_tris + n_spheres):
-        raise NotImplementedError(
-            f"BVH scenes ({n_tris + n_spheres} primitives, brute-force limit "
-            f"{BRUTE_FORCE_THRESHOLD}) are not ported yet; see ROADMAP.md")
-    z3 = torch.zeros((0, 3), dtype=REAL)
-    zi = torch.zeros(0, dtype=INT)
+    use_bf = use_brute_force(n_tris + n_spheres) and not force_bvh
+    if use_bf:
+        z3 = np.zeros((0, 3), np.float32)
+        zi = np.zeros((0,), np.int32)
+        bvh = gbvh.BVHArrays(z3, z3, zi, zi, zi, zi)
+    else:
+        bvh = gbvh.build_bvh(
+            tri_v0, tri_v1, tri_v2,
+            sph_center if n_spheres else None,
+            sph_radius if n_spheres else None,
+            builder=bvh_builder,
+        )
 
     geom = Geometry(
         asarray(tri_v0, REAL),
@@ -479,7 +495,9 @@ def build_scene(
         asarray(sph_center, REAL),
         asarray(sph_radius, REAL),
         _i32(sph_shape, n_spheres),
-        z3, z3.clone(), zi, zi.clone(), zi.clone(), zi.clone(),
+        asarray(bvh.bbox_min), asarray(bvh.bbox_max),
+        asarray(bvh.first), asarray(bvh.count),
+        asarray(bvh.miss), asarray(bvh.prim_order),
     )
 
     # ---- bounding sphere (reference: src/scene.cpp:29-34) ----
@@ -609,7 +627,7 @@ def build_scene(
         n_shapes=n_shapes,
         n_lights=len(lights),
         n_materials=len(materials),
-        use_brute_force=True,
+        use_brute_force=use_bf,
         used_material_kinds=tuple(sorted({m.kind for m in materials})),
         has_envmap=envmap_light_id >= 0,
         envmap_light_id=envmap_light_id,
@@ -652,4 +670,4 @@ def build_scene(
         any_mesh_normals=bool(tri_has_n.any()) if n_tris else False,
         any_mesh_uvs=bool(tri_has_uv.any()) if n_tris else False,
     )
-    return Scene(device, static)
+    return Scene(device, static, bvh.builder)

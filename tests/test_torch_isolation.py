@@ -1,5 +1,7 @@
 """The port stands alone: no jax and nothing of gdpt_tpu in gdpt_tpu_torch
-or chip_smoke.py, CUDA by default, the CPU only when asked for."""
+or chip_smoke.py (every module, found by walking the package, and every
+native source under csrc/), nothing compiled when a module is imported,
+CUDA by default, the CPU only when asked for."""
 
 import ast
 import os
@@ -17,6 +19,7 @@ from gdpt_tpu_torch.scene import presets
 
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = sorted((ROOT / "gdpt_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+NATIVE = sorted((ROOT / "gdpt_tpu_torch" / "csrc").iterdir())
 
 
 def _forbidden(name):
@@ -45,6 +48,49 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path}: imports {bad}"
 
 
+def test_slice_modules_are_covered():
+    names = {str(p.relative_to(ROOT)) for p in SOURCES}
+    for module in ("accel/bvh.py", "accel/native_build.py", "accel/packet_trace.py",
+                   "accel/packet_kernels.py", "accel/traverse_soa.py", "convert.py"):
+        assert f"gdpt_tpu_torch/{module}" in names
+    assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
+                                        "bvh_builder.cpp"}
+
+
+@pytest.mark.parametrize("path", NATIVE, ids=lambda p: p.name)
+def test_native_sources_include_only_cuda_and_std_headers(path):
+    """A plain C interface: no PyTorch, Python or jax header, so each
+    source builds in seconds with nvcc or g++ alone."""
+    includes = [line.split()[1] for line in path.read_text().splitlines()
+                if line.startswith("#include")]
+    assert includes and 'extern "C"' in path.read_text()
+    for inc in includes:
+        assert inc == "<cuda_runtime.h>" or inc.strip("<>") in (
+            "algorithm", "cmath", "cstdint", "cstring", "limits", "vector"), inc
+
+
+def test_importing_every_module_builds_nothing():
+    """Every module imports in a process where running a compiler (or any
+    other program) fails, and pulls in neither jax nor triton."""
+    code = (
+        "import subprocess, sys\n"
+        "def boom(*a, **k): raise AssertionError('a program was run at import')\n"
+        "subprocess.run = subprocess.Popen = subprocess.check_output = boom\n"
+        "import importlib, pkgutil, gdpt_tpu_torch\n"
+        "from gdpt_tpu_torch.accel import native_build\n"
+        "before = sorted(native_build.BUILD_DIR.glob('*')) if native_build.BUILD_DIR.exists() else None\n"
+        "names = [m.name for m in pkgutil.walk_packages(gdpt_tpu_torch.__path__, 'gdpt_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "assert len(names) >= 24, names\n"
+        "after = sorted(native_build.BUILD_DIR.glob('*')) if native_build.BUILD_DIR.exists() else None\n"
+        "assert before == after\n"
+        "assert not {'jax', 'jaxlib', 'triton', 'gdpt_tpu'} & set(sys.modules)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_render_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -55,6 +101,30 @@ def test_render_on_cpu_when_asked():
     img = render.render(presets.cornell_box(8, 8, spp=1, max_depth=3), device="cpu")
     assert img.shape == (8, 8, 3) and img.dtype == np.float32
     assert np.isfinite(img).all() and img.mean() > 0
+
+
+def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
+    """For a tensor that is not on the CPU the wrappers go to the kernel's
+    library (here: its build, which fails without nvcc) or raise; they do
+    not carry on with the plain version."""
+    from gdpt_tpu_torch.accel import brute_kernels, native_build, packet_kernels
+
+    def no_build(source, verbose=False):
+        raise RuntimeError(f"no nvcc for {source}")
+
+    monkeypatch.setattr(native_build, "build", no_build)
+    monkeypatch.setattr(packet_kernels, "_lib", None)
+    monkeypatch.setattr(brute_kernels, "_lib", None)
+    monkeypatch.setattr(packet_kernels, "trace_packets_plain", None)
+    monkeypatch.setattr(brute_kernels, "intersect_brute_plain", None)
+    meta = torch.zeros(8, device="meta")
+    tab = type("Tab", (), dict(table=torch.zeros((4, 128), dtype=torch.int32, device="meta"),
+                               width=32, stack_n=64))()
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        packet_kernels.trace_packets(tab, *(meta,) * 8)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        brute_kernels.intersect_brute(torch.zeros((9, 1), device="meta"),
+                                      torch.zeros((4, 1), device="meta"), 1, 0, *(meta,) * 6, 0.0)
 
 
 def test_package_runs_with_jax_unimportable():
