@@ -31,13 +31,13 @@ Phases, each fatal on failure:
      against brute force over every triangle on a 16,384-ray sample
      (grazing rays the walk's box test drops are counted and printed);
   9. the BVH main path: render.render(scene, spp=4) on cuda (packet
-     table -> K3 -> wavefront renderer), counters zeroed just before and
-     read just after; image finite and not black, both K3 modes launched;
+     table, kept from phase 7 -> K3 -> wavefront renderer), counters
+     zeroed just before and read just after; image finite and not black, both K3 modes launched;
  10. render a small BVH scene (a level-3 icosphere in the box, 32x32,
      2 spp) on cuda and on the CPU and hold the two images together;
  11. time K3 (closest and any hit, rays morton-sorted and unsorted) by
      CUDA graph replay, beside its plain version and its bound, whose
-     operations are counted from these rays' own visits;
+     operations and table rows are counted from these rays' own visits;
  12. profile one wavefront chunk (8 iterations) of the BVH render.
 
 Prints one "kernels" JSON line, then the card's name and power limit, and
@@ -479,6 +479,20 @@ def _small_table_checks(pk, dev):
         pos, rd, dl, tfar, _ = _secondary_rays(org, d, t, prim, st.shadow_epsilon)
         eps = torch.full((n,), st.intersection_epsilon, device=dev)
         errs.append(_compare_k3(pk, g.packet, cam, n_tris, False, f"{label}, camera rays")[0])
+        if not sph:
+            # A table whose stack_n understates its depth: the kernel
+            # must report the full stack, never drop the push.
+            shallow = g.packet._replace(stack_n=wide)
+            for counts in (True, False):
+                try:
+                    pk.trace_packets(shallow, *cam, counts=counts)
+                    pk.check_overflow()
+                except RuntimeError as e:
+                    if "stack" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("K3 dropped a push past its stack without an error")
+            print(f"  K3 {label}: a one-entry stack raises (counts on and off)")
         errs.append(_compare_k3(pk, g.packet, (*pos, *rd, eps, torch.full_like(eps, 3e37)),
                                 n_tris, False, f"{label}, bounce rays")[0])
         _compare_k3(pk, g.packet, (*pos, *dl, eps, tfar), n_tris, True,
@@ -567,6 +581,8 @@ def _bvh_phases(card):
     # ---- phase 9: the BVH main path on cuda ----
     for k in pk.LAUNCHES:
         pk.LAUNCHES[k] = 0
+    if path_soa.scene_soa_from_aos(scene_to(scene, "cuda")) is not sc:
+        raise AssertionError("the scene's tables of phase 7 were not kept for the render")
     t0 = time.perf_counter()
     img, rays = render.render(scene, spp=SPP_BVH, seed=0, device="cuda", return_stats=True)
     wall = time.perf_counter() - t0
@@ -575,7 +591,7 @@ def _bvh_phases(card):
     iters = path_soa.render_soa_wavefront.last_iters
     occ = path_soa.render_soa_wavefront.last_occupancy
     print(f"phase 9: icosphere box 512x512 spp {SPP_BVH}: mean radiance {mean:.6f}, "
-          f"wall {wall:.3f} s (table build included), rays {rays:.0f}, "
+          f"wall {wall:.3f} s (tables kept from phase 7, {t_table:.2f} s), rays {rays:.0f}, "
           f"{rays / wall / 1e6:.2f} Mrays/s, launches {launches}, {iters} wavefront "
           f"iterations, mean occupancy {occ:.3f} on {card}")
     if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not mean > 0:
@@ -608,15 +624,22 @@ def _bvh_phases(card):
         ms_plain = _events_ms(lambda: pk.trace_packets_plain(tab, *rs, any_hit=any_hit), 1)
         cnt = pk.trace_packets(tab, *rs, any_hit=any_hit, counts=True)[2].sum(dim=0).tolist()
         ops = cnt[0] * tab.width * OPS_PER_BOX + cnt[2] * OPS_PER_TRI_PAIR
+        # Bytes of this call: eight ray arrays in (no start refs), t and
+        # prim out, and each table row these rays' visits read, once.
+        read = torch.zeros(rows, dtype=torch.bool, device=dev)
+        pk.trace_packets_plain(tab, *rs, any_hit=any_hit, rows_read=read)
+        n_read = int(read.sum())
+        nbytes = 40 * n + n_read * 512
         row = _kernel_row(name, "gdpt_tpu_torch/csrc/packet_trace.cu",
                           "gdpt_tpu/accel/packet_trace.py:486", launches[mode], err_k,
-                          ms_sorted, ms_plain, 44 * n + rows * 512, ops)
+                          ms_sorted, ms_plain, nbytes, ops)
         out_rows.append(row)
         print(f"phase 11: {name}: {ms_sorted * 1e3:.1f} us/launch on sorted rays, "
               f"{ms_unsorted * 1e3:.1f} us unsorted, {ms_full * 1e3:.1f} us per eager wrapper "
               f"call with sort, unsort and hit attributes; plain (eager, with its host "
               f"syncs) {ms_plain * 1e3:.0f} us; bound {row['bound_ms'] * 1e3:.2f} us "
-              f"({row['bound_by']}: {ops / 1e9:.2f} Gop, {(44 * n + rows * 512) / 1e6:.1f} MB); "
+              f"({row['bound_by']}: {ops / 1e9:.2f} Gop, {nbytes / 1e6:.1f} MB = 40 B/ray + "
+              f"{n_read} of {rows} rows read); "
               f"{launches[mode] / SPP_BVH:.1f} launches/sample on {card}")
 
     # ---- phase 12: one wavefront chunk under the profiler ----

@@ -7,6 +7,9 @@ csrc/packet_trace.cu; this module builds it at first use
 PyTorch's current stream. `trace_packets` takes its plain PyTorch
 version only for tensors on the CPU. For CUDA tensors it launches the
 kernel or raises: there is no fallback. LAUNCHES counts kernel launches.
+A ray whose stack runs full (a table whose stack_n understates its
+depth) raises in the plain version; the kernel stops that ray and sets a
+flag on the card, which `check_overflow` turns into the same error.
 
 Contract (flat (N,) float32 ray arrays, a table of accel/packet_trace):
 for each ray the closest primitive of the table within [tnear, tfar)
@@ -44,6 +47,9 @@ _ROW_MASK = (1 << 22) - 1
 _LEAF_TRIS = 12
 
 _lib = None
+_overflow = {}           # cuda device index -> (1,) int32 flag the kernel sets
+_OVERFLOW_MSG = ("packet walk: a ray needs more than stack_n // width stack "
+                 "entries; the table's stack_n does not bound its depth")
 
 
 def build(verbose=False):
@@ -57,7 +63,7 @@ def _load():
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gdpt_trace_packets.argtypes = [p, i, i, i, p, p, p, p, p, p, p, p, p,
-                                           i, i, i, i, p, p, p, p]
+                                           i, i, i, i, p, p, p, p, p]
         lib.gdpt_trace_packets.restype = i
         _lib = lib
     return _lib
@@ -107,11 +113,14 @@ def _bit_index(m):
 
 
 def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
-                        n_tris=None, any_hit=False, counts=False, ceiling=None):
+                        n_tris=None, any_hit=False, counts=False, ceiling=None,
+                        rows_read=None):
     """K3's contract in plain PyTorch: one visit per loop iteration for
     every ray that still has a node to visit. Returns (t, prim), and with
     counts an (N, 4) int32 tensor of per-ray super visits, leaf visits,
-    primitive tests and the deepest stack use."""
+    primitive tests and the deepest stack use. rows_read: an optional
+    (R,) bool tensor in which every table row these rays' visits read is
+    set (a leaf group's second row only where it holds a primitive)."""
     n, dev, rows, depth = _check(tab, (ox, oy, oz, dx, dy, dz, tnear, tfar), rref)
     table = tab.table
     tablef = table.view(REAL)
@@ -150,6 +159,9 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
             rf = tablef[srow][:, :96].reshape(-1, 16, 6)
             if s_rows == 2:
                 rf = torch.cat([rf, tablef[srow + 1][:, :96].reshape(-1, 16, 6)], dim=1)
+            if rows_read is not None:
+                for r in range(s_rows):
+                    rows_read[srow + r] = True
             tn_s = tnear[si][:, None]
             best_s = best[si][:, None]
             lo_hi = []
@@ -173,9 +185,7 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
             pi = si[push]
             at = sp[pi]
             if bool((at >= depth).any()):
-                raise RuntimeError(
-                    f"packet walk: a ray needs more than {depth} stack entries; "
-                    "the table's stack_n does not bound its depth")
+                raise RuntimeError(_OVERFLOW_MSG)
             stk_row[pi, at] = srow[push] | (rev[push] << 30)
             stk_mask[pi, at] = mask[push]
             sp[pi] = at + 1
@@ -190,6 +200,10 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
             if s_rows == 2:
                 geo = torch.cat([geo, tablef[lrow + 1][:, :108].reshape(-1, _LEAF_TRIS, 9)], dim=1)
                 pid = torch.cat([pid, table[lrow + 1][:, 108:120]], dim=1)
+            if rows_read is not None:
+                rows_read[lrow] = True
+                if s_rows == 2:
+                    rows_read[(lrow + 1)[pid[:, _LEAF_TRIS] >= 0]] = True
             r_o = tuple(c[li][:, None] for c in o)
             r_d = tuple(c[li][:, None] for c in dd)
             tn_l = tnear[li][:, None]
@@ -267,11 +281,23 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
     return best, prim
 
 
+def check_overflow():
+    """Raise RuntimeError if a ray of any kernel launch since the last
+    check ran its stack full (its result is then not a full walk). Reads
+    the kernel's flag from the card, which waits for the launches queued
+    there: callers check where they read results back anyway."""
+    for flag in _overflow.values():
+        if int(flag):
+            flag.zero_()
+            raise RuntimeError(_OVERFLOW_MSG)
+
+
 def trace_packets(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
                   n_tris=None, any_hit=False, counts=False):
     """K3: walk the packet table `tab` for every ray. Returns (t, prim);
     with counts also the (N, 4) int32 per-ray visit counts (see
-    trace_packets_plain)."""
+    trace_packets_plain). With counts the call also runs check_overflow;
+    without, the caller does once its results are due."""
     rays = (ox, oy, oz, dx, dy, dz, tnear, tfar)
     n, dev, rows, depth = _check(tab, rays, rref)
     if dev.type == "cpu":
@@ -280,6 +306,8 @@ def trace_packets(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
     if dev.type != "cuda":
         raise ValueError(f"the packet walk runs on cuda or cpu tensors, not {dev}")
     lib = _load()
+    if dev.index not in _overflow:
+        _overflow[dev.index] = torch.zeros(1, dtype=INT, device=dev)
     t = torch.empty(n, dtype=REAL, device=dev)
     prim = torch.empty(n, dtype=INT, device=dev)
     cnt = torch.empty((n, 4), dtype=INT, device=dev) if counts else None
@@ -289,10 +317,12 @@ def trace_packets(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
         err = lib.gdpt_trace_packets(
             ptr(tab.table), rows, tab.width, depth, *map(ptr, rays), ptr(rref), n,
             -1 if n_tris is None else int(n_tris), int(bool(any_hit)), 4 * rows + 64,
-            ptr(t), ptr(prim), ptr(cnt), ctypes.c_void_p(stream))
+            ptr(t), ptr(prim), ptr(cnt), ptr(_overflow[dev.index]),
+            ctypes.c_void_p(stream))
     LAUNCHES["packet_occluded" if any_hit else "packet_intersect"] += n > 0
     if err != 0:
         raise RuntimeError(f"packet_trace_kernel launch failed: CUDA error {err}")
     if counts:
+        check_overflow()
         return t, prim, cnt
     return t, prim

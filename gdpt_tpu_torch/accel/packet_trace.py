@@ -415,15 +415,12 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
     )
 
 
-def _morton_keys(tab, org: V3, d: V3, hint=None):
+def _morton_keys(tab, org: V3, d: V3):
     """Ray-coherence sort key: direction octant (3 high bits) then a
     6-bit-per-axis interleaved morton code of the origin in scene-bbox
     space. Bounce batches arrive shuffled; grouping rays that start
     near each other and head the same way keeps a warp's rays in one
-    subtree.
-
-    hint: optional per-lane int32 in [0, 63] placed ABOVE the octant
-    bits."""
+    subtree."""
     lo = tab.bbox[:3]
     ext = torch.clamp_min(tab.bbox[3:] - lo, 1e-6)
 
@@ -442,15 +439,11 @@ def _morton_keys(tab, org: V3, d: V3, hint=None):
     octant = ((d.x < 0).to(INT)
               | ((d.y < 0).to(INT) << 1)
               | ((d.z < 0).to(INT) << 2))
-    key = (octant << 18) | mort
-    if hint is not None:
-        key = key | (torch.clamp(hint.to(INT), 0, 63) << 21)
-    return key
+    return (octant << 18) | mort
 
 
 def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                     n_tris=None, any_hit=False, sort_rays=True,
-                     sort_hint=None):
+                     n_tris=None, any_hit=False, sort_rays=True):
     """Flat-ray entry: (t, prim, u, v, gn V3) over n rays.
 
     tnear and tfar are scalars or (n,) tensors. A lane with tfar < tnear
@@ -487,7 +480,7 @@ def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
     org0, d0 = org, d  # original order, for the hit-attribute recompute
     perm = None
     if sort_rays and n > 128:
-        keys = _morton_keys(tab, org, d, hint=sort_hint)
+        keys = _morton_keys(tab, org, d)
         # Dead lanes sort to the back, where whole warps of them exit
         # at once.
         keys = torch.where(alive, keys, 2**30)
@@ -541,13 +534,12 @@ def _hit_attribs(tab: PacketTable, org: V3, d: V3, t, prim, n_tris):
 
 
 def intersect_packet(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                     n_tris=None, sort_rays=True, sort_hint=None):
+                     n_tris=None, sort_rays=True):
     """Closest hit within [tnear, tfar): (t, prim, u, v, gn V3); a miss
     gives t = tfar, prim = -1. n_tris: the triangle count when the table
     holds spheres (prim id >= n_tris), else None."""
     return trace_packet_soa(tab, org, d, tnear, tfar, n_tris=n_tris,
-                            any_hit=False, sort_rays=sort_rays,
-                            sort_hint=sort_hint)
+                            any_hit=False, sort_rays=sort_rays)
 
 
 def occluded_packet(tab: PacketTable, org: V3, d: V3, tnear, tfar,

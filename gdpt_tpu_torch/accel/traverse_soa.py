@@ -139,7 +139,7 @@ def _table_n_tris(static):
 
 
 def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
-                     sort_rays=True, sort_hint=None):
+                     sort_rays=True):
     """(HitSoA, unnormalized geometric normal V3). tfar is a scalar or an
     (N,) tensor with tfar < tnear on retired lanes; the brute-force cast
     ignores it (K1 casts every lane). sort_rays=False skips the packet
@@ -148,7 +148,7 @@ def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
         return intersect_brute_soa(static, g, org, d, tnear)
     t, prim, u, v, gn = packet_trace.intersect_packet(
         g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static),
-        sort_rays=sort_rays, sort_hint=sort_hint)
+        sort_rays=sort_rays)
     hit = HitSoA(t, prim, u, v)
     if _sph_outside(static):
         hit, gn = _merge_spheres_closest(static, g, org, d, tnear, hit, gn)

@@ -32,16 +32,20 @@
 // the stack is as deep as the tree (at most stack_n / W entries, 32
 // compiled in), not W times that, and children are visited nearest first
 // by the ray's own direction. An iteration ceiling (4R + 64 visits, as
-// the reference's) ends a walk over a malformed table.
+// the reference's) ends a walk over a malformed table. A push that finds
+// the stack full (a table whose stack_n understates its depth) is never
+// dropped silently: the ray stops, its deepest count reads depth + 1 and
+// the kernel sets *overflow, which the wrapper turns into an error.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): the work depends on the
-// rays. Bytes: 44 per ray in and out, plus the table rows once. Operations:
-// a supernode visit is W slab tests of 25 operations (6 mul, 6 sub, 12
-// min/max, 1 compare), a primitive test 52 (Moeller-Trumbore); the
-// optional counts output gives a run's visits. On a 409,612-triangle
-// scene (24.4 MB of table, under the 50 MB L2) a bounce ray makes about 2
-// supernode and 2 leaf visits, so bytes bound the kernel, at about 11 us
-// per 262,144 rays. The kernel takes some 30 times that: every
+// rays. Bytes: 40 per ray in and out (44 with start refs), plus each table
+// row the rays visit, once. Operations: a supernode visit is W slab tests
+// of 25 operations (6 mul, 6 sub, 12 min/max, 1 compare), a primitive
+// test 52 (Moeller-Trumbore); the optional counts output gives a run's
+// visits. On a 409,612-triangle scene (24.4 MB of table, under the 50 MB
+// L2) a bounce ray makes about 2 supernode and 2 leaf visits with 16
+// primitive tests: 0.67 Gop and 31 MB per 262,144 rays, about 10 us
+// either way. The kernel takes some 35 times that: every
 // thread reads rows that no other thread of its warp may want, so a
 // warp-wide load touches up to 32 sectors, and each visit waits on the
 // child ref of the one before. The rows are therefore read 16 bytes at
@@ -76,7 +80,7 @@ packet_trace_kernel(const int* __restrict__ table, int n_rows, int depth,
                     const float* __restrict__ tnear_in, const float* __restrict__ tfar_in,
                     const int* __restrict__ rref, int n, int n_tris, int any_hit,
                     int ceiling, float* __restrict__ t_out, int* __restrict__ prim_out,
-                    int* __restrict__ counts) {
+                    int* __restrict__ counts, int* __restrict__ overflow) {
   constexpr int S = W / 16;  // rows per supernode and per leaf group
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -122,7 +126,12 @@ packet_trace_kernel(const int* __restrict__ table, int n_rows, int depth,
         }
         mask &= (unsigned)row[120];
         ++n_super;
-        if (mask != 0u && sp < depth) {
+        if (mask != 0u) {
+          if (sp >= depth) {  // the table is deeper than its stack_n says
+            deepest = depth + 1;
+            atomicOr(overflow, 1);
+            break;
+          }
           const int axis = row[121];
           const float sgn = axis == 0 ? d_x : (axis == 1 ? d_y : d_z);
           stk_row[sp] = srow | ((sgn <= 0.0f ? 1 : 0) << 30);
@@ -224,12 +233,14 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for a width or depth the kernel does not take.
+// overflow: one int the kernel ORs 1 into when a ray's stack ran full.
 int gdpt_trace_packets(const int* table, int n_rows, int width, int depth,
                        const float* ox, const float* oy, const float* oz,
                        const float* dx, const float* dy, const float* dz,
                        const float* tnear, const float* tfar, const int* rref,
                        int n, int n_tris, int any_hit, int ceiling,
-                       float* t, int* prim, int* counts, void* stream) {
+                       float* t, int* prim, int* counts, int* overflow,
+                       void* stream) {
   if ((width != 16 && width != 32) || depth < 1 || depth > MAX_DEPTH)
     return (int)cudaErrorInvalidValue;
   if (n > 0) {
@@ -238,11 +249,11 @@ int gdpt_trace_packets(const int* table, int n_rows, int width, int depth,
     if (width == 32)
       packet_trace_kernel<32><<<blocks, BLOCK, 0, s>>>(
           table, n_rows, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n,
-          n_tris, any_hit, ceiling, t, prim, counts);
+          n_tris, any_hit, ceiling, t, prim, counts, overflow);
     else
       packet_trace_kernel<16><<<blocks, BLOCK, 0, s>>>(
           table, n_rows, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n,
-          n_tris, any_hit, ceiling, t, prim, counts);
+          n_tris, any_hit, ceiling, t, prim, counts, overflow);
   }
   return (int)cudaGetLastError();
 }

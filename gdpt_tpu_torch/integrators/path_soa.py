@@ -21,13 +21,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from gdpt_tpu_torch.accel import packet_kernels
 from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import distributions as gdist
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL, asarray
 from gdpt_tpu_torch.core.soa import V3
 from gdpt_tpu_torch.ops import materials_soa as msoa
-from gdpt_tpu_torch.scene.build import SHAPE_MESH, SHAPE_SPHERE, Scene
+from gdpt_tpu_torch.scene.build import SHAPE_MESH, SHAPE_SPHERE, Scene, SceneMemo
 
 HARD_BOUNCE_CAP = 64
 
@@ -157,9 +158,19 @@ def _footprint_constants(dev):
     return (n0, n1, n2), (uv0, uv1, uv2), inv_uv, mc
 
 
+_SOA_MEMO = SceneMemo()
+
+
 def scene_soa_from_aos(scene: Scene) -> SceneSoA:
+    """The render's view of `scene`, built once per scene: the host-side
+    prep (packet table, alias tables, footprint constants) is pure in the
+    scene and takes seconds on a large one."""
     if scene.static.has_envmap:
         raise NotImplementedError("envmap lights are not ported yet; see ROADMAP.md")
+    return _SOA_MEMO.get(scene.device, None, lambda: _scene_soa_from_aos(scene))
+
+
+def _scene_soa_from_aos(scene: Scene) -> SceneSoA:
     dev = scene.device
     device = dev.geom.tri_v0.device
 
@@ -965,6 +976,7 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
     last_drain = 0
 
     def drain():
+        packet_kernels.check_overflow()
         for c, key in enumerate(("acc_x", "acc_y", "acc_z")):
             host_acc[c] += st[key].cpu().numpy().astype(np.float64)
             st[key].zero_()
@@ -1052,6 +1064,7 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
         k = min(batch, spp - done)
         out, nrays = _soa_pass(static, camera, sc, xs_d, ys_d, ray_idx,
                                int(seed) & 0xFFFFFFFF, done, k)
+        packet_kernels.check_overflow()
         for c in range(3):
             acc[c] += out[c].cpu().numpy().astype(np.float64)
         total_rays += float(nrays)

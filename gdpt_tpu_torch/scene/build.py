@@ -184,9 +184,41 @@ class Scene(NamedTuple):
     bvh_builder: str = ""
 
 
+class SceneMemo:
+    """What was last derived from a few scenes, keyed by the identity of
+    the scene's tensor tree (and a hashable extra). Repeated renders of
+    one scene then reuse the copy on the card and its packet table, which
+    cost seconds of host work on a large scene. The entry holds the tree,
+    so its id stays valid; a small FIFO, as a process touches a handful
+    of scenes."""
+
+    def __init__(self, cap=4):
+        self.cap = cap
+        self.entries = {}
+
+    def get(self, tree, extra, make):
+        key = (id(tree), extra)
+        hit = self.entries.get(key)
+        if hit is not None and hit[0] is tree:
+            return hit[1]
+        out = make()
+        if len(self.entries) >= self.cap:
+            self.entries.pop(next(iter(self.entries)))
+        self.entries[key] = (tree, out)
+        return out
+
+
+_MOVED = SceneMemo()
+
+
 def scene_to(scene: Scene, device) -> Scene:
-    """The same scene with every tensor on `device`."""
-    dev = soa.tree_map(lambda t: t.to(device), scene.device)
+    """The same scene with every tensor on `device` (the tensor tree is
+    memoised per scene and device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    dev = _MOVED.get(scene.device, device,
+                     lambda: soa.tree_map(lambda t: t.to(device), scene.device))
     return scene._replace(device=dev)
 
 

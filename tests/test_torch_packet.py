@@ -414,6 +414,15 @@ def test_visit_counts_and_stack_depth():
     shallow = tab._replace(stack_n=tab.width)          # one stack entry per ray
     with pytest.raises(RuntimeError, match="stack"):
         pk.trace_packets(shallow, *rays, tn, tf)
+    # rows_read marks the table rows these rays' visits read: the root,
+    # at most one row per visit of this 16-wide table, fewer for two rays.
+    read, read_half = (torch.zeros(tab.table.shape[0], dtype=torch.bool) for _ in range(2))
+    pk.trace_packets_plain(tab, *rays, tn, tf, rows_read=read)
+    tf_few = torch.full_like(tf, -1.0)
+    tf_few[:2] = 1e9
+    pk.trace_packets_plain(tab, *rays, tn, tf_few, rows_read=read_half)
+    assert bool(read[0]) and 1 < int(read.sum()) <= int(cnt[:, :2].sum())
+    assert bool((read | ~read_half).all()) and int(read_half.sum()) < int(read.sum())
     # The iteration ceiling ends a walk early (here after the root visit).
     t3, prim3, cnt3 = pk.trace_packets_plain(tab, *rays, tn, tf, counts=True, ceiling=1)
     assert int(cnt3[:, :2].sum(1).max()) == 1 and (prim3 == -1).all()
@@ -568,3 +577,28 @@ def test_cuda_kernel_matches_plain(mode):
         assert 0.05 < float((ref[1] >= 0).float().mean()) < 0.95
         for a, b in zip(got, ref):  # t, prim and the visit counts, bit for bit
             assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_reports_stack_overflow():
+    """A table whose stack_n understates its depth: the kernel never drops
+    a push silently. The overflowing rays' deepest count reads past the
+    depth and the wrapper raises, as the plain version does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, kw = _table_case("triangles", 16)
+    tab = tpt.packet_table_to(tpt.build_packet_table(*args, **kw), "cuda")
+    org, d = _rays(4096, seed=3)
+    rays = [torch.from_numpy(np.ascontiguousarray(a[:, i])).cuda()
+            for a in (org, d) for i in range(3)]
+    tn, tf = torch.full((4096,), 1e-4, device="cuda"), torch.full((4096,), 1e9, device="cuda")
+    pk.trace_packets(tab, *rays, tn, tf, counts=True)   # deep enough: no error
+    shallow = tab._replace(stack_n=tab.width)          # one stack entry per ray
+    with pytest.raises(RuntimeError, match="stack"):
+        pk.trace_packets(shallow, *rays, tn, tf, counts=True)
+    pk.trace_packets(shallow, *rays, tn, tf)
+    with pytest.raises(RuntimeError, match="stack"):
+        pk.check_overflow()
+    pk.check_overflow()                                 # the flag was cleared
+    with pytest.raises(RuntimeError, match="stack"):
+        pk.trace_packets_plain(shallow, *rays, tn, tf)

@@ -136,6 +136,32 @@ def test_pool_width_and_chunking_do_not_change_the_image(pool, k_iters):
     np.testing.assert_allclose(img, ref, rtol=0, atol=2e-6)
 
 
+def test_scene_tables_are_built_once_per_scene(monkeypatch):
+    """Repeated renders of one scene reuse its copy on the device and its
+    packet table; another scene, or the same one with other options, is
+    not served a stale entry."""
+    from gdpt_tpu_torch.accel import traverse_soa as ttrs
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    builds = []
+    real = ttrs.geom_soa_from_aos
+    monkeypatch.setattr(ttrs, "geom_soa_from_aos", lambda g, **k: builds.append(1) or real(g, **k))
+    scene = port_box(16, 16, 1)
+    a = trender.render(scene, seed=SEED, device="cpu")
+    b = trender.render(scene, seed=SEED, device="cpu")
+    assert builds == [1]
+    np.testing.assert_array_equal(a, b)
+    moved = scene_to(scene, "cpu")
+    assert moved.device is scene_to(scene, torch.device("cpu")).device
+    assert tpath.scene_soa_from_aos(moved) is tpath.scene_soa_from_aos(scene_to(scene, "cpu"))
+    two = scene._replace(static=dataclasses.replace(scene.static, width=8, height=8))
+    assert scene_to(two, "cpu").static.width == 8 and builds == [1]
+    assert trender.render(two, seed=SEED, device="cpu").shape == (8, 8, 3)
+    other = port_box(16, 16, 1)
+    trender.render(other, seed=SEED, device="cpu")
+    assert builds == [1, 1]
+
+
 def test_work_queue_limit(monkeypatch):
     """n_pix * spp >= 2^32 does not fit the uint32 work queue: the
     wavefront raises, and render_soa routes such a render to the banded
