@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   1. print the card and its power limit; build the native sources of
-     gdpt_tpu_torch/csrc (two CUDA files, one C++ file; one compiler
+     gdpt_tpu_torch/csrc (four CUDA files, one C++ file; one compiler
      process each, started together; timed);
   2. hold K1 (closest hit) and K2 (any hit) against their plain PyTorch
      versions at the 512x512 cbox's ray count: camera rays, random
@@ -38,7 +38,31 @@ Phases, each fatal on failure:
  11. time K3 (closest and any hit, rays morton-sorted and unsorted) by
      CUDA graph replay, beside its plain version and its bound, whose
      operations and table rows are counted from these rays' own visits;
- 12. profile one wavefront chunk (8 iterations) of the BVH render.
+ 12. profile one wavefront chunk (8 iterations) of the BVH render;
+ 13. build that scene's 16-wide packet table; hold K4 (the dual walk)
+     against its plain version and against K3 on it: camera, bounce and
+     shadow rays, 262,144 and 262,143 rays, closest and any hit;
+ 14. hold K5 (the visit microbenchmark) against its plain version in every
+     mode on 65,536 rays with 256 visits; then run the tool's entry point
+     at 262,144 rays with 2,048 visits on the 32- and the 16-wide table
+     (counters zeroed just before, read just after, one per mode): ns per
+     visit per ray and mode, beside K3's time per visit in the walk;
+ 15. the gradient-domain main path: render.render of the scene with
+     integrator "gradpath", 4 spp, default table (5-path lockstep in the
+     wavefront lane pool -> K3 -> screened-Poisson solve), counters zeroed
+     just before and read just after; the Poisson solve timed alone;
+ 16. the same render at 1 spp on the 16-wide table, solo (K3) then dual
+     (K4): identical images, K4 launched, K3 not launched by the dual
+     render;
+ 17. render gradpath 32x32 on cuda and on the CPU, brute force (cbox) and
+     BVH, and hold reconstruction and gradients together;
+ 18. time K4 beside K3 on the 16-wide table (rays sorted and unsorted) by
+     CUDA graph replay, beside the plain version and the bound;
+ 19. hold K3 and K4 against their plain versions on the ray batches the
+     gradpath lane pool hands the walk in its steady state (the pool's
+     own rays, the 8n-lane probe/replay cast with most lanes dead, the
+     5n-lane primary cast of a refill, the shadow rays): 0 rays may
+     differ; then profile one gradpath wavefront chunk (6 iterations).
 
 Prints one "kernels" JSON line, then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -57,6 +81,7 @@ OPS_PER_SPH_PAIR = 40       # 34 f32 add/sub/mul/div/max/sqrt + 6 compares
 OPS_PER_BOX = 25            # slab test: 6 mul, 6 sub, 12 min/max, 1 compare
 SPP_MAIN = 4                # brute-force main path
 SPP_BVH = 4                 # BVH main path
+SPP_GRAD = 4                # gradient-domain main path
 N_BRUTE_SAMPLE = 16384      # rays held against brute force over all triangles
 
 
@@ -322,96 +347,41 @@ def _secondary_rays(org, d, t, prim, shadow_eps):
     return cont(pos), cont(rd.unbind(0)), cont(dl), tfar, live
 
 
-def _cuda_vs_cpu(render, scene, phase, label):
+def _gate_cuda_vs_cpu(a, b, scale, phase, label):
     import numpy as np
 
-    a = render.render(scene, seed=3, device="cuda")
-    b = render.render(scene, seed=3, device="cpu")
     frac = float(np.isclose(a, b, rtol=1e-3, atol=1e-4).mean())
-    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(float(b.mean()), 1e-12)
+    mean_rel = abs(float(a.mean()) - float(b.mean())) / max(scale, 1e-12)
     print(f"phase {phase}: cuda vs cpu 32x32 {label}: {frac:.5f} of values within "
           f"rtol 1e-3/atol 1e-4, mean rel diff {mean_rel:.3g}")
     if frac < 0.99 or mean_rel > 1e-3:
         raise AssertionError(f"cuda and cpu renders of the {label} disagree")
 
 
-def _icosphere(level, center, radius):
-    """Unit icosahedron subdivided `level` times (20 * 4^level triangles),
-    vertices pushed onto the sphere: (positions (V, 3), indices (T, 3))."""
-    import numpy as np
-
-    p = (1 + 5 ** 0.5) / 2
-    v = np.array([[-1, p, 0], [1, p, 0], [-1, -p, 0], [1, -p, 0], [0, -1, p], [0, 1, p],
-                  [0, -1, -p], [0, 1, -p], [p, 0, -1], [p, 0, 1], [-p, 0, -1], [-p, 0, 1]],
-                 np.float64)
-    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9],
-                  [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2],
-                  [3, 2, 6], [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
-                  [8, 6, 7], [9, 8, 1]], np.int64)
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    for _ in range(level):
-        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
-        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
-        mid = v[uniq[:, 0]] + v[uniq[:, 1]]
-        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
-        ab, bc, ca = inv.reshape(3, -1) + len(v)
-        v = np.concatenate([v, mid])
-        a, b, c = f[:, 0], f[:, 1], f[:, 2]
-        f = np.concatenate([np.stack([a, ab, ca], 1), np.stack([b, bc, ab], 1),
-                            np.stack([c, ca, bc], 1), np.stack([ab, bc, ca], 1)])
-    return v * radius + np.asarray(center, np.float64), f
+def _cuda_vs_cpu(render, scene, phase, label):
+    a = render.render(scene, seed=3, device="cuda")
+    b = render.render(scene, seed=3, device="cpu")
+    _gate_cuda_vs_cpu(a, b, float(b.mean()), phase, label)
 
 
-def _icosphere_box(width, height, spp, balls, spheres=(), max_depth=-1):
-    """The Cornell box of presets.cornell_box (walls, ceiling light,
-    camera, materials) with its two blocks replaced by icospheres:
-    balls = [(level, center, radius), ...]; spheres = analytic spheres
-    [(center, radius), ...]. Lambertian throughout."""
-    import numpy as np
-
-    from gdpt_tpu_torch.core import transform as xf
-    from gdpt_tpu_torch.scene import build, presets
-    from gdpt_tpu_torch.scene import model as M
-    from gdpt_tpu_torch.scene.filters import FILTER_GAUSSIAN
-
-    quads = presets._mesh_from_quads
-    materials = [M.Lambertian(presets.WHITE), M.Lambertian(presets.RED),
-                 M.Lambertian(presets.GREEN), M.Lambertian(np.array([0.78, 0.78, 0.78]))]
-    shapes = [
-        quads([((552.8, 0, 0), (0, 0, 0), (0, 0, 559.2), (549.6, 0, 559.2))], material_id=0),
-        quads([((556, 548.8, 0), (556, 548.8, 559.2), (0, 548.8, 559.2), (0, 548.8, 0))],
-              material_id=0),
-        quads([((549.6, 0, 559.2), (0, 0, 559.2), (0, 548.8, 559.2), (556, 548.8, 559.2))],
-              material_id=0),
-        quads([((0, 0, 559.2), (0, 0, 0), (0, 548.8, 0), (0, 548.8, 559.2))], material_id=2),
-        quads([((552.8, 0, 0), (549.6, 0, 559.2), (556, 548.8, 559.2), (556, 548.8, 0))],
-              material_id=1),
-    ]
-    for level, center, radius in balls:
-        pos, idx = _icosphere(level, center, radius)
-        shapes.append(M.TriangleMesh(positions=pos, indices=idx, material_id=0))
-    for center, radius in spheres:
-        shapes.append(M.Sphere(center=np.asarray(center, np.float64), radius=radius,
-                               material_id=0))
-    shapes.append(quads([((343, 548.7, 227), (343, 548.7, 332), (213, 548.7, 332),
-                          (213, 548.7, 227))], material_id=3, area_light_id=0))
-    lights = [M.DiffuseAreaLight(shape_id=len(shapes) - 1, intensity=presets.LIGHT_RGB)]
-    cam = M.Camera(cam_to_world=xf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
-                   fov=39.3077, width=width, height=height,
-                   filter_kind=FILTER_GAUSSIAN, filter_param=0.5)
-    opts = M.RenderOptions(integrator="path", samples_per_pixel=spp, max_depth=max_depth)
-    return build.build_scene(cam, materials, shapes, lights, options=opts)
+def _gradpath_cuda_vs_cpu(render, scene, label):
+    """Reconstruction and gradients of a gradpath render, cuda against
+    cpu; the gradients' means (differences near zero) are held to 0.1% of
+    the primal's mean."""
+    a, aux_a = render.render(scene, seed=3, device="cuda", return_aux=True)
+    b, aux_b = render.render(scene, seed=3, device="cpu", return_aux=True)
+    scale = float(aux_b["primal"].mean())
+    _gate_cuda_vs_cpu(a, b, scale, 17, f"gradpath {label}, recon")
+    for name in ("gx", "gy"):
+        _gate_cuda_vs_cpu(aux_a[name], aux_b[name], scale, 17, f"gradpath {label}, {name}")
 
 
-# The tall block's place and the short block's, resting on the floor.
-BALLS_FULL = [(7, (368.0, 100.0, 351.0), 100.0), (6, (186.0, 60.0, 169.0), 60.0)]
-
-
-def _compare_k3(pk, tab, rays, n_tris, any_hit, label):
+def _compare_k3(pk, tab, rays, n_tris, any_hit, label, exact=False):
     """K3 against its plain version on the same rays. Both walk the same
     nodes in the same order with separately rounded operations, so t is
     held bit-equal and prim equal; the gate allows 0.01% of rays, every
-    exception counted and printed. Returns (max abs err of t, counts)."""
+    exception counted and printed; with `exact` no ray may differ, in its
+    visit counts either. Returns (max abs err of t, counts)."""
     import torch
 
     t, prim, cnt = pk.trace_packets(tab, *rays, n_tris=n_tris, any_hit=any_hit, counts=True)
@@ -434,6 +404,8 @@ def _compare_k3(pk, tab, rays, n_tris, any_hit, label):
           f"tests, deepest stack {int(cnt[:, 3].max())} of {tab.stack_n // tab.width}")
     if bad_t + bad_prim > n // 10000 or not bool(torch.isfinite(t).all()):
         raise AssertionError(f"K3 disagrees with its plain version on {label}")
+    if exact and bad_t + bad_prim + bad_cnt + int(((t != rt) | (prim != rprim)).sum()):
+        raise AssertionError(f"K3 differs from its plain version on {label}")
     return err, cnt
 
 
@@ -457,13 +429,14 @@ def _small_table_checks(pk, dev):
     import torch
 
     from gdpt_tpu_torch.accel import traverse_soa as trs
+    from gdpt_tpu_torch.scene import presets
     from gdpt_tpu_torch.scene.build import scene_to
 
     errs = []
     spheres = [((60.0 + 48.0 * i, 40.0 + 30.0 * (i % 3), 120.0 + 35.0 * i), 30.0)
                for i in range(10)]
     for label, wide, sph in (("16-wide table", 16, ()), ("in-table spheres", 32, spheres)):
-        scene = _icosphere_box(256, 256, 1, [(3, (368.0, 100.0, 351.0), 100.0)], sph)
+        scene = presets.icosphere_box(256, 256, 1, [(3, (368.0, 100.0, 351.0), 100.0)], sph)
         st = scene.static
         g = trs.geom_soa_from_aos(scene_to(scene, dev).device.geom, wide=wide)
         n_tris = trs._table_n_tris(st)
@@ -500,9 +473,53 @@ def _small_table_checks(pk, dev):
     return max(errs)
 
 
+def _time_walk(pk, pt, tab, r, rs, any_hit, dual, phase, name, source, replaces, launches,
+               spp, err, card):
+    """Time one walk kernel (K3, or K4 with dual) on rays `r` and their
+    morton-sorted copy `rs` by CUDA graph replay, beside the plain version
+    and the bound counted from these rays' own visits. Returns its row and
+    its time per visit per ray in ns."""
+    import torch
+
+    from gdpt_tpu_torch.core.soa import V3
+
+    n, rows = r[0].shape[0], tab.table.shape[0]
+    walk = lambda rr: pk.trace_packets(tab, *rr, any_hit=any_hit, dual=dual)  # noqa: E731
+    plain = pk.trace_packets_dual_plain if dual else pk.trace_packets_plain
+    ms_sorted, _ = _time_ms(lambda: walk(rs), 10, 3)
+    ms_unsorted, _ = _time_ms(lambda: walk(r), 10, 3)
+    full = (pt.occluded_packet if any_hit else pt.intersect_packet)
+    o3, d3 = V3(*r[:3]), V3(*r[3:6])
+    full(tab, o3, d3, r[6], r[7], dual=dual)
+    ms_full = _events_ms(lambda: [full(tab, o3, d3, r[6], r[7], dual=dual) for _ in range(5)], 5)
+    plain(tab, *rs, any_hit=any_hit)
+    ms_plain = _events_ms(lambda: plain(tab, *rs, any_hit=any_hit), 1)
+    cnt = pk.trace_packets(tab, *rs, any_hit=any_hit, counts=True, dual=dual)[2]
+    cnt = cnt.sum(dim=0).tolist()
+    ops = cnt[0] * tab.width * OPS_PER_BOX + cnt[2] * OPS_PER_TRI_PAIR
+    # Bytes of this call: eight ray arrays in (no start refs), t and
+    # prim out, and each table row these rays' visits read, once.
+    read = torch.zeros(rows, dtype=torch.bool, device=r[0].device)
+    pk.trace_packets_plain(tab, *rs, any_hit=any_hit, rows_read=read)
+    n_read = int(read.sum())
+    nbytes = 40 * n + n_read * 512
+    row = _kernel_row(name, source, replaces, launches, err, ms_sorted, ms_plain, nbytes, ops)
+    visits = cnt[0] + cnt[1]
+    print(f"phase {phase}: {name}: {ms_sorted * 1e3:.1f} us/launch on sorted rays, "
+          f"{ms_unsorted * 1e3:.1f} us unsorted, {ms_full * 1e3:.1f} us per eager wrapper "
+          f"call with sort, unsort and hit attributes; plain (eager, with its host "
+          f"syncs) {ms_plain * 1e3:.0f} us; bound {row['bound_ms'] * 1e3:.2f} us "
+          f"({row['bound_by']}: {ops / 1e9:.2f} Gop, {nbytes / 1e6:.1f} MB = 40 B/ray + "
+          f"{n_read} of {rows} rows read); {visits / n:.2f} visits per ray = "
+          f"{ms_sorted * 1e6 / max(visits, 1):.4f} ns per visit per ray; "
+          f"{launches / spp:.1f} launches/sample on {card}")
+    return row, ms_sorted * 1e6 / max(visits, 1)
+
+
 def _bvh_phases(card):
     """Phases 7-12: the BVH path (packet table, K3, wavefront renderer)
-    at full size. Returns K3's rows for the JSON line."""
+    at full size. Returns K3's rows for the JSON line, and what the
+    gradient-domain phases reuse: the scene and its ray sets."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -512,13 +529,14 @@ def _bvh_phases(card):
     from gdpt_tpu_torch.accel import packet_trace as pt
     from gdpt_tpu_torch.core.soa import V3
     from gdpt_tpu_torch.integrators import path_soa, render
+    from gdpt_tpu_torch.scene import presets
     from gdpt_tpu_torch.scene.build import scene_to
 
     dev = torch.device("cuda")
 
     # ---- phase 7: the scene, its BVH and its packet table ----
     t0 = time.perf_counter()
-    scene = _icosphere_box(512, 512, SPP_BVH, BALLS_FULL)
+    scene = presets.icosphere_box(512, 512, SPP_BVH, presets.ICOSPHERE_BALLS)
     t_scene = time.perf_counter() - t0
     st = scene.static
     t0 = time.perf_counter()
@@ -596,51 +614,29 @@ def _bvh_phases(card):
           f"iterations, mean occupancy {occ:.3f} on {card}")
     if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not mean > 0:
         raise AssertionError("BVH main-path image is not finite, not 512x512x3 or black")
-    if min(launches.values()) == 0:
+    if min(launches["packet_intersect"], launches["packet_occluded"]) == 0:
         raise AssertionError(f"a K3 mode of the BVH main path was never launched: {launches}")
 
     # ---- phase 10: cuda vs cpu render of a small BVH scene ----
-    _cuda_vs_cpu(render, _icosphere_box(32, 32, 2, [(3, (368.0, 100.0, 351.0), 100.0)]),
+    _cuda_vs_cpu(render, presets.icosphere_box(32, 32, 2, [(3, (368.0, 100.0, 351.0), 100.0)]),
                  10, "icosphere box (1,280 + 12 triangles)")
 
     # ---- phase 11: timing beside the bound ----
-    def presorted(r):
+    def presorted(r, tab=tab):
         keys = pt._morton_keys(tab, V3(*r[:3]), V3(*r[3:6]))
         perm = torch.argsort(torch.where(r[7] >= r[6], keys, 2 ** 30), stable=True)
         return tuple(c[perm].contiguous() for c in r)
 
-    out_rows = []
+    out_rows, ns_visit = [], []
     for name, mode, r, any_hit, err_k in (
             ("trace_packets closest (K3)", "packet_intersect", bounce, False, err_c),
             ("trace_packets any-hit (K3)", "packet_occluded", shadow, True, err_s)):
-        rs = presorted(r)
-        ms_sorted, _ = _time_ms(lambda: pk.trace_packets(tab, *rs, any_hit=any_hit), 10, 3)
-        ms_unsorted, _ = _time_ms(lambda: pk.trace_packets(tab, *r, any_hit=any_hit), 10, 3)
-        full = (pt.occluded_packet if any_hit else pt.intersect_packet)
-        o3, d3 = V3(*r[:3]), V3(*r[3:6])
-        full(tab, o3, d3, r[6], r[7])
-        ms_full = _events_ms(lambda: [full(tab, o3, d3, r[6], r[7]) for _ in range(5)], 5)
-        pk.trace_packets_plain(tab, *rs, any_hit=any_hit)
-        ms_plain = _events_ms(lambda: pk.trace_packets_plain(tab, *rs, any_hit=any_hit), 1)
-        cnt = pk.trace_packets(tab, *rs, any_hit=any_hit, counts=True)[2].sum(dim=0).tolist()
-        ops = cnt[0] * tab.width * OPS_PER_BOX + cnt[2] * OPS_PER_TRI_PAIR
-        # Bytes of this call: eight ray arrays in (no start refs), t and
-        # prim out, and each table row these rays' visits read, once.
-        read = torch.zeros(rows, dtype=torch.bool, device=dev)
-        pk.trace_packets_plain(tab, *rs, any_hit=any_hit, rows_read=read)
-        n_read = int(read.sum())
-        nbytes = 40 * n + n_read * 512
-        row = _kernel_row(name, "gdpt_tpu_torch/csrc/packet_trace.cu",
-                          "gdpt_tpu/accel/packet_trace.py:486", launches[mode], err_k,
-                          ms_sorted, ms_plain, nbytes, ops)
+        row, ns = _time_walk(
+            pk, pt, tab, r, presorted(r), any_hit, False, 11, name,
+            "gdpt_tpu_torch/csrc/packet_trace.cu", "gdpt_tpu/accel/packet_trace.py:486",
+            launches[mode], SPP_BVH, err_k, card)
         out_rows.append(row)
-        print(f"phase 11: {name}: {ms_sorted * 1e3:.1f} us/launch on sorted rays, "
-              f"{ms_unsorted * 1e3:.1f} us unsorted, {ms_full * 1e3:.1f} us per eager wrapper "
-              f"call with sort, unsort and hit attributes; plain (eager, with its host "
-              f"syncs) {ms_plain * 1e3:.0f} us; bound {row['bound_ms'] * 1e3:.2f} us "
-              f"({row['bound_by']}: {ops / 1e9:.2f} Gop, {nbytes / 1e6:.1f} MB = 40 B/ray + "
-              f"{n_read} of {rows} rows read); "
-              f"{launches[mode] / SPP_BVH:.1f} launches/sample on {card}")
+        ns_visit.append(ns)
 
     # ---- phase 12: one wavefront chunk under the profiler ----
     n_pix = st.width * st.height
@@ -658,7 +654,260 @@ def _bvh_phases(card):
         wall_us = (time.perf_counter() - t0) * 1e6
     _report_profile(prof, wall_us, 12, "8 wavefront iterations of the icosphere box",
                     "packet_trace_kernel", "K3", card)
-    return out_rows
+    return out_rows, dict(scene=scene, scene_dev=scene_dev, cam=cam, bounce=bounce,
+                          shadow=shadow, presorted=presorted, k3_ns_per_visit=ns_visit)
+
+
+def _compare_k4(pk, tab, rays, any_hit, label):
+    """K4 against its plain version and against K3 on the same rays and
+    16-wide table: t, prim and the visit counts are held equal bit for
+    bit (the same walk per ray). Returns the max abs err of t."""
+    import torch
+
+    got = pk.trace_packets(tab, *rays, any_hit=any_hit, counts=True, dual=True)
+    ref = pk.trace_packets_dual_plain(tab, *rays, any_hit=any_hit, counts=True)
+    solo = pk.trace_packets(tab, *rays, any_hit=any_hit, counts=True)
+    torch.cuda.synchronize()
+    n = got[0].shape[0]
+    bad = [[int((a != b).reshape(n, -1).any(dim=1).sum()) for a, b in zip(got, other)]
+           for other in (ref, solo)]
+    mean = got[2].float().mean(dim=0).tolist()
+    print(f"  K4 {'any-hit' if any_hit else 'closest'} {label}: {n} rays; vs plain: t differs on "
+          f"{bad[0][0]}, prim on {bad[0][1]}, counts on {bad[0][2]}; vs K3: t {bad[1][0]}, prim "
+          f"{bad[1][1]}, counts {bad[1][2]}; hits {float((ref[1] >= 0).float().mean()):.4f}; per "
+          f"ray {mean[0]:.1f} super visits, {mean[1]:.1f} leaf visits, {mean[2]:.1f} primitive "
+          f"tests, deepest stack {int(got[2][:, 3].max())} of {tab.stack_n // tab.width}")
+    if sum(map(sum, bad)) or not bool(torch.isfinite(got[0]).all()):
+        raise AssertionError(f"K4 disagrees with its plain version or with K3 on {label}")
+    return float((got[0] - ref[0]).abs().max())
+
+
+def _gradpath_phases(card, ctx):
+    """Phases 13-19: the gradient-domain path (5-path lockstep, Poisson
+    solve) on the icosphere box, the dual walk K4 on its 16-wide table
+    and the visit microbenchmark K5. Returns K4's and K5's rows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import packet_trace as pt
+    from gdpt_tpu_torch.integrators import gdpt_soa, path_soa, render
+    from gdpt_tpu_torch.ops import poisson
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+    from gdpt_tpu_torch.tools import visit_microbench as vm
+
+    dev = torch.device("cuda")
+    scene_dev = ctx["scene_dev"]
+    cam, bounce, shadow = ctx["cam"], ctx["bounce"], ctx["shadow"]
+    st = scene_dev.static
+    sc32 = path_soa.scene_soa_from_aos(scene_dev)
+    tab32 = sc32.geom.packet
+
+    # ---- phase 13: the 16-wide table; K4 vs plain and vs K3 ----
+    t0 = time.perf_counter()
+    sc16 = path_soa.scene_soa_from_aos(scene_dev, wide=16)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    tab16 = sc16.geom.packet
+    rows16 = tab16.table.shape[0]
+    print(f"phase 13: 16-wide packet table {rows16} rows x 128 ({rows16 * 512 / 1e6:.1f} MB), "
+          f"stack_n {tab16.stack_n}, table and shading tables {t_table:.2f} s")
+    if tab16.width != 16:
+        raise AssertionError("the 16-wide table is not 16-wide")
+    err4 = {False: 0.0, True: 0.0}
+    for label, r, any_hit in (("camera rays", cam, False), ("bounce rays", bounce, False),
+                              ("shadow rays", shadow, True)):
+        for n in (r[0].shape[0], r[0].shape[0] - 1):
+            cut = tuple(c[:n].contiguous() for c in r)
+            err4[any_hit] = max(err4[any_hit], _compare_k4(pk, tab16, cut, any_hit, label))
+    try:
+        pk.trace_packets(tab32, *bounce, dual=True)
+    except ValueError as e:
+        print(f"  K4 on the 32-wide table raises: {e}")
+    else:
+        raise AssertionError("the dual walk took a 32-wide table")
+    print("phase 13: K4 agrees with its plain version and with K3")
+
+    # ---- phase 14: K5 vs plain in every mode, then the timed tool run ----
+    small = vm.random_rays(tab32, 65_536, seed=1)
+    err5 = dict.fromkeys(vm.MODES, 0.0)
+    for tab in (tab32, tab16):
+        for mode in vm.MODES:
+            got = vm.visit_microbench(tab, *small, 256, mode)
+            ref = vm.visit_microbench_plain(tab, *small, 256, mode)
+            torch.cuda.synchronize()
+            bad = [int((a != b).sum()) for a, b in zip(got, ref)]
+            err5[mode] = max(err5[mode], float((got[0] - ref[0]).abs().max()))
+            print(f"  K5 {mode} on the {tab.width}-wide table: 65536 rays x 256 visits: t differs "
+                  f"on {bad[0]}, prim on {bad[1]}, mask word on {bad[2]}; hits "
+                  f"{float((ref[1] >= 0).float().mean()):.4f}, word set on "
+                  f"{float((ref[2] != 0).float().mean()):.4f}")
+            if sum(bad):
+                raise AssertionError(f"K5 disagrees with its plain version in mode {mode}")
+    print("phase 14: K5 agrees with its plain version in every mode")
+    for k in vm.LAUNCHES:
+        vm.LAUNCHES[k] = 0
+    n_rays, n_visits = 262_144, 2048
+    timed = {tab.width: vm.run(tab, n_rays, n_visits, out=lambda m: print("  " + m))
+             for tab in (tab32, tab16)}
+    k5_launches = dict(vm.LAUNCHES)
+    if min(k5_launches.values()) == 0:
+        raise AssertionError(f"the microbenchmark's entry point left a mode out: {k5_launches}")
+    ns3 = ctx["k3_ns_per_visit"]
+    print(f"phase 14: K5 on {card}: launches by mode {k5_launches}; K3 in its walk spends "
+          f"{ns3[0]:.4f} (closest) and {ns3[1]:.4f} (any hit) ns per visit per ray on the 32-wide "
+          f"table; coherent visits there cost {timed[32]['super32'][1]:.5f} (super32) and "
+          f"{timed[32]['leaf24'][1]:.5f} (leaf24) ns, the bare loop {timed[32]['empty'][1]:.5f}")
+    k5_rows = []
+    rays_t = vm.random_rays(tab32, n_rays)
+    for mode in ("super32", "leaf24"):  # the 32-wide table's own two visits
+        ms_plain = _events_ms(lambda: vm.visit_microbench_plain(tab32, *rays_t, n_visits, mode), 1)
+        ops, distinct = vm.visit_work(tab32, n_visits, mode)
+        k5_rows.append(_kernel_row(
+            f"visit_microbench {mode} (K5)", "gdpt_tpu_torch/csrc/visit_microbench.cu",
+            "tools/visit_microbench.py:44", k5_launches[mode], err5[mode], timed[32][mode][0],
+            ms_plain, 44 * n_rays + distinct * 512, ops * n_rays))
+        print(f"phase 14: K5 {mode}: {timed[32][mode][0]:.3f} ms/launch, plain {ms_plain:.0f} ms, "
+              f"bound {k5_rows[-1]['bound_ms']:.3f} ms ({k5_rows[-1]['bound_by']}: "
+              f"{ops * n_rays / 1e9:.1f} Gop, {distinct} distinct rows)")
+
+    # ---- phase 15: the gradient-domain main path on cuda (K3) ----
+    grad = ctx["scene"]._replace(static=dataclasses.replace(
+        st, options=dataclasses.replace(st.options, integrator="gradpath")))
+    if path_soa.scene_soa_from_aos(scene_to(grad, "cuda")).geom.packet is not tab32:
+        raise AssertionError("the scene's tables of phase 7 were not kept for the render")
+    for k in pk.LAUNCHES:
+        pk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    recon, aux, rays = render.render(grad, spp=SPP_GRAD, seed=0, device="cuda",
+                                     return_aux=True, return_stats=True)
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    iters = gdpt_soa._gdpt_wavefront_accum.last_iters
+    occ = gdpt_soa._gdpt_wavefront_accum.last_occupancy
+    m_recon, m_primal = float(recon.mean()), float(aux["primal"].mean())
+    print(f"phase 15: icosphere box 512x512 gradpath spp {SPP_GRAD}: mean recon {m_recon:.6f}, "
+          f"mean primal {m_primal:.6f}, wall {wall:.3f} s (tables kept), rays {rays:.0f}, "
+          f"{rays / wall / 1e6:.2f} Mrays/s, launches {launches}, {iters} wavefront iterations, "
+          f"mean occupancy {occ:.3f} on {card}")
+    if recon.shape != (512, 512, 3) or not np.isfinite(recon).all() or not m_primal > 0:
+        raise AssertionError("gradpath reconstruction is not finite, not 512x512x3 or black")
+    if not all(np.isfinite(a).all() for a in aux.values()) or not np.abs(aux["gx"]).mean() > 0:
+        raise AssertionError("gradpath auxiliary buffers are not finite, or the gradients zero")
+    if abs(m_recon - m_primal) > 0.02 * m_primal:
+        raise AssertionError("the reconstruction lost the primal's mean (the DC term)")
+    if min(launches["packet_intersect"], launches["packet_occluded"]) == 0 or \
+            launches["packet_dual_intersect"] + launches["packet_dual_occluded"]:
+        raise AssertionError(f"the gradpath main path did not go through K3 alone: {launches}")
+    grad_launches = launches
+    imgs = [torch.as_tensor(aux[k], device=dev) for k in ("primal", "gx", "gy")]
+    solve = lambda: poisson.screened_poisson_solve(*imgs, st.options.gdpt_alpha)  # noqa: E731
+    solve()
+    print(f"phase 15: screened-Poisson solve alone at 512x512: "
+          f"{_events_ms(lambda: [solve() for _ in range(10)], 10):.3f} ms on the device")
+
+    # ---- phase 16: 16-wide table, solo then dual ----
+    outs = {}
+    for dual in (False, True):
+        if path_soa.scene_soa_from_aos(scene_to(grad, "cuda"), 16, dual).geom.packet is not tab16:
+            raise AssertionError("the 16-wide table was not kept for the render")
+        for k in pk.LAUNCHES:
+            pk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        outs[dual] = render.render(grad, spp=1, seed=0, device="cuda", return_aux=True,
+                                   return_stats=True, packet_wide=16, packet_dual=dual)
+        wall = time.perf_counter() - t0
+        outs[dual] += (dict(pk.LAUNCHES),)
+        print(f"phase 16: gradpath 1 spp, 16-wide table, {'dual (K4)' if dual else 'solo (K3)'}: "
+              f"wall {wall:.3f} s, rays {outs[dual][2]:.0f}, {outs[dual][2] / wall / 1e6:.2f} "
+              f"Mrays/s, launches {outs[dual][3]}")
+    same = np.array_equal(outs[True][0], outs[False][0]) and all(
+        np.array_equal(outs[True][1][k], outs[False][1][k]) for k in outs[True][1])
+    dual_launches = outs[True][3]
+    if not same or outs[True][2] != outs[False][2]:
+        raise AssertionError("the dual walk's render differs from the solo walk's")
+    if min(dual_launches["packet_dual_intersect"], dual_launches["packet_dual_occluded"]) == 0 \
+            or dual_launches["packet_intersect"] + dual_launches["packet_occluded"]:
+        raise AssertionError(f"the dual render did not go through K4 alone: {dual_launches}")
+    print("phase 16: the dual render equals the solo render, through K4 alone")
+
+    # ---- phase 17: cuda vs cpu gradpath, brute force and BVH ----
+    _gradpath_cuda_vs_cpu(render, presets.cornell_box(32, 32, spp=2, max_depth=3,
+                                                      integrator="gradpath"), "cbox")
+    _gradpath_cuda_vs_cpu(
+        render, presets.icosphere_box(32, 32, 2, [(3, (368.0, 100.0, 351.0), 100.0)],
+                                      integrator="gradpath", max_depth=3),
+        "icosphere box (1,280 + 12 triangles)")
+
+    # ---- phase 18: K4 beside K3 on the 16-wide table ----
+    rows = []
+    for r, any_hit, mode in ((bounce, False, "intersect"), (shadow, True, "occluded")):
+        rs = ctx["presorted"](r, tab16)
+        what = "any-hit" if any_hit else "closest"
+        for dual, name, src, line, cnt in (
+                (False, f"trace_packets {what} (K3), 16-wide table",
+                 "gdpt_tpu_torch/csrc/packet_trace.cu", "gdpt_tpu/accel/packet_trace.py:486",
+                 outs[False][3][f"packet_{mode}"]),
+                (True, f"trace_packets dual {what} (K4)",
+                 "gdpt_tpu_torch/csrc/packet_trace_dual.cu", "gdpt_tpu/accel/packet_trace.py:829",
+                 dual_launches[f"packet_dual_{mode}"])):
+            row, _ = _time_walk(pk, pt, tab16, r, rs, any_hit, dual, 18, name, src, line, cnt, 1,
+                                err4[any_hit], card)
+            if dual:
+                rows.append(row)
+
+    # ---- phase 19: the pool's own batches, then a chunk under the profiler ----
+    sc = sc32
+    n_pix = st.width * st.height
+    total = n_pix * SPP_GRAD
+    camera = scene_dev.device.camera
+    used = st.used_material_kinds
+    state = gdpt_soa._gdpt_wavefront_state(st, camera, sc, total, 1,
+                                           path_soa._pool_width(total, 1 << 17))
+    # Fill the pool to its steady state first, keeping the last batch of
+    # each size and mode as the walk's wrapper receives it (scrubbed,
+    # sorted, retired lanes at the back with tfar = -1).
+    batches = {}
+    walk = pk.trace_packets
+
+    def recording(tab, *rays, **kw):
+        batches[(rays[0].shape[0], bool(kw.get("any_hit")))] = rays
+        return walk(tab, *rays, **kw)
+
+    pk.trace_packets = recording
+    try:
+        for _ in range(6):
+            state = gdpt_soa._gdpt_wavefront_body(st, camera, sc, used, state)
+    finally:
+        pk.trace_packets = walk
+    pool = state["pending"].shape[0]
+    if {(pool, False), (pool, True), (5 * pool, False), (8 * pool, False)} - set(batches):
+        raise AssertionError(f"the pool's casts were not all seen: {sorted(batches)}")
+    for (n, any_hit), rays in sorted(batches.items()):
+        dead = float((rays[7] < rays[6]).float().mean())
+        label = f"pool batch of {n // pool} x {pool} lanes, {dead:.4f} dead"
+        _compare_k3(pk, tab32, rays, None, any_hit, label + ", 32-wide table", exact=True)
+        _compare_k4(pk, tab16, rays, any_hit, label)
+    print("phase 19: K3 and K4 agree with their plain versions on the pool's own batches")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(6):
+            state = gdpt_soa._gdpt_wavefront_body(st, camera, sc, used, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(prof, wall_us, 19, "6 gradpath wavefront iterations of the icosphere box",
+                    "packet_trace_kernel", "K3", card)
+    print(f"phase 19: K3 launches per gradpath sample: "
+          f"{grad_launches['packet_intersect'] / SPP_GRAD:.1f} closest, "
+          f"{grad_launches['packet_occluded'] / SPP_GRAD:.1f} any hit "
+          f"({grad_launches['packet_intersect'] / iters:.2f} and "
+          f"{grad_launches['packet_occluded'] / iters:.2f} per iteration)")
+    return rows + k5_rows
 
 
 def main():
@@ -675,11 +924,14 @@ def main():
     print(f"phase 1: card {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
     libs = native_build.build_all(
-        ["brute_intersect.cu", "packet_trace.cu", "bvh_builder.cpp"], verbose=True)
+        ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
+         "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
 
-    rows = _brute_phases(card) + _bvh_phases(card)
+    rows = _brute_phases(card)
+    k3_rows, ctx = _bvh_phases(card)
+    rows += k3_rows + _gradpath_phases(card, ctx)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

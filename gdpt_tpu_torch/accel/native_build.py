@@ -1,14 +1,16 @@
 """Build the package's native sources (csrc/) at first use.
 
 One compiler run per source, into build/gdpt_tpu_torch/ of the checkout,
-under a file name keyed by a hash of the source and the flags, so a
-source or flag change rebuilds and an unchanged one is reused. Nothing
+under a file name keyed by a hash of the source, the headers of csrc/
+that it includes and the flags, so a source, header or flag change
+rebuilds and an unchanged one is reused. Nothing
 is built when a module is imported. A failure raises: no caller catches
 it to carry on without the library.
 """
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -42,14 +44,29 @@ def gxx():
     return path
 
 
+def _flags(src):
+    return NVCC_FLAGS if src.suffix == ".cu" else GXX_FLAGS
+
+
+def library_path(source) -> Path:
+    """Where csrc/<source> is built to: the name hashes the source, the
+    headers of csrc/ it names in an #include "..." line (the headers
+    include none of their own) and the flags."""
+    src = CSRC / source
+    text = src.read_bytes()
+    for name in sorted(set(re.findall(rb'^#include "([^"]+)"', text, re.M))):
+        text += (CSRC / name.decode()).read_bytes()
+    key = hashlib.sha256(text + " ".join(_flags(src)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}_{key}.so"
+
+
 def build(source, verbose=False) -> Path:
     """Compile csrc/<source> (.cu with nvcc, .cpp with g++) unless this
-    source and these flags were built before; returns the library path."""
+    source with these flags was built before; returns the library path."""
     src = CSRC / source
     cuda = src.suffix == ".cu"
-    flags = NVCC_FLAGS if cuda else GXX_FLAGS
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}_{key}.so"
+    flags = _flags(src)
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

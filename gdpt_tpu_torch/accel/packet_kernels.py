@@ -1,10 +1,14 @@
-"""The BVH walk over the packet table (K3): closest hit or any hit.
+"""The BVH walk over the packet table: closest hit or any hit, solo
+(K3) or dual (K4).
 
-Counterpart of gdpt_tpu/accel/packet_trace.py `_make_kernel` /
-`_trace_packets`. The hand-written Hopper kernel lives in
-csrc/packet_trace.cu; this module builds it at first use
-(accel/native_build.py), binds it with ctypes and launches it on
-PyTorch's current stream. `trace_packets` takes its plain PyTorch
+Counterpart of gdpt_tpu/accel/packet_trace.py `_make_kernel`,
+`_make_kernel_dual` and `_trace_packets`. The hand-written Hopper
+kernels live in csrc/packet_trace.cu (K3: one ray per thread) and
+csrc/packet_trace_dual.cu (K4: two rays per thread with their visit
+bodies interleaved, 16-wide tables only), over the visit bodies of
+csrc/packet_visit.cuh; this module builds them at first use
+(accel/native_build.py), binds them with ctypes and launches them on
+PyTorch's current stream. `trace_packets` takes a plain PyTorch
 version only for tensors on the CPU. For CUDA tensors it launches the
 kernel or raises: there is no fallback. LAUNCHES counts kernel launches.
 A ray whose stack runs full (a table whose stack_n understates its
@@ -39,14 +43,18 @@ import torch
 from gdpt_tpu_torch.accel import native_build
 from gdpt_tpu_torch.core.dtypes import INT, REAL
 
-LAUNCHES = {"packet_intersect": 0, "packet_occluded": 0}
+LAUNCHES = {"packet_intersect": 0, "packet_occluded": 0,
+            "packet_dual_intersect": 0, "packet_dual_occluded": 0}
 
 SOURCE = "packet_trace.cu"
+SOURCE_DUAL = "packet_trace_dual.cu"
+BLOCK = 128              # threads per block of both kernels
 MAX_DEPTH = 32           # stack entries per ray compiled into the kernel
 _ROW_MASK = (1 << 22) - 1
 _LEAF_TRIS = 12
 
 _lib = None
+_lib_dual = None
 _overflow = {}           # cuda device index -> (1,) int32 flag the kernel sets
 _OVERFLOW_MSG = ("packet walk: a ray needs more than stack_n // width stack "
                  "entries; the table's stack_n does not bound its depth")
@@ -67,6 +75,24 @@ def _load():
         lib.gdpt_trace_packets.restype = i
         _lib = lib
     return _lib
+
+
+def _load_dual():
+    global _lib_dual
+    if _lib_dual is None:
+        lib = ctypes.CDLL(str(native_build.build(SOURCE_DUAL)))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gdpt_trace_packets_dual.argtypes = [p, i, i, p, p, p, p, p, p, p, p, p,
+                                                i, i, i, i, p, p, p, p, p]
+        lib.gdpt_trace_packets_dual.restype = i
+        _lib_dual = lib
+    return _lib_dual
+
+
+def _check_dual(tab):
+    if tab.width != 16:
+        raise ValueError(f"the dual walk takes 16-wide packet tables only, got width "
+                         f"{tab.width!r}: build the table with wide=16 or walk it solo")
 
 
 def _check(tab, rays, rref):
@@ -110,6 +136,67 @@ def _bit_index(m):
     """Index of the highest set bit of positive int64 values (exact: the
     binary exponent of the value as a double)."""
     return torch.frexp(m.to(torch.float64))[1].to(torch.int64) - 1
+
+
+def _slab_hits(rf, inv, oinv, tn, best):
+    """The supernode visit's slab tests. rf: (M, K, 6) child boxes
+    (min.xyz, max.xyz); inv, oinv: per-axis (M, 1) inverse direction and
+    origin * inverse direction; tn, best: (M, 1). Returns (M, K) bool:
+    the ray enters the box within [tn, best]."""
+    lo_hi = []
+    for a in range(3):
+        t0 = rf[:, :, a] * inv[a] - oinv[a]
+        t1 = rf[:, :, a + 3] * inv[a] - oinv[a]
+        lo_hi.append((torch.minimum(t0, t1), torch.maximum(t0, t1)))
+    t_in = torch.maximum(torch.maximum(lo_hi[0][0], lo_hi[1][0]),
+                         torch.maximum(lo_hi[2][0], tn))
+    t_out = torch.minimum(torch.minimum(lo_hi[0][1], lo_hi[1][1]),
+                          torch.minimum(lo_hi[2][1], best))
+    return t_in <= t_out
+
+
+def _prim_hits(geo, pid, r_o, r_d, tn, best, n_tris):
+    """The leaf visit's primitive tests. geo: (M, K, 9) slots of
+    (v0, e1, e2), or (center, radius, 0...) for a sphere; pid: (M, K)
+    prim ids (-1 pads); r_o, r_d: per-axis (M, 1) origin and direction;
+    tn, best: (M, 1); n_tris: the triangle count when ids >= n_tris are
+    spheres, else None. Returns (t, hit), both (M, K): each slot's
+    distance and whether it is a hit within [tn, best)."""
+    v0 = tuple(geo[:, :, k] for k in (0, 1, 2))
+    e1 = tuple(geo[:, :, k] for k in (3, 4, 5))
+    e2 = tuple(geo[:, :, k] for k in (6, 7, 8))
+    px = r_d[1] * e2[2] - r_d[2] * e2[1]
+    py = r_d[2] * e2[0] - r_d[0] * e2[2]
+    pz = r_d[0] * e2[1] - r_d[1] * e2[0]
+    det = e1[0] * px + e1[1] * py + e1[2] * pz
+    inv_det = torch.where(det != 0, 1.0 / torch.where(det != 0, det, 1.0), 0.0)
+    tx, ty, tz = r_o[0] - v0[0], r_o[1] - v0[1], r_o[2] - v0[2]
+    uu = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1[2] - tz * e1[1]
+    qy = tz * e1[0] - tx * e1[2]
+    qz = tx * e1[1] - ty * e1[0]
+    vv = (r_d[0] * qx + r_d[1] * qy + r_d[2] * qz) * inv_det
+    tt = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det
+    hit = ((det != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1)
+           & (tt >= tn) & (tt < best) & (pid >= 0))
+    if n_tris is not None:
+        # In-table spheres: (center, radius, 0...) in the slot.
+        is_sph = pid >= n_tris
+        r = e1[0]
+        a2 = r_d[0] * r_d[0] + r_d[1] * r_d[1] + r_d[2] * r_d[2]
+        inv_a = 1.0 / torch.where(a2 != 0, a2, 1.0)
+        tm = -(r_d[0] * tx + r_d[1] * ty + r_d[2] * tz) * inv_a
+        mx, my, mz = tx + r_d[0] * tm, ty + r_d[1] * tm, tz + r_d[2] * tm
+        disc = r * r - (mx * mx + my * my + mz * mz)
+        dtq = torch.sqrt(torch.clamp_min(disc, 0.0) * inv_a)
+        s0, s1 = tm - dtq, tm + dtq
+        use_lo = (s0 >= tn) & (s0 < best)
+        use_hi = (s1 >= tn) & (s1 < best)
+        ts = torch.where(use_lo, s0, s1)
+        hs = (disc >= 0) & (a2 != 0) & (use_lo | use_hi) & (pid >= 0)
+        tt = torch.where(is_sph, ts, tt)
+        hit = torch.where(is_sph, hs, hit)
+    return tt, hit
 
 
 def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
@@ -162,19 +249,10 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
             if rows_read is not None:
                 for r in range(s_rows):
                     rows_read[srow + r] = True
-            tn_s = tnear[si][:, None]
-            best_s = best[si][:, None]
-            lo_hi = []
-            for a in range(3):
-                ia, oa = inv[a][si][:, None], oinv[a][si][:, None]
-                t0 = rf[:, :, a] * ia - oa
-                t1 = rf[:, :, a + 3] * ia - oa
-                lo_hi.append((torch.minimum(t0, t1), torch.maximum(t0, t1)))
-            t_in = torch.maximum(torch.maximum(lo_hi[0][0], lo_hi[1][0]),
-                                 torch.maximum(lo_hi[2][0], tn_s))
-            t_out = torch.minimum(torch.minimum(lo_hi[0][1], lo_hi[1][1]),
-                                  torch.minimum(lo_hi[2][1], best_s))
-            mask = ((t_in <= t_out).to(i64) << bit).sum(dim=1)
+            enters = _slab_hits(rf, tuple(c[si][:, None] for c in inv),
+                                tuple(c[si][:, None] for c in oinv),
+                                tnear[si][:, None], best[si][:, None])
+            mask = (enters.to(i64) << bit).sum(dim=1)
             mask = mask & (table[srow, 120].to(i64) & 0xFFFFFFFF)
             # Children sit sorted ascending by centroid along the row's
             # axis; a ray heading the other way takes them from the top.
@@ -204,44 +282,9 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
                 rows_read[lrow] = True
                 if s_rows == 2:
                     rows_read[(lrow + 1)[pid[:, _LEAF_TRIS] >= 0]] = True
-            r_o = tuple(c[li][:, None] for c in o)
-            r_d = tuple(c[li][:, None] for c in dd)
-            tn_l = tnear[li][:, None]
-            best_l = best[li][:, None]
-            v0 = tuple(geo[:, :, k] for k in (0, 1, 2))
-            e1 = tuple(geo[:, :, k] for k in (3, 4, 5))
-            e2 = tuple(geo[:, :, k] for k in (6, 7, 8))
-            px = r_d[1] * e2[2] - r_d[2] * e2[1]
-            py = r_d[2] * e2[0] - r_d[0] * e2[2]
-            pz = r_d[0] * e2[1] - r_d[1] * e2[0]
-            det = e1[0] * px + e1[1] * py + e1[2] * pz
-            inv_det = torch.where(det != 0, 1.0 / torch.where(det != 0, det, 1.0), 0.0)
-            tx, ty, tz = r_o[0] - v0[0], r_o[1] - v0[1], r_o[2] - v0[2]
-            uu = (tx * px + ty * py + tz * pz) * inv_det
-            qx = ty * e1[2] - tz * e1[1]
-            qy = tz * e1[0] - tx * e1[2]
-            qz = tx * e1[1] - ty * e1[0]
-            vv = (r_d[0] * qx + r_d[1] * qy + r_d[2] * qz) * inv_det
-            tt = (e2[0] * qx + e2[1] * qy + e2[2] * qz) * inv_det
-            hit = ((det != 0) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1)
-                   & (tt >= tn_l) & (tt < best_l) & (pid >= 0))
-            if n_tris is not None:
-                # In-table spheres: (center, radius, 0...) in the slot.
-                is_sph = pid >= n_tris
-                r = e1[0]
-                a2 = r_d[0] * r_d[0] + r_d[1] * r_d[1] + r_d[2] * r_d[2]
-                inv_a = 1.0 / torch.where(a2 != 0, a2, 1.0)
-                tm = -(r_d[0] * tx + r_d[1] * ty + r_d[2] * tz) * inv_a
-                mx, my, mz = tx + r_d[0] * tm, ty + r_d[1] * tm, tz + r_d[2] * tm
-                disc = r * r - (mx * mx + my * my + mz * mz)
-                dtq = torch.sqrt(torch.clamp_min(disc, 0.0) * inv_a)
-                s0, s1 = tm - dtq, tm + dtq
-                use_lo = (s0 >= tn_l) & (s0 < best_l)
-                use_hi = (s1 >= tn_l) & (s1 < best_l)
-                ts = torch.where(use_lo, s0, s1)
-                hs = (disc >= 0) & (a2 != 0) & (use_lo | use_hi) & (pid >= 0)
-                tt = torch.where(is_sph, ts, tt)
-                hit = torch.where(is_sph, hs, hit)
+            tt, hit = _prim_hits(geo, pid, tuple(c[li][:, None] for c in o),
+                                 tuple(c[li][:, None] for c in dd),
+                                 tnear[li][:, None], best[li][:, None], n_tris)
             got = hit.any(dim=1)
             n_valid = (pid >= 0).sum(dim=1)
             if any_hit:
@@ -292,36 +335,70 @@ def check_overflow():
             raise RuntimeError(_OVERFLOW_MSG)
 
 
+def trace_packets_dual_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
+                             n_tris=None, any_hit=False, counts=False):
+    """K4's contract in plain PyTorch: K3's on a 16-wide table, with the
+    kernel's pairing. The rays are padded with dead ones (tfar = -1) to
+    whole blocks of 2 * BLOCK, each block's first BLOCK rays (a thread's
+    first ray) and its last BLOCK (the second) are walked by the plain
+    solo walk, and the results are put back in ray order and cut to N."""
+    _check_dual(tab)
+    rays = (ox, oy, oz, dx, dy, dz, tnear, tfar)
+    n, dev, _, _ = _check(tab, rays, rref)
+    pad = (-n) % (2 * BLOCK)
+
+    def padded(a, fill):
+        return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype, device=dev)])
+
+    fills = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, -1.0)
+    rays = [padded(a, f) for a, f in zip(rays, fills)]
+    rref = None if rref is None else padded(rref, 0)
+    idx = torch.arange(n + pad, device=dev).view(-1, 2, BLOCK)
+    outs = []
+    for half in (idx[:, 0].reshape(-1), idx[:, 1].reshape(-1)):
+        outs.append(trace_packets_plain(
+            tab, *(a[half] for a in rays), rref=None if rref is None else rref[half],
+            n_tris=n_tris, any_hit=any_hit, counts=counts))
+    order = idx.transpose(0, 1).reshape(-1).argsort()  # (first rays, second rays) -> ray order
+    return tuple(torch.cat(pair)[order][:n] for pair in zip(*outs))
+
+
 def trace_packets(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
-                  n_tris=None, any_hit=False, counts=False):
-    """K3: walk the packet table `tab` for every ray. Returns (t, prim);
-    with counts also the (N, 4) int32 per-ray visit counts (see
-    trace_packets_plain). With counts the call also runs check_overflow;
-    without, the caller does once its results are due."""
+                  n_tris=None, any_hit=False, counts=False, dual=False):
+    """Walk the packet table `tab` for every ray: K3, or with dual=True
+    K4 (a 16-wide table; any other width raises ValueError). Returns
+    (t, prim); with counts also the (N, 4) int32 per-ray visit counts
+    (see trace_packets_plain). With counts the call also runs
+    check_overflow; without, the caller does once its results are due."""
     rays = (ox, oy, oz, dx, dy, dz, tnear, tfar)
     n, dev, rows, depth = _check(tab, rays, rref)
+    if dual:
+        _check_dual(tab)
     if dev.type == "cpu":
-        return trace_packets_plain(tab, *rays, rref=rref, n_tris=n_tris,
-                                   any_hit=any_hit, counts=counts)
+        plain = trace_packets_dual_plain if dual else trace_packets_plain
+        return plain(tab, *rays, rref=rref, n_tris=n_tris, any_hit=any_hit, counts=counts)
     if dev.type != "cuda":
         raise ValueError(f"the packet walk runs on cuda or cpu tensors, not {dev}")
-    lib = _load()
+    lib = _load_dual() if dual else _load()
     if dev.index not in _overflow:
         _overflow[dev.index] = torch.zeros(1, dtype=INT, device=dev)
     t = torch.empty(n, dtype=REAL, device=dev)
     prim = torch.empty(n, dtype=INT, device=dev)
     cnt = torch.empty((n, 4), dtype=INT, device=dev) if counts else None
     ptr = lambda a: ctypes.c_void_p(a.data_ptr() if a is not None else None)  # noqa: E731
+    args = (*map(ptr, rays), ptr(rref), n, -1 if n_tris is None else int(n_tris),
+            int(bool(any_hit)), 4 * rows + 64, ptr(t), ptr(prim), ptr(cnt),
+            ptr(_overflow[dev.index]))
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.gdpt_trace_packets(
-            ptr(tab.table), rows, tab.width, depth, *map(ptr, rays), ptr(rref), n,
-            -1 if n_tris is None else int(n_tris), int(bool(any_hit)), 4 * rows + 64,
-            ptr(t), ptr(prim), ptr(cnt), ptr(_overflow[dev.index]),
-            ctypes.c_void_p(stream))
-    LAUNCHES["packet_occluded" if any_hit else "packet_intersect"] += n > 0
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if dual:
+            err = lib.gdpt_trace_packets_dual(ptr(tab.table), rows, depth, *args, stream)
+        else:
+            err = lib.gdpt_trace_packets(ptr(tab.table), rows, tab.width, depth, *args, stream)
+    mode = "occluded" if any_hit else "intersect"
+    LAUNCHES[f"packet_dual_{mode}" if dual else f"packet_{mode}"] += n > 0
     if err != 0:
-        raise RuntimeError(f"packet_trace_kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"packet walk kernel launch failed: CUDA error {err}")
     if counts:
         check_overflow()
         return t, prim, cnt

@@ -5,9 +5,9 @@ rtcIntersect1/rtcOccluded1, reference: src/intersection.cpp:32,83) for
 scenes above the brute-force limit. This module holds the host half:
 the collapse of the binary miss-link BVH (accel/bvh.py) into the wide
 table, the ray sort, the dead-lane and non-finite conventions, and the
-hit attributes. The walk itself is kernel K3, in accel/packet_kernels.py
-(hand-written CUDA for CUDA tensors, its plain PyTorch version for CPU
-tensors).
+hit attributes. The walk itself is kernel K3, or on a 16-wide table and
+on request the dual kernel K4, in accel/packet_kernels.py (hand-written
+CUDA for CUDA tensors, the plain PyTorch versions for CPU tensors).
 
 The table lives in device memory and is read through the cache; there
 is no size cap. Its width (16 or 32 children per supernode) is a build
@@ -443,14 +443,15 @@ def _morton_keys(tab, org: V3, d: V3):
 
 
 def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                     n_tris=None, any_hit=False, sort_rays=True):
+                     n_tris=None, any_hit=False, sort_rays=True, dual=False):
     """Flat-ray entry: (t, prim, u, v, gn V3) over n rays.
 
     tnear and tfar are scalars or (n,) tensors. A lane with tfar < tnear
     is dead: it does no work and comes back as a miss. A lane with any
     non-finite ray datum becomes a dead lane. When sort_rays is set,
     rays are morton/octant-sorted before the walk and results unsorted
-    on the way out.
+    on the way out. dual=True walks a 16-wide table with the dual kernel
+    (K4) in place of the solo one (K3): the same result per ray.
     """
     n = org.x.shape[0]
     dev = org.x.device
@@ -490,7 +491,7 @@ def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
         tnear = tnear[perm]
         tfar = tfar[perm]
     rays = [c.contiguous() for c in (*org, *d, tnear, tfar)]
-    t, prim = pk.trace_packets(tab, *rays, n_tris=n_tris, any_hit=any_hit)
+    t, prim = pk.trace_packets(tab, *rays, n_tris=n_tris, any_hit=any_hit, dual=dual)
     if perm is not None:
         # Invert by scatter (O(n)), not by a second sort.
         t = torch.empty_like(t).index_copy_(0, perm, t)
@@ -534,18 +535,18 @@ def _hit_attribs(tab: PacketTable, org: V3, d: V3, t, prim, n_tris):
 
 
 def intersect_packet(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                     n_tris=None, sort_rays=True):
+                     n_tris=None, sort_rays=True, dual=False):
     """Closest hit within [tnear, tfar): (t, prim, u, v, gn V3); a miss
     gives t = tfar, prim = -1. n_tris: the triangle count when the table
     holds spheres (prim id >= n_tris), else None."""
     return trace_packet_soa(tab, org, d, tnear, tfar, n_tris=n_tris,
-                            any_hit=False, sort_rays=sort_rays)
+                            any_hit=False, sort_rays=sort_rays, dual=dual)
 
 
 def occluded_packet(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                    n_tris=None, sort_rays=True):
+                    n_tris=None, sort_rays=True, dual=False):
     """Whether any primitive blocks each ray within [tnear, tfar): bool."""
     _, prim, _, _, _ = trace_packet_soa(
         tab, org, d, tnear, tfar, n_tris=n_tris, any_hit=True,
-        sort_rays=sort_rays)
+        sort_rays=sort_rays, dual=dual)
     return prim >= 0

@@ -6,8 +6,10 @@ Counterpart of gdpt_tpu/accel/traverse_soa.py. All ray state lives in
 
 - brute force (at most 128 primitives): the K1/K2 wrappers of
   accel/brute_kernels.py;
-- packet table (every larger scene): the BVH walk K3 of
-  accel/packet_kernels.py over the table of accel/packet_trace.py.
+- packet table (every larger scene): the BVH walk of
+  accel/packet_kernels.py over the table of accel/packet_trace.py: K3,
+  or K4 (the dual walk) when the scene's view was built 16-wide with
+  dual=True.
 
 Each wrapper launches its hand-written CUDA kernel for CUDA tensors and
 takes its plain PyTorch version for CPU tensors. A BVH scene always has
@@ -49,10 +51,16 @@ class GeomSoA(NamedTuple):
     # Packet table (accel/packet_trace.PacketTable) of a BVH scene, on
     # the geometry's device; None for brute-force scenes.
     packet: object = None
+    # Walk the table with the dual kernel (K4) instead of the solo one
+    # (K3); static, and only ever set beside a 16-wide table.
+    dual: bool = False
 
 
-def geom_soa_from_aos(geom, wide=32) -> GeomSoA:
-    """wide: supernode width of the packet table, 16 or 32."""
+def geom_soa_from_aos(geom, wide=32, dual=False) -> GeomSoA:
+    """wide: supernode width of the packet table, 16 or 32. dual: walk
+    the table with the dual kernel (K4), which takes 16-wide tables only."""
+    if dual and wide != 16:
+        raise ValueError(f"dual=True needs a 16-wide packet table (wide=16), got wide={wide!r}")
     n_tris = geom.tri_v0.shape[0]
     n_sph = geom.sph_center.shape[0]
     dev = geom.tri_v0.device
@@ -74,7 +82,8 @@ def geom_soa_from_aos(geom, wide=32) -> GeomSoA:
     center = soa.from_rows(geom.sph_center) if n_sph else V3(z1, z1.clone(), z1.clone())
     radius = geom.sph_radius if n_sph else torch.ones_like(z1)
     tri, sph = bk.pack_soups(v0, e1, e2, center, radius, n_tris, n_sph)
-    return GeomSoA(v0, e1, e2, center, radius, tri, sph, packet)
+    return GeomSoA(v0, e1, e2, center, radius, tri, sph, packet,
+                   dual=bool(dual) and packet is not None)
 
 
 class HitSoA(NamedTuple):
@@ -148,7 +157,7 @@ def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
         return intersect_brute_soa(static, g, org, d, tnear)
     t, prim, u, v, gn = packet_trace.intersect_packet(
         g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static),
-        sort_rays=sort_rays)
+        sort_rays=sort_rays, dual=g.dual)
     hit = HitSoA(t, prim, u, v)
     if _sph_outside(static):
         hit, gn = _merge_spheres_closest(static, g, org, d, tnear, hit, gn)
@@ -160,7 +169,7 @@ def occluded_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
     if static.use_brute_force:
         return occluded_brute_soa(static, g, org, d, tnear, tfar)
     occ = packet_trace.occluded_packet(
-        g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static))
+        g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static), dual=g.dual)
     if _sph_outside(static):
         _, sh = bk._sphere_test_rows(g.sph_soup, static.n_spheres, org, d, tnear, tfar)
         occ = occ | sh.any(dim=0)

@@ -74,9 +74,11 @@ def where(c, a: V3, b: V3):
 
 
 def tree_map(fn, *trees):
-    """Map fn over the tensor leaves of matching NamedTuple/tuple trees
-    (None and Python scalars pass through from the first tree)."""
+    """Map fn over the tensor leaves of matching dict/NamedTuple/tuple
+    trees (None and Python scalars pass through from the first tree)."""
     t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in t0}
     if isinstance(t0, tuple):
         out = [tree_map(fn, *parts) for parts in zip(*trees)]
         return type(t0)(*out) if hasattr(t0, "_fields") else tuple(out)

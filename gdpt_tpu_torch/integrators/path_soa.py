@@ -8,9 +8,10 @@ that at low spp the port is held against the reference pixel by pixel.
 Ported: the banded loop (``trace_paths_soa``) and the wavefront
 renderer (``render_soa_wavefront``, the default for BVH scenes) behind
 ``render_soa``, with Lambertian materials, constant/checkerboard
-textures, mesh and sphere area lights. Not yet: envmaps, image textures,
-the other BSDFs, the pool-sorted wavefront, sharding and resume (see
-ROADMAP.md).
+textures, mesh and sphere area lights; integrators/gdpt_soa.py builds
+the gradient-domain render on the same pieces. Not yet: envmaps, image
+textures, the other BSDFs, the pool-sorted wavefront, sharding and
+resume (see ROADMAP.md).
 
 Every tensor is made on the device the scene lives on.
 """
@@ -161,16 +162,24 @@ def _footprint_constants(dev):
 _SOA_MEMO = SceneMemo()
 
 
-def scene_soa_from_aos(scene: Scene) -> SceneSoA:
-    """The render's view of `scene`, built once per scene: the host-side
-    prep (packet table, alias tables, footprint constants) is pure in the
-    scene and takes seconds on a large one."""
+def scene_soa_from_aos(scene: Scene, wide=32, dual=False) -> SceneSoA:
+    """The render's view of `scene`, built once per scene and table
+    width: the host-side prep (packet table, alias tables, footprint
+    constants) is pure in these and takes seconds on a large scene.
+    wide: the packet table's supernode width, 16 or 32; dual: walk it
+    with the dual kernel K4 (16-wide only) instead of K3. The dual view
+    is the 16-wide view with its static flag set: the same tables."""
     if scene.static.has_envmap:
         raise NotImplementedError("envmap lights are not ported yet; see ROADMAP.md")
-    return _SOA_MEMO.get(scene.device, None, lambda: _scene_soa_from_aos(scene))
+    if dual and wide != 16:
+        raise ValueError(f"packet_dual=True needs packet_wide=16, got {wide!r}")
+    sc = _SOA_MEMO.get(scene.device, wide, lambda: _scene_soa_from_aos(scene, wide))
+    if dual and sc.geom.packet is not None:
+        sc = sc._replace(geom=sc.geom._replace(dual=True))
+    return sc
 
 
-def _scene_soa_from_aos(scene: Scene) -> SceneSoA:
+def _scene_soa_from_aos(scene: Scene, wide) -> SceneSoA:
     dev = scene.device
     device = dev.geom.tri_v0.device
 
@@ -186,7 +195,7 @@ def _scene_soa_from_aos(scene: Scene) -> SceneSoA:
     tri_lgt = dev.shape_light_id[t_shape].to(INT)
     env_rgb = dev.envmap.tex.value[0]
     return SceneSoA(
-        geom=trs.geom_soa_from_aos(dev.geom),
+        geom=trs.geom_soa_from_aos(dev.geom, wide=wide),
         tri_n0=soa.from_rows(put(n0)),
         tri_n1=soa.from_rows(put(n1)),
         tri_n2=soa.from_rows(put(n2)),
@@ -249,9 +258,11 @@ class VertexSoA(NamedTuple):
 
 
 def shade_hit(static, sc: SceneSoA, org: V3, d: V3, hit: trs.HitSoA,
-              gn_raw: V3, ray_radius, ray_spread) -> VertexSoA:
+              gn_raw: V3, ray_radius=None, ray_spread=None) -> VertexSoA:
     """Batched hit -> vertex (reference: src/intersection.cpp:7-64).
-    gn_raw: the unnormalized geometric normal from the ray cast."""
+    gn_raw: the unnormalized geometric normal from the ray cast.
+    ray_radius, ray_spread: per-lane ray differentials; without them the
+    vertex carries a zero radius and footprint."""
     position = org + d * hit.t
     prim = torch.clamp_min(hit.prim_id, 0)
     zero = torch.zeros_like(hit.t)
@@ -332,8 +343,11 @@ def shade_hit(static, sc: SceneSoA, org: V3, d: V3, hit: trs.HitSoA,
     else:
         material_id = soa.take(sc.shape_material_id, shape_id)
         light_id = soa.take(sc.shape_light_id, shape_id)
-    radius_t = ray_radius + ray_spread * hit.t
-    fp = radius_t / torch.clamp_min(inv_uv, 1e-20)
+    if ray_radius is None:
+        radius_t, fp = zero, zero
+    else:
+        radius_t = ray_radius + ray_spread * hit.t
+        fp = radius_t / torch.clamp_min(inv_uv, 1e-20)
     return VertexSoA(
         position=position,
         gn=gn,
@@ -937,16 +951,18 @@ def _wavefront_state(n_pix, pool, total, seed, device):
 
 
 def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
-                         pool=None, k_iters=8, compact=True):
+                         pool=None, k_iters=8, compact=True,
+                         packet_wide=32, packet_dual=False):
     """Wavefront path render: fixed lane pool + sample regeneration.
 
     Produces the same estimate as the banded loop (identical RNG streams
     per (pixel, sample)); accumulation happens on the device in f32,
     drained into a host f64 buffer every 64 spp-equivalents. k_iters
     iterations run between host reads of the queue position; compact
-    turns the tail compaction on. The iteration count and mean occupancy
-    of the last render are left in render_soa_wavefront.last_iters and
-    .last_occupancy.
+    turns the tail compaction on. packet_wide and packet_dual choose
+    the packet table's width and the walk (see scene_soa_from_aos). The
+    iteration count and mean occupancy of the last render are left in
+    render_soa_wavefront.last_iters and .last_occupancy.
     """
     static = scene.static
     w, h = static.width, static.height
@@ -959,7 +975,7 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
         raise ValueError(
             f"wavefront work queue: n_pix*spp = {total} >= 2^32; "
             "use render_soa (banded loop) for renders this large")
-    sc = scene_soa_from_aos(scene)
+    sc = scene_soa_from_aos(scene, packet_wide, packet_dual)
     camera = scene.device.camera
     device = camera.sample_to_cam.device
 
@@ -1025,7 +1041,8 @@ def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     return acc, rays
 
 
-def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None):
+def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None,
+               packet_wide=32, packet_dual=False):
     """SoA render loop for the path integrator on the scene's device.
     Returns an (h, w, 3) float32 numpy image (and the traced ray count).
 
@@ -1033,6 +1050,9 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     work queue fits (n_pix * spp < 2^32) and the banded loop otherwise;
     True or False picks one. The banded loop runs passes of samples, each
     summed in f32 on the device and accumulated in float64 on the host.
+    packet_wide (16 or 32) is the width of a BVH scene's packet table;
+    packet_dual=True walks a 16-wide table with the dual kernel K4 in
+    place of K3 (with width 32 it raises ValueError).
     """
     static = scene.static
     w, h = static.width, static.height
@@ -1045,8 +1065,9 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
         # lanes are dead.
         wavefront = not static.use_brute_force and n * spp < 2 ** 32
     if wavefront:
-        return render_soa_wavefront(scene, spp, seed=seed, return_stats=return_stats)
-    sc = scene_soa_from_aos(scene)
+        return render_soa_wavefront(scene, spp, seed=seed, return_stats=return_stats,
+                                    packet_wide=packet_wide, packet_dual=packet_dual)
+    sc = scene_soa_from_aos(scene, packet_wide, packet_dual)
     camera = scene.device.camera
     device = camera.sample_to_cam.device
     ys, xs = np.mgrid[0:h, 0:w]

@@ -189,8 +189,8 @@ class SceneMemo:
     the scene's tensor tree (and a hashable extra). Repeated renders of
     one scene then reuse the copy on the card and its packet table, which
     cost seconds of host work on a large scene. The entry holds the tree,
-    so its id stays valid; a small FIFO, as a process touches a handful
-    of scenes."""
+    so its id stays valid; a few entries, the least recently used one
+    dropped first, as a process touches a handful of scenes."""
 
     def __init__(self, cap=4):
         self.cap = cap
@@ -200,6 +200,7 @@ class SceneMemo:
         key = (id(tree), extra)
         hit = self.entries.get(key)
         if hit is not None and hit[0] is tree:
+            self.entries[key] = self.entries.pop(key)  # now the most recent
             return hit[1]
         out = make()
         if len(self.entries) >= self.cap:

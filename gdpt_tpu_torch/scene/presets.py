@@ -5,6 +5,10 @@ reference renders via scenes/cbox/cbox.xml (512x512, gaussian filter,
 lookAt (278,273,-800) -> (278,273,-799), fov 39.3077): the published
 Cornell geometry with the reference's spectral reflectance / emission
 converted through the same CIE pipeline.
+
+`icosphere_box` is the port's own large scene, built in code: the same
+box with its blocks replaced by finely subdivided icospheres, so the
+BVH path can be driven at a real size without a scene file.
 """
 
 import numpy as np
@@ -53,6 +57,7 @@ def cornell_box(
     spp=4,
     integrator="path",
     max_depth=-1,
+    force_bvh=False,
 ):
     shapes = []
     # material ids: 0 white, 1 red, 2 green, 3 light-white
@@ -123,4 +128,73 @@ def cornell_box(
     opts = M.RenderOptions(
         integrator=integrator, samples_per_pixel=spp, max_depth=max_depth
     )
+    return build.build_scene(cam, materials, shapes, lights, options=opts,
+                             force_bvh=force_bvh)
+
+
+# The tall block's place and the short block's, resting on the floor.
+ICOSPHERE_BALLS = [(7, (368.0, 100.0, 351.0), 100.0), (6, (186.0, 60.0, 169.0), 60.0)]
+
+
+def icosphere(level, center, radius):
+    """Unit icosahedron subdivided `level` times (20 * 4^level triangles),
+    vertices pushed onto the sphere: (positions (V, 3), indices (T, 3))."""
+    p = (1 + 5 ** 0.5) / 2
+    v = np.array([[-1, p, 0], [1, p, 0], [-1, -p, 0], [1, -p, 0], [0, -1, p], [0, 1, p],
+                  [0, -1, -p], [0, 1, -p], [p, 0, -1], [p, 0, 1], [-p, 0, -1], [-p, 0, 1]],
+                 np.float64)
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11], [1, 5, 9],
+                  [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8], [3, 9, 4], [3, 4, 2],
+                  [3, 2, 6], [3, 6, 8], [3, 8, 9], [4, 9, 5], [2, 4, 11], [6, 2, 10],
+                  [8, 6, 7], [9, 8, 1]], np.int64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    for _ in range(level):
+        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]), axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        mid = v[uniq[:, 0]] + v[uniq[:, 1]]
+        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
+        ab, bc, ca = inv.reshape(3, -1) + len(v)
+        v = np.concatenate([v, mid])
+        a, b, c = f[:, 0], f[:, 1], f[:, 2]
+        f = np.concatenate([np.stack([a, ab, ca], 1), np.stack([b, bc, ab], 1),
+                            np.stack([c, ca, bc], 1), np.stack([ab, bc, ca], 1)])
+    return v * radius + np.asarray(center, np.float64), f
+
+
+def icosphere_box(width, height, spp, balls=None, spheres=(), max_depth=-1,
+                  integrator="path"):
+    """The Cornell box of cornell_box (walls, ceiling light,
+    camera, materials) with its two blocks replaced by icospheres:
+    balls = [(level, center, radius), ...]; spheres = analytic spheres
+    [(center, radius), ...]. balls=None takes ICOSPHERE_BALLS (409,612
+    triangles in all), the port's stand-in for a large mesh scene.
+    Lambertian throughout."""
+    quads = _mesh_from_quads
+    balls = ICOSPHERE_BALLS if balls is None else balls
+    materials = [M.Lambertian(WHITE), M.Lambertian(RED),
+                 M.Lambertian(GREEN), M.Lambertian(np.array([0.78, 0.78, 0.78]))]
+    shapes = [
+        quads([((552.8, 0, 0), (0, 0, 0), (0, 0, 559.2), (549.6, 0, 559.2))], material_id=0),
+        quads([((556, 548.8, 0), (556, 548.8, 559.2), (0, 548.8, 559.2), (0, 548.8, 0))],
+              material_id=0),
+        quads([((549.6, 0, 559.2), (0, 0, 559.2), (0, 548.8, 559.2), (556, 548.8, 559.2))],
+              material_id=0),
+        quads([((0, 0, 559.2), (0, 0, 0), (0, 548.8, 0), (0, 548.8, 559.2))], material_id=2),
+        quads([((552.8, 0, 0), (549.6, 0, 559.2), (556, 548.8, 559.2), (556, 548.8, 0))],
+              material_id=1),
+    ]
+    for level, center, radius in balls:
+        pos, idx = icosphere(level, center, radius)
+        shapes.append(M.TriangleMesh(positions=pos, indices=idx, material_id=0))
+    for center, radius in spheres:
+        shapes.append(M.Sphere(center=np.asarray(center, np.float64), radius=radius,
+                               material_id=0))
+    shapes.append(quads([((343, 548.7, 227), (343, 548.7, 332), (213, 548.7, 332),
+                          (213, 548.7, 227))], material_id=3, area_light_id=0))
+    lights = [M.DiffuseAreaLight(shape_id=len(shapes) - 1, intensity=LIGHT_RGB)]
+    cam = M.Camera(cam_to_world=xf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
+                   fov=39.3077, width=width, height=height,
+                   filter_kind=FILTER_GAUSSIAN, filter_param=0.5)
+    opts = M.RenderOptions(integrator=integrator, samples_per_pixel=spp,
+                           max_depth=max_depth)
     return build.build_scene(cam, materials, shapes, lights, options=opts)

@@ -51,10 +51,29 @@ def test_no_jax_or_reference_imports(path):
 def test_slice_modules_are_covered():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for module in ("accel/bvh.py", "accel/native_build.py", "accel/packet_trace.py",
-                   "accel/packet_kernels.py", "accel/traverse_soa.py", "convert.py"):
+                   "accel/packet_kernels.py", "accel/traverse_soa.py", "convert.py",
+                   "ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
+                   "tools/visit_microbench.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
-                                        "bvh_builder.cpp"}
+                                        "packet_trace_dual.cu", "visit_microbench.cu",
+                                        "packet_visit.cuh", "bvh_builder.cpp"}
+
+
+NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
+               "tools/visit_microbench.py", "accel/packet_kernels.py", "accel/traverse_soa.py"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_gradpath_modules_read_no_environment_variable(module):
+    """The reference picks its table width, dual walk, pool and wavefront
+    through GDPT_* environment variables; the port takes arguments."""
+    tree = ast.parse((ROOT / "gdpt_tpu_torch" / module).read_text())
+    for node in ast.walk(tree):
+        assert not (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")), \
+            f"{module}:{node.lineno} reads the environment"
+        assert not (isinstance(node, (ast.Import, ast.ImportFrom))
+                    and any(a.name == "os" for a in node.names)), f"{module} imports os"
 
 
 @pytest.mark.parametrize("path", NATIVE, ids=lambda p: p.name)
@@ -63,10 +82,28 @@ def test_native_sources_include_only_cuda_and_std_headers(path):
     source builds in seconds with nvcc or g++ alone."""
     includes = [line.split()[1] for line in path.read_text().splitlines()
                 if line.startswith("#include")]
-    assert includes and 'extern "C"' in path.read_text()
+    # A .cuh holds device code shared by the .cu files and exports nothing.
+    assert includes and ('extern "C"' in path.read_text()) == (path.suffix != ".cuh")
     for inc in includes:
-        assert inc == "<cuda_runtime.h>" or inc.strip("<>") in (
+        assert inc in ("<cuda_runtime.h>", '"packet_visit.cuh"') or inc.strip("<>") in (
             "algorithm", "cmath", "cstdint", "cstring", "limits", "vector"), inc
+
+
+def test_a_header_change_rebuilds_the_cuda_sources(tmp_path, monkeypatch):
+    """The build's file name hashes a source with the headers it includes."""
+    from gdpt_tpu_torch.accel import native_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(native_build.CSRC, csrc)
+    monkeypatch.setattr(native_build, "CSRC", csrc)
+    before = {s: native_build.library_path(s)
+              for s in ("packet_trace.cu", "packet_trace_dual.cu", "visit_microbench.cu",
+                        "brute_intersect.cu", "bvh_builder.cpp")}
+    with open(csrc / "packet_visit.cuh", "a") as f:
+        f.write("// changed\n")
+    after = {s: native_build.library_path(s) for s in before}
+    users = {"packet_trace.cu", "packet_trace_dual.cu", "visit_microbench.cu"}
+    assert {s for s in before if after[s] != before[s]} == users
 
 
 def test_importing_every_module_builds_nothing():
@@ -81,7 +118,7 @@ def test_importing_every_module_builds_nothing():
         "before = sorted(native_build.BUILD_DIR.glob('*')) if native_build.BUILD_DIR.exists() else None\n"
         "names = [m.name for m in pkgutil.walk_packages(gdpt_tpu_torch.__path__, 'gdpt_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 29, names\n"
         "after = sorted(native_build.BUILD_DIR.glob('*')) if native_build.BUILD_DIR.exists() else None\n"
         "assert before == after\n"
         "assert not {'jax', 'jaxlib', 'triton', 'gdpt_tpu'} & set(sys.modules)\n"
@@ -97,6 +134,13 @@ def test_render_defaults_to_cuda(monkeypatch):
         render.render(presets.cornell_box(4, 4, spp=1))
 
 
+@pytest.mark.parametrize("integrator", ["path", "gradpath"])
+def test_render_defaults_to_cuda_for(integrator, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render.render(presets.cornell_box(4, 4, spp=1, integrator=integrator, force_bvh=True))
+
+
 def test_render_on_cpu_when_asked():
     img = render.render(presets.cornell_box(8, 8, spp=1, max_depth=3), device="cpu")
     assert img.shape == (8, 8, 3) and img.dtype == np.float32
@@ -108,20 +152,30 @@ def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
     library (here: its build, which fails without nvcc) or raise; they do
     not carry on with the plain version."""
     from gdpt_tpu_torch.accel import brute_kernels, native_build, packet_kernels
+    from gdpt_tpu_torch.tools import visit_microbench
 
     def no_build(source, verbose=False):
         raise RuntimeError(f"no nvcc for {source}")
 
     monkeypatch.setattr(native_build, "build", no_build)
     monkeypatch.setattr(packet_kernels, "_lib", None)
+    monkeypatch.setattr(packet_kernels, "_lib_dual", None)
+    monkeypatch.setattr(visit_microbench, "_lib", None)
     monkeypatch.setattr(brute_kernels, "_lib", None)
     monkeypatch.setattr(packet_kernels, "trace_packets_plain", None)
+    monkeypatch.setattr(packet_kernels, "trace_packets_dual_plain", None)
+    monkeypatch.setattr(visit_microbench, "visit_microbench_plain", None)
     monkeypatch.setattr(brute_kernels, "intersect_brute_plain", None)
     meta = torch.zeros(8, device="meta")
     tab = type("Tab", (), dict(table=torch.zeros((4, 128), dtype=torch.int32, device="meta"),
                                width=32, stack_n=64))()
     with pytest.raises(ValueError, match="cuda or cpu"):
         packet_kernels.trace_packets(tab, *(meta,) * 8)
+    tab.width, tab.stack_n = 16, 64
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        packet_kernels.trace_packets(tab, *(meta,) * 8, dual=True)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        visit_microbench.visit_microbench(tab, *(meta,) * 8, 4, "leaf")
     with pytest.raises(ValueError, match="cuda or cpu"):
         brute_kernels.intersect_brute(torch.zeros((9, 1), device="meta"),
                                       torch.zeros((4, 1), device="meta"), 1, 0, *(meta,) * 6, 0.0)

@@ -61,7 +61,8 @@ def test_build_scene_leaf_by_leaf():
 def test_scene_soa_leaf_by_leaf():
     js, ts = jpresets.cornell_box(16, 16), tpresets.cornell_box(16, 16)
     jsc, tsc = jpath.scene_soa_from_aos(js), tpath.scene_soa_from_aos(ts)
-    _assert_tree(jsc, tsc, extra=("tri_soup", "sph_soup"))
+    _assert_tree(jsc, tsc, extra=("tri_soup", "sph_soup", "dual"))
+    assert tsc.geom.dual is False  # the port's static walk flag (the reference reads an env switch)
     tri, sph = jpli.pack_soups(jsc.geom, js.static.n_tris, js.static.n_spheres)
     _assert_leaf(tri, tsc.geom.tri_soup, "tri_soup")
     _assert_leaf(sph, tsc.geom.sph_soup, "sph_soup")
