@@ -23,37 +23,45 @@
 // running best folded in; Moeller-Trumbore with strict t < best; the
 // sphere roots.
 //
-// Walk: one thread per ray with its own stack, where the TPU walks a
-// 1024-ray packet over one shared stack (it has no per-lane gather and
-// pays for the union of its rays' nodes). A supernode visit tests its W
-// child boxes into a bit mask and pushes ONE entry (row | reversed << 30,
-// mask); each later step peels the nearest pending child: the lowest set
-// bit, or the highest when the ray runs against the row's sort axis. So
-// the stack is as deep as the tree (at most stack_n / W entries, 32
-// compiled in), not W times that, and children are visited nearest first
-// by the ray's own direction. An iteration ceiling (4R + 64 visits, as
-// the reference's) ends a walk over a malformed table. A push that finds
-// the stack full (a table whose stack_n understates its depth) is never
-// dropped silently: the ray stops, its deepest count reads depth + 1 and
-// the kernel sets *overflow, which the wrapper turns into an error.
+// Walk: a group of G lanes of one warp walks one ray, where the TPU walks
+// a 1024-ray packet over one shared stack. Every lane of a group follows
+// the ray's one control flow, so nothing diverges inside a group; the
+// group's ballots and shuffles name its own lanes only. The node's row
+// lies across the lanes:
+//   - supernode visit: lane k loads child k's box (three 8-byte loads; a
+//     box is 24 B, so the group's loads cover the row's boxes contiguously)
+//     and its ref, and runs the slab test; a group ballot cut to the
+//     row's validity bits is the child mask;
+//   - leaf visit: the group stages the leaf rows in shared memory with
+//     16-byte loads, then lane s tests slot s. Closest hit takes the
+//     smallest t and among equal t the lowest slot (comparisons, so -0.0
+//     and +0.0 tie as in a sequential strict t < best scan, whose result
+//     this minimum is); any hit the lowest blocking slot.
+// The walk per ray is the one the reference's tests imply and the plain
+// version runs: a supernode visit pushes ONE entry (row | reversed << 30,
+// child mask); each later step peels the nearest pending child, the
+// lowest set bit, or the highest when the ray runs against the row's sort
+// axis. The stack is group-uniform and lives in registers: the top entry
+// in every lane, entry j below it in lane j % G. A pop right after a push
+// reads the child's ref from its lane by shuffle; any other pop reads it
+// from the table, a load issued before the visit that precedes it, so it
+// overlaps that visit's own loads. The stack is as deep as the tree (at
+// most stack_n / W entries, 32 compiled in). An iteration ceiling (4R + 64
+// visits, as the reference's) ends a walk over a malformed table. A push
+// that finds the stack full is never dropped silently: the ray stops, its
+// deepest count reads depth + 1 and the kernel sets *overflow, which the
+// wrapper turns into an error.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): the work depends on the
 // rays. Bytes: 40 per ray in and out (44 with start refs), plus each table
 // row the rays visit, once. Operations: a supernode visit is W slab tests
 // of 25 operations (6 mul, 6 sub, 12 min/max, 1 compare), a primitive
-// test 52 (Moeller-Trumbore); the optional counts output gives a run's
-// visits. On a 409,612-triangle scene (24.4 MB of table, under the 50 MB
-// L2) a bounce ray makes about 2 supernode and 2 leaf visits with 16
-// primitive tests: 0.67 Gop and 31 MB per 262,144 rays, about 10 us
-// either way. The kernel takes some 35 times that: every
-// thread reads rows that no other thread of its warp may want, so a
-// warp-wide load touches up to 32 sectors, and each visit waits on the
-// child ref of the one before. The rows are therefore read 16 bytes at
-// a time (two boxes are three aligned float4 loads, four primitives
-// nine), which halved the time of the first version's scalar 4-byte
-// loads. Rays sorted by the caller keep a warp's threads in one subtree.
-// A warp sharing a row and shared-memory staging of the top levels are
-// later work (PERF.md).
+// test 52 (Moeller-Trumbore). On a 409,612-triangle scene (24.4 MB of
+// table, under the 50 MB L2) a bounce ray makes about 2 supernode and 2
+// leaf visits with 16 primitive tests: 0.67 Gop and 31 MB per 262,144
+// rays, about 10 us either way. What the card does instead is issue: some
+// 60 warp instructions per visit of a ray, one visit's loads in flight
+// per group at a time (PERF.md has the measured times).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
@@ -63,27 +71,432 @@
 
 #include "packet_visit.cuh"
 
-// The visit bodies and the per-ray walk state live in packet_visit.cuh,
-// shared with the dual walk (K4) and the visit microbenchmark (K5).
-template <int W>
-__global__ void __launch_bounds__(BLOCK)
-packet_trace_kernel(const int* __restrict__ table, int n_rows, int depth, RayArrays rays,
-                    int n, int n_tris, int any_hit, int ceiling,
-                    float* __restrict__ t_out, int* __restrict__ prim_out,
-                    int* __restrict__ counts, int* __restrict__ overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int last = n_rows - W / 16;  // row clamp that leaves room for row B
-  Walk w;
-  WalkStack stk;
-  walk_init(w, rays, i, n);
-  if (w.live) {
-    for (int it = 0; it < ceiling; ++it) {
-      if (!walk_visit<W>(w, stk, table, last, depth, n_tris, any_hit != 0, overflow)) break;
-      if (!walk_pop(w, stk, table)) break;
+#define K3_BLOCK 128    // threads per block
+#define LEAF_WORDS 120  // a leaf row's geometry and ids: cols 0..119
+
+// The G lanes of one warp that walk one ray.
+template <int G>
+struct Lanes {
+  unsigned mask;  // the group's lanes in the warp
+  int base;       // the group's first lane in the warp
+  int lane;       // this lane in the group
+  __device__ __forceinline__ Lanes() {
+    const int w = threadIdx.x & 31;
+    base = G == 32 ? 0 : w & ~(G - 1);
+    lane = G == 32 ? w : w & (G - 1);
+    mask = G == 32 ? 0xffffffffu : (0xffffffffu >> (32 - G)) << base;
+  }
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    return __ballot_sync(mask, p) >> base;
+  }
+  template <class T>
+  __device__ __forceinline__ T shfl(T v, int src) const {
+    return __shfl_sync(mask, v, src, G);
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+// One box of test_boxes2 (packet_visit.cuh) in its operation order; the
+// box is (min.x, min.y), (min.z, max.x), (max.y, max.z).
+__device__ __forceinline__ bool box_hit(float2 a, float2 b, float2 c, const Ray& r,
+                                        float best) {
+  const float t0x = a.x * r.ix - r.oix, t1x = b.y * r.ix - r.oix;
+  const float t0y = a.y * r.iy - r.oiy, t1y = c.x * r.iy - r.oiy;
+  const float t0z = b.x * r.iz - r.oiz, t1z = c.y * r.iz - r.oiz;
+  const float t_in = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fmaxf(fminf(t0z, t1z), r.tnear));
+  const float t_o = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                          fminf(fmaxf(t0z, t1z), best));
+  return t_in <= t_o;
+}
+
+// One slot of test_prims4 (packet_visit.cuh) in its operation order: a
+// hit within [tnear, best), its distance in tt.
+__device__ __forceinline__ bool prim_hit(const float* g, int pid, const Ray& r, int n_tris,
+                                         float best, float& tt) {
+  const float v0x = g[0], v0y = g[1], v0z = g[2];
+  const float e1x = g[3], e1y = g[4], e1z = g[5];
+  const float e2x = g[6], e2y = g[7], e2z = g[8];
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  if (n_tris >= 0 && pid >= n_tris) {
+    const float r_s = e1x;
+    const float a2 = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float inv_a = 1.0f / (a2 != 0.0f ? a2 : 1.0f);
+    const float tm = -(r.dx * tx + r.dy * ty + r.dz * tz) * inv_a;
+    const float mx = tx + r.dx * tm, my = ty + r.dy * tm, mz = tz + r.dz * tm;
+    const float disc = r_s * r_s - (mx * mx + my * my + mz * mz);
+    const float dtq = sqrtf(fmaxf(disc, 0.0f) * inv_a);
+    const float s0 = tm - dtq, s1 = tm + dtq;
+    const bool use_lo = s0 >= r.tnear && s0 < best;
+    const bool use_hi = s1 >= r.tnear && s1 < best;
+    tt = use_lo ? s0 : s1;
+    return disc >= 0.0f && a2 != 0.0f && (use_lo || use_hi);
+  }
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
+  const float uu = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return det != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt >= r.tnear &&
+         tt < best;
+}
+
+// An int that orders like the float t, with one key for -0.0 and +0.0.
+__device__ __forceinline__ int t_key(float t) {
+  const int b = __float_as_int(t);
+  return t == 0.0f ? 0 : (b >= 0 ? b : b ^ 0x7fffffff);
+}
+
+// The child a pop peels off entry (e, m): the nearest pending one.
+__device__ __forceinline__ int nearest(int e, unsigned m) {
+  return (e >> 30) ? 31 - __clz(m) : __ffs(m) - 1;
+}
+
+// A leaf visit of the group: lane s tests slots s, s + G, ... of rows
+// lrow (and lrow + 1 for S = 2), read straight from the table (STAGED:
+// first copied into the group's `stage` in shared memory with 16-byte
+// loads). Folds the hit into (best, prim) and the valid slots tested into
+// n_tests; true when any hit and a slot blocks the ray.
+template <int S, int G, bool ANY, bool STAGED>
+__device__ __forceinline__ bool leaf_visit_group(const int* __restrict__ table, int lrow,
+                                                 const Ray& r, int n_tris, float& best,
+                                                 int& prim, int& n_tests, float* stage,
+                                                 const Lanes<G>& g) {
+  constexpr int SL = (LEAF_TRIS * S + G - 1) / G;  // slots per lane
+  if (STAGED) {
+    constexpr int CHUNKS = S * LEAF_WORDS / 4;
+    const float4* src = reinterpret_cast<const float4*>(table + (size_t)lrow * 128);
+    float4* dst = reinterpret_cast<float4*>(stage);
+    g.sync();  // every lane is done with the leaf staged before
+#pragma unroll
+    for (int c = 0; c < (CHUNKS + G - 1) / G; ++c) {
+      const int q = g.lane + c * G;
+      if (q < CHUNKS) dst[q] = __ldg(src + (q / (LEAF_WORDS / 4)) * 32 + q % (LEAF_WORDS / 4));
+    }
+    g.sync();
+  }
+  float tt[SL];
+  int pid[SL];
+  bool hit[SL];
+  unsigned valid_b[SL], hit_b[SL];
+  int key = 0x7fffffff;  // no hit
+  bool any = false;
+#pragma unroll
+  for (int c = 0; c < SL; ++c) {
+    const int s = g.lane + c * G;
+    pid[c] = -1;
+    hit[c] = false;
+    tt[c] = 0.0f;
+    if (s < LEAF_TRIS * S) {
+      const int j = s % LEAF_TRIS;
+      if (STAGED) {
+        const float* row = stage + (s / LEAF_TRIS) * LEAF_WORDS;
+        pid[c] = __float_as_int(row[108 + j]);
+        if (pid[c] >= 0) hit[c] = prim_hit(row + 9 * j, pid[c], r, n_tris, best, tt[c]);
+      } else {
+        const int* row = table + (size_t)(lrow + s / LEAF_TRIS) * 128;
+        float geo[9];
+#pragma unroll
+        for (int m = 0; m < 9; ++m)
+          geo[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * j + m);
+        pid[c] = __ldg(row + 108 + j);
+        if (pid[c] >= 0) hit[c] = prim_hit(geo, pid[c], r, n_tris, best, tt[c]);
+      }
+    }
+    valid_b[c] = g.ballot(pid[c] >= 0);
+    hit_b[c] = g.ballot(hit[c]);
+    any |= hit_b[c] != 0u;
+    if (hit[c]) key = min(key, t_key(tt[c]));
+  }
+  int tested = 0;
+#pragma unroll
+  for (int c = 0; c < SL; ++c) tested += __popc(valid_b[c]);
+  if (!any) {
+    n_tests += tested;
+    return false;
+  }
+  if (!ANY) {
+    // The group's smallest t: one reduction over keys that order like the
+    // floats, with -0.0 and +0.0 one key (they compare equal).
+    const int kmin = __reduce_min_sync(g.mask, key);
+#pragma unroll
+    for (int c = 0; c < SL; ++c) hit_b[c] = g.ballot(hit[c] && t_key(tt[c]) == kmin);
+  }
+  // The lowest slot in hit_b: the winner among equal t, or the first
+  // blocking slot.
+  bool done = false;
+#pragma unroll
+  for (int c = 0; c < SL; ++c) {
+    if (done || hit_b[c] == 0u) continue;
+    const int w = __ffs(hit_b[c]) - 1;
+    best = g.shfl(tt[c], w);
+    prim = g.shfl(pid[c], w);
+    if (ANY) {
+      tested = __popc(valid_b[c] & (0xffffffffu >> (31 - w)));
+#pragma unroll
+      for (int c2 = 0; c2 < c; ++c2) tested += __popc(valid_b[c2]);
+    }
+    done = true;
+  }
+  n_tests += tested;
+  return ANY;
+}
+
+struct WalkArgs {
+  const int* table;
+  int last;  // row clamp that leaves room for row B
+  int depth;
+  RayArrays rays;
+  int n, n_tris, ceiling;
+  float* t;
+  int* prim;
+  int* counts;
+  int* overflow;
+};
+
+__device__ __forceinline__ void store(const WalkArgs& w, int i, float t, int prim, int n_super,
+                                      int n_leaf, int n_tests, int deepest) {
+  w.t[i] = t;
+  w.prim[i] = prim;
+  if (w.counts) {
+    w.counts[4 * i + 0] = n_super;
+    w.counts[4 * i + 1] = n_leaf;
+    w.counts[4 * i + 2] = n_tests;
+    w.counts[4 * i + 3] = deepest;
+  }
+}
+
+// Live ray i's walk by the group; lane 0 stores its results.
+template <int W, int G, bool ANY, bool STAGED = false>
+__device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G>& g,
+                                         float* stage = nullptr) {
+  constexpr int C = W / G;          // children per lane
+  constexpr int D = MAX_DEPTH / G;  // stack entries per lane
+  const int* __restrict__ table = w.table;
+  const RayArrays& a = w.rays;
+  const int last = w.last;
+  const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
+  float best = a.tfar[i];
+  int prim = -1;
+  int n_super = 0, n_leaf = 0, n_tests = 0, deepest = 0;
+  int node = a.rref ? a.rref[i] : 0;
+  int sp = 0;            // stack entries, the top one included
+  int top_e = 0;         // the top entry: row | reversed << 30,
+  unsigned top_m = 0u;   // and its pending children
+  int low_e[D];          // entry j < sp - 1: lane j % G, slot j / G
+  unsigned low_m[D];
+  int kid[C];            // refs of the last supernode visit: child lane + c * G
+  bool fresh = false;    // the top entry is that visit's
+#pragma unroll
+  for (int d = 0; d < D; ++d) low_e[d] = 0, low_m[d] = 0u;
+  for (int it = 0; it < w.ceiling; ++it) {
+    // The ref the next pop reads if this visit pushes nothing.
+    int next_old = 0;
+    if (sp > 0) {
+      const int k = nearest(top_e, top_m);
+      next_old = __ldg(table + (size_t)((top_e & ROW_MASK) + (k >> 4)) * 128 + 96 + (k & 15));
+    }
+    if (node >= 0) {
+      const int srow = min(node, last);
+      const int* row0 = table + (size_t)srow * 128;
+      unsigned mask = 0u;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int k = g.lane + c * G;
+        const int* row = W == 32 ? row0 + (k >> 4) * 128 : row0;
+        const float2* bx = reinterpret_cast<const float2*>(row) + 3 * (k & 15);
+        const float2 p = __ldg(bx), q = __ldg(bx + 1), s = __ldg(bx + 2);
+        kid[c] = __ldg(row + 96 + (k & 15));
+        mask |= g.ballot(box_hit(p, q, s, r, best)) << (c * G);
+      }
+      mask &= (unsigned)__ldg(row0 + 120);
+      const int axis = __ldg(row0 + 121);
+      ++n_super;
+      fresh = mask != 0u;
+      if (fresh) {
+        if (sp >= w.depth) {  // the table is deeper than its stack_n says
+          deepest = w.depth + 1;
+          if (g.lane == 0) atomicOr(w.overflow, 1);
+          break;
+        }
+        const float sgn = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+        if (sp > 0) {  // the old top goes below
+          const int j = sp - 1;
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            if (d == j / G && g.lane == j % G) low_e[d] = top_e, low_m[d] = top_m;
+        }
+        top_e = srow | ((sgn <= 0.0f ? 1 : 0) << 30);
+        top_m = mask;
+        ++sp;
+        deepest = max(deepest, sp);
+      }
+    } else {
+      ++n_leaf;
+      fresh = false;
+      const int lrow = min((~node) & ROW_MASK, last);
+      if (leaf_visit_group<W / 16, G, ANY, STAGED>(table, lrow, r, w.n_tris, best, prim,
+                                                   n_tests, stage, g))
+        break;
+    }
+    if (sp == 0) break;
+    const int k = nearest(top_e, top_m);
+    top_m &= ~(1u << k);
+    if (fresh) {
+      int v = kid[0];
+#pragma unroll
+      for (int c = 1; c < C; ++c)
+        if (k / G == c) v = kid[c];
+      node = g.shfl(v, k % G);
+    } else {
+      node = next_old;
+    }
+    if (top_m == 0u) {
+      --sp;
+      if (sp > 0) {  // the entry below comes up
+        const int j = sp - 1;
+        int e = low_e[0];
+        unsigned m = low_m[0];
+#pragma unroll
+        for (int d = 1; d < D; ++d)
+          if (j / G == d) e = low_e[d], m = low_m[d];
+        top_e = g.shfl(e, j % G);
+        top_m = g.shfl(m, j % G);
+      }
     }
   }
-  walk_store(w, i, t_out, prim_out, counts);
+  if (g.lane == 0) store(w, i, best, prim, n_super, n_leaf, n_tests, deepest);
+}
+
+// Rays K * q .. K * q + K - 1 for group q: each of the first K lanes
+// looks at one and settles it if it is dead (a miss, no work); the group
+// walks the live ones in turn.
+template <int W, int G, int K, bool ANY, bool STAGED, int MINB>
+__global__ void __launch_bounds__(K3_BLOCK, MINB) packet_trace_grid(WalkArgs w) {
+  __shared__ __align__(16) float stage[STAGED ? K3_BLOCK / G : 1][(W / 16) * LEAF_WORDS];
+  const Lanes<G> g;
+  const int gi = threadIdx.x / G;
+  const long long first = ((long long)blockIdx.x * (K3_BLOCK / G) + gi) * K;
+  const long long i = first + g.lane;
+  bool live = false;
+  if (g.lane < K && i < w.n) {
+    const float tf = w.rays.tfar[i];
+    live = tf >= w.rays.tnear[i];
+    if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
+  }
+  for (unsigned todo = g.ballot(live); todo != 0u; todo &= todo - 1u)
+    walk_ray<W, G, ANY, STAGED>(w, (int)first + __ffs(todo) - 1, g, stage[STAGED ? gi : 0]);
+}
+
+// Persistent: as many blocks as fit on the card; a group takes its next
+// ray from a global counter (*next, zeroed by the caller).
+template <int W, bool ANY>
+__global__ void __launch_bounds__(K3_BLOCK, 10) packet_trace_persistent(WalkArgs w, int* next) {
+  const Lanes<W> g;
+  const int groups = gridDim.x * (K3_BLOCK / W);
+  for (int i = blockIdx.x * (K3_BLOCK / W) + threadIdx.x / W; i < w.n;) {
+    const float tf = w.rays.tfar[i];
+    if (tf >= w.rays.tnear[i])
+      walk_ray<W, W, ANY>(w, i, g);
+    else if (g.lane == 0)
+      store(w, i, tf, -1, 0, 0, 0, 0);
+    int nx = 0;
+    if (g.lane == 0) nx = groups + atomicAdd(next, 1);
+    i = g.shfl(nx, 0);
+  }
+}
+
+// Resident: as many blocks as fit on the card, S groups in all; group q
+// walks rays q, q + S, q + 2S, ... Lane j looks ahead at the group's ray
+// j of its next G and settles it if it is dead; the group walks the live
+// ones in turn.
+template <int W, bool ANY>
+__global__ void __launch_bounds__(K3_BLOCK, 10) packet_trace_stride(WalkArgs w) {
+  const Lanes<W> g;
+  const long long S = (long long)gridDim.x * (K3_BLOCK / W);
+  for (long long c0 = (long long)blockIdx.x * (K3_BLOCK / W) + threadIdx.x / W; c0 < w.n;
+       c0 += S * W) {
+    const long long i = c0 + g.lane * S;
+    bool live = false;
+    if (i < w.n) {
+      const float tf = w.rays.tfar[i];
+      live = tf >= w.rays.tnear[i];
+      if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
+    }
+    for (unsigned todo = g.ballot(live); todo != 0u; todo &= todo - 1u)
+      walk_ray<W, W, ANY>(w, (int)(c0 + (__ffs(todo) - 1) * S), g);
+  }
+}
+
+template <int W, int G, int K, bool ANY, bool STAGED, int MINB>
+static void launch_grid(const WalkArgs& w, cudaStream_t s) {
+  const long long per = (long long)(K3_BLOCK / G) * K;
+  packet_trace_grid<W, G, K, ANY, STAGED, MINB>
+      <<<(unsigned)((w.n + per - 1) / per), K3_BLOCK, 0, s>>>(w);
+}
+
+template <class F>
+static int resident_blocks(F kernel) {
+  int per_sm = 0, sms = 0, dev = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K3_BLOCK, 0);
+  return per_sm * sms;
+}
+
+// Designs of the comparison (design 0 is the one gdpt_trace_packets
+// launches): 0 G = W, a warp takes two consecutive rays (K = 2 at W = 32,
+// 1 at W = 16), at most 48 registers; 1 one ray per group; 2 four rays
+// per warp; 3 G = W / 2, one ray per group; 4 persistent, a global
+// counter; 5 resident, grid-stride; 6 design 0 with the leaf rows staged
+// in shared memory; 7 design 0 without the register bound.
+template <int W, bool ANY>
+static void launch_design(const WalkArgs& w, int design, int* next, cudaStream_t s) {
+  constexpr int K2 = W / 16;  // two rays per warp
+  switch (design) {
+    case 1: launch_grid<W, W, 1, ANY, false, 10>(w, s); break;
+    case 2: launch_grid<W, W, 2 * K2, ANY, false, 10>(w, s); break;
+    case 3: launch_grid<W, W / 2, 1, ANY, false, 10>(w, s); break;
+    case 4:
+      packet_trace_persistent<W, ANY>
+          <<<resident_blocks(packet_trace_persistent<W, ANY>), K3_BLOCK, 0, s>>>(w, next);
+      break;
+    case 5:
+      packet_trace_stride<W, ANY>
+          <<<resident_blocks(packet_trace_stride<W, ANY>), K3_BLOCK, 0, s>>>(w);
+      break;
+    case 6: launch_grid<W, W, K2, ANY, true, 10>(w, s); break;
+    case 7: launch_grid<W, W, K2, ANY, false, 1>(w, s); break;
+    default: launch_grid<W, W, K2, ANY, false, 10>(w, s);
+  }
+}
+
+static int trace(const int* table, int n_rows, int width, int depth, const float* ox,
+                 const float* oy, const float* oz, const float* dx, const float* dy,
+                 const float* dz, const float* tnear, const float* tfar, const int* rref, int n,
+                 int n_tris, int any_hit, int ceiling, float* t, int* prim, int* counts,
+                 int* overflow, void* stream, int design, int* next) {
+  if ((width != 16 && width != 32) || depth < 1 || depth > MAX_DEPTH)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const WalkArgs w = {table, n_rows - width / 16, depth,
+                        {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
+                        n, n_tris, ceiling, t, prim, counts, overflow};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (width == 32)
+      any_hit ? launch_design<32, true>(w, design, next, s)
+              : launch_design<32, false>(w, design, next, s);
+    else
+      any_hit ? launch_design<16, true>(w, design, next, s)
+              : launch_design<16, false>(w, design, next, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -98,20 +511,21 @@ int gdpt_trace_packets(const int* table, int n_rows, int width, int depth,
                        int n, int n_tris, int any_hit, int ceiling,
                        float* t, int* prim, int* counts, int* overflow,
                        void* stream) {
-  if ((width != 16 && width != 32) || depth < 1 || depth > MAX_DEPTH)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int blocks = (n + BLOCK - 1) / BLOCK;
-    cudaStream_t s = (cudaStream_t)stream;
-    const RayArrays rays = {ox, oy, oz, dx, dy, dz, tnear, tfar, rref};
-    if (width == 32)
-      packet_trace_kernel<32><<<blocks, BLOCK, 0, s>>>(
-          table, n_rows, depth, rays, n, n_tris, any_hit, ceiling, t, prim, counts, overflow);
-    else
-      packet_trace_kernel<16><<<blocks, BLOCK, 0, s>>>(
-          table, n_rows, depth, rays, n, n_tris, any_hit, ceiling, t, prim, counts, overflow);
-  }
-  return (int)cudaGetLastError();
+  return trace(table, n_rows, width, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n,
+               n_tris, any_hit, ceiling, t, prim, counts, overflow, stream, 0, nullptr);
+}
+
+// The design comparison (launch_design): *next is the persistent
+// design's counter, zeroed by the caller.
+int gdpt_trace_packets_ab(const int* table, int n_rows, int width, int depth,
+                          const float* ox, const float* oy, const float* oz,
+                          const float* dx, const float* dy, const float* dz,
+                          const float* tnear, const float* tfar, const int* rref,
+                          int n, int n_tris, int any_hit, int ceiling,
+                          float* t, int* prim, int* counts, int* overflow,
+                          void* stream, int design, int* next) {
+  return trace(table, n_rows, width, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n,
+               n_tris, any_hit, ceiling, t, prim, counts, overflow, stream, design, next);
 }
 
 }  // extern "C"
