@@ -27,7 +27,8 @@ Phases, each fatal on failure:
      409,612 triangles): host BVH, packet table (timed);
   8. hold K3 (the BVH walk, closest hit and any hit) against its plain
      version on 262,144 camera, bounce and shadow rays of that scene, on
-     a small 16-wide table and on a table with in-table spheres, and
+     a small 16-wide table and on a table with in-table spheres (0 rays
+     may differ in t, prim or visit counts), and
      against brute force over every triangle on a 16,384-ray sample
      (grazing rays the walk's box test drops are counted and printed);
   9. the BVH main path: render.render(scene, spp=4) on cuda (packet
@@ -37,7 +38,8 @@ Phases, each fatal on failure:
      2 spp) on cuda and on the CPU and hold the two images together;
  11. time K3 (closest and any hit, rays morton-sorted and unsorted) by
      CUDA graph replay, beside its plain version and its bound, whose
-     operations and table rows are counted from these rays' own visits;
+     operations and table rows the plain version counts from these rays'
+     own visits;
  12. profile one wavefront chunk (8 iterations) of the BVH render;
  13. build that scene's 16-wide packet table; hold K4 (the dual walk)
      against its plain version and against K3 on it: camera, bounce and
@@ -62,7 +64,8 @@ Phases, each fatal on failure:
      gradpath lane pool hands the walk in its steady state (the pool's
      own rays, the 8n-lane probe/replay cast with most lanes dead, the
      5n-lane primary cast of a refill, the shadow rays): 0 rays may
-     differ; then profile one gradpath wavefront chunk (6 iterations).
+     differ; time K3 on each by CUDA graph replay beside its bound; then
+     profile one gradpath wavefront chunk (6 iterations).
 
 Prints one "kernels" JSON line, then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -376,12 +379,11 @@ def _gradpath_cuda_vs_cpu(render, scene, label):
         _gate_cuda_vs_cpu(aux_a[name], aux_b[name], scale, 17, f"gradpath {label}, {name}")
 
 
-def _compare_k3(pk, tab, rays, n_tris, any_hit, label, exact=False):
+def _compare_k3(pk, tab, rays, n_tris, any_hit, label):
     """K3 against its plain version on the same rays. Both walk the same
-    nodes in the same order with separately rounded operations, so t is
-    held bit-equal and prim equal; the gate allows 0.01% of rays, every
-    exception counted and printed; with `exact` no ray may differ, in its
-    visit counts either. Returns (max abs err of t, counts)."""
+    nodes in the same order with separately rounded operations and the
+    same tie rules, so no ray may differ in t, prim or its visit counts.
+    Returns (max abs err of t, counts)."""
     import torch
 
     t, prim, cnt = pk.trace_packets(tab, *rays, n_tris=n_tris, any_hit=any_hit, counts=True)
@@ -389,22 +391,17 @@ def _compare_k3(pk, tab, rays, n_tris, any_hit, label, exact=False):
                                              counts=True)
     torch.cuda.synchronize()
     n = t.shape[0]
-    if any_hit:
-        bad_t, bad_prim = 0, int(((prim >= 0) != (rprim >= 0)).sum())
-    else:
-        bad_t = int((t != rt).sum())
-        bad_prim = int(((t == rt) & (prim != rprim)).sum())
+    bad_t = int((t.view(torch.int32) != rt.view(torch.int32)).sum())
+    bad_prim = int((prim != rprim).sum())
     bad_cnt = int((cnt != rcnt).any(dim=1).sum())
-    err = float((t - rt).abs().max())
+    err = float((t - rt).abs().max()) if n else 0.0
     mean = cnt.float().mean(dim=0).tolist()
     print(f"  K3 {'any-hit' if any_hit else 'closest'} {label}: {n} rays, t differs on {bad_t}, "
-          f"prim differs at equal t on {bad_prim}, visit counts differ on {bad_cnt}, "
-          f"max abs err of t {err:.3g}, hits {float((rprim >= 0).float().mean()):.4f}; per ray "
-          f"{mean[0]:.1f} super visits, {mean[1]:.1f} leaf visits, {mean[2]:.1f} primitive "
-          f"tests, deepest stack {int(cnt[:, 3].max())} of {tab.stack_n // tab.width}")
-    if bad_t + bad_prim > n // 10000 or not bool(torch.isfinite(t).all()):
-        raise AssertionError(f"K3 disagrees with its plain version on {label}")
-    if exact and bad_t + bad_prim + bad_cnt + int(((t != rt) | (prim != rprim)).sum()):
+          f"prim on {bad_prim}, visit counts on {bad_cnt}, max abs err of t {err:.3g}, hits "
+          f"{float((rprim >= 0).float().mean()):.4f}; per ray {mean[0]:.1f} super visits, "
+          f"{mean[1]:.1f} leaf visits, {mean[2]:.1f} primitive tests, deepest stack "
+          f"{int(cnt[:, 3].max())} of {tab.stack_n // tab.width}")
+    if bad_t + bad_prim + bad_cnt or not bool(torch.isfinite(t).all()):
         raise AssertionError(f"K3 differs from its plain version on {label}")
     return err, cnt
 
@@ -473,14 +470,28 @@ def _small_table_checks(pk, dev):
     return max(errs)
 
 
+def _walk_work(pk, tab, rays, any_hit):
+    """The work of one walk over `rays`, counted by the plain version
+    whatever implements the kernel: (operations, bytes, table rows read,
+    visits). Bytes: eight ray arrays in (no start refs), t and prim out,
+    and each table row these rays' visits read, once."""
+    import torch
+
+    n, rows = rays[0].shape[0], tab.table.shape[0]
+    read = torch.zeros(rows, dtype=torch.bool, device=rays[0].device)
+    cnt = pk.trace_packets_plain(tab, *rays, any_hit=any_hit, counts=True, rows_read=read)[2]
+    cnt = cnt.sum(dim=0).tolist()
+    ops = cnt[0] * tab.width * OPS_PER_BOX + cnt[2] * OPS_PER_TRI_PAIR
+    n_read = int(read.sum())
+    return ops, 40 * n + n_read * 512, n_read, cnt[0] + cnt[1]
+
+
 def _time_walk(pk, pt, tab, r, rs, any_hit, dual, phase, name, source, replaces, launches,
                spp, err, card):
     """Time one walk kernel (K3, or K4 with dual) on rays `r` and their
     morton-sorted copy `rs` by CUDA graph replay, beside the plain version
     and the bound counted from these rays' own visits. Returns its row and
     its time per visit per ray in ns."""
-    import torch
-
     from gdpt_tpu_torch.core.soa import V3
 
     n, rows = r[0].shape[0], tab.table.shape[0]
@@ -494,17 +505,8 @@ def _time_walk(pk, pt, tab, r, rs, any_hit, dual, phase, name, source, replaces,
     ms_full = _events_ms(lambda: [full(tab, o3, d3, r[6], r[7], dual=dual) for _ in range(5)], 5)
     plain(tab, *rs, any_hit=any_hit)
     ms_plain = _events_ms(lambda: plain(tab, *rs, any_hit=any_hit), 1)
-    cnt = pk.trace_packets(tab, *rs, any_hit=any_hit, counts=True, dual=dual)[2]
-    cnt = cnt.sum(dim=0).tolist()
-    ops = cnt[0] * tab.width * OPS_PER_BOX + cnt[2] * OPS_PER_TRI_PAIR
-    # Bytes of this call: eight ray arrays in (no start refs), t and
-    # prim out, and each table row these rays' visits read, once.
-    read = torch.zeros(rows, dtype=torch.bool, device=r[0].device)
-    pk.trace_packets_plain(tab, *rs, any_hit=any_hit, rows_read=read)
-    n_read = int(read.sum())
-    nbytes = 40 * n + n_read * 512
+    ops, nbytes, n_read, visits = _walk_work(pk, tab, rs, any_hit)
     row = _kernel_row(name, source, replaces, launches, err, ms_sorted, ms_plain, nbytes, ops)
-    visits = cnt[0] + cnt[1]
     print(f"phase {phase}: {name}: {ms_sorted * 1e3:.1f} us/launch on sorted rays, "
           f"{ms_unsorted * 1e3:.1f} us unsorted, {ms_full * 1e3:.1f} us per eager wrapper "
           f"call with sort, unsort and hit attributes; plain (eager, with its host "
@@ -758,10 +760,11 @@ def _gradpath_phases(card, ctx):
     if min(k5_launches.values()) == 0:
         raise AssertionError(f"the microbenchmark's entry point left a mode out: {k5_launches}")
     ns3 = ctx["k3_ns_per_visit"]
-    print(f"phase 14: K5 on {card}: launches by mode {k5_launches}; K3 in its walk spends "
-          f"{ns3[0]:.4f} (closest) and {ns3[1]:.4f} (any hit) ns per visit per ray on the 32-wide "
-          f"table; coherent visits there cost {timed[32]['super32'][1]:.5f} (super32) and "
-          f"{timed[32]['leaf24'][1]:.5f} (leaf24) ns, the bare loop {timed[32]['empty'][1]:.5f}")
+    print(f"phase 14: K5 on {card}: launches by mode {k5_launches}; K3 (a lane group per ray) "
+          f"spends {ns3[0]:.4f} (closest) and {ns3[1]:.4f} (any hit) ns per visit per ray on "
+          f"the 32-wide table; K5's one-thread-per-ray bodies (K4's) cost "
+          f"{timed[32]['super32'][1]:.5f} (super32) and {timed[32]['leaf24'][1]:.5f} (leaf24) ns "
+          f"coherent, the bare loop {timed[32]['empty'][1]:.5f}")
     k5_rows = []
     rays_t = vm.random_rays(tab32, n_rays)
     for mode in ("super32", "leaf24"):  # the 32-wide table's own two visits
@@ -890,9 +893,18 @@ def _gradpath_phases(card, ctx):
     for (n, any_hit), rays in sorted(batches.items()):
         dead = float((rays[7] < rays[6]).float().mean())
         label = f"pool batch of {n // pool} x {pool} lanes, {dead:.4f} dead"
-        _compare_k3(pk, tab32, rays, None, any_hit, label + ", 32-wide table", exact=True)
+        _compare_k3(pk, tab32, rays, None, any_hit, label + ", 32-wide table")
         _compare_k4(pk, tab16, rays, any_hit, label)
     print("phase 19: K3 and K4 agree with their plain versions on the pool's own batches")
+    for (n, any_hit), rays in sorted(batches.items()):
+        ms, _ = _time_ms(lambda: pk.trace_packets(tab32, *rays, any_hit=any_hit), 10, 3)
+        ops, nbytes, n_read, visits = _walk_work(pk, tab32, rays, any_hit)
+        bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
+        print(f"phase 19: K3 {'any hit' if any_hit else 'closest'} on the pool batch of "
+              f"{n // pool} x {pool} lanes ({float((rays[7] < rays[6]).float().mean()):.4f} "
+              f"dead), 32-wide table: {ms * 1e3:.1f} us/launch by CUDA graph replay, bound "
+              f"{bound * 1e3:.2f} us ({ops / 1e9:.3f} Gop, {nbytes / 1e6:.1f} MB, {n_read} rows "
+              f"read), {visits / n:.2f} visits per ray on {card}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -3,10 +3,12 @@
 
 Counterpart of gdpt_tpu/accel/packet_trace.py `_make_kernel`,
 `_make_kernel_dual` and `_trace_packets`. The hand-written Hopper
-kernels live in csrc/packet_trace.cu (K3: one ray per thread) and
-csrc/packet_trace_dual.cu (K4: two rays per thread with their visit
-bodies interleaved, 16-wide tables only), over the visit bodies of
-csrc/packet_visit.cuh; this module builds them at first use
+kernels live in csrc/packet_trace.cu (K3: a group of as many lanes as
+the table is wide walks one ray, lane k testing child k of a supernode
+and slot k of a leaf, the stack in the lanes' registers) and
+csrc/packet_trace_dual.cu (K4: two rays per thread with the visit
+bodies of csrc/packet_visit.cuh interleaved, 16-wide tables only); this
+module builds them at first use
 (accel/native_build.py), binds them with ctypes and launches them on
 PyTorch's current stream. `trace_packets` takes a plain PyTorch
 version only for tensors on the CPU. For CUDA tensors it launches the
@@ -32,8 +34,10 @@ mask) entry per supernode on the path, so its depth is the tree's,
 stack_n // width at most, not width times that.
 
 Kernel and plain version do the same visits in the same order with the
-same separately rounded operations (the kernel is built with
---fmad=false), so they agree bit for bit, ties included.
+same separately rounded operations (the kernels are built with
+--fmad=false), so they agree bit for bit, ties included: among equal t
+in a leaf the lowest slot wins (closest hit), and any hit stops at the
+lowest blocking slot, with the visit counts' primitive tests up to it.
 """
 
 import ctypes
@@ -48,7 +52,7 @@ LAUNCHES = {"packet_intersect": 0, "packet_occluded": 0,
 
 SOURCE = "packet_trace.cu"
 SOURCE_DUAL = "packet_trace_dual.cu"
-BLOCK = 128              # threads per block of both kernels
+BLOCK = 128              # threads per block of both kernels (K4 pairs rays by it)
 MAX_DEPTH = 32           # stack entries per ray compiled into the kernel
 _ROW_MASK = (1 << 22) - 1
 _LEAF_TRIS = 12
@@ -288,9 +292,11 @@ def trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
             got = hit.any(dim=1)
             n_valid = (pid >= 0).sum(dim=1)
             if any_hit:
-                # The kernel stops at the first blocking primitive.
+                # The kernel stops at the first blocking primitive: the
+                # valid slots up to it are tested.
                 j = hit.to(torch.int8).argmax(dim=1)
-                tested = torch.where(got, j + 1, n_valid)
+                upto = torch.arange(pid.shape[1], device=dev) <= j[:, None]
+                tested = torch.where(got, ((pid >= 0) & upto).sum(dim=1), n_valid)
             else:
                 # Strict t < best in slot order: the minimum wins, the
                 # first slot among equals (argmin takes the first).

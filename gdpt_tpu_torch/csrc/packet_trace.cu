@@ -23,20 +23,22 @@
 // running best folded in; Moeller-Trumbore with strict t < best; the
 // sphere roots.
 //
-// Walk: a group of G lanes of one warp walks one ray, where the TPU walks
-// a 1024-ray packet over one shared stack. Every lane of a group follows
-// the ray's one control flow, so nothing diverges inside a group; the
-// group's ballots and shuffles name its own lanes only. The node's row
-// lies across the lanes:
+// Walk: a group of G = W lanes of one warp walks one ray, where the TPU
+// walks a 1024-ray packet over one shared stack. (A 32-wide table takes a
+// whole warp per ray, a 16-wide one half a warp.) Every lane of a group
+// follows the ray's one control flow, so nothing diverges inside a group;
+// the group's ballots and shuffles name its own lanes only. The node's
+// row lies across the lanes:
 //   - supernode visit: lane k loads child k's box (three 8-byte loads; a
 //     box is 24 B, so the group's loads cover the row's boxes contiguously)
 //     and its ref, and runs the slab test; a group ballot cut to the
 //     row's validity bits is the child mask;
-//   - leaf visit: the group stages the leaf rows in shared memory with
-//     16-byte loads, then lane s tests slot s. Closest hit takes the
-//     smallest t and among equal t the lowest slot (comparisons, so -0.0
-//     and +0.0 tie as in a sequential strict t < best scan, whose result
-//     this minimum is); any hit the lowest blocking slot.
+//   - leaf visit: lane s loads slot s (nine words and its id) and tests
+//     it. Closest hit takes the smallest t and among equal t the lowest
+//     slot: one warp min reduction over ints that order like the floats,
+//     with -0.0 and +0.0 one key, as a sequential strict t < best scan
+//     treats them (that scan's result is this minimum); any hit takes the
+//     lowest blocking slot.
 // The walk per ray is the one the reference's tests imply and the plain
 // version runs: a supernode visit pushes ONE entry (row | reversed << 30,
 // child mask); each later step peels the nearest pending child, the
@@ -52,6 +54,16 @@
 // deepest count reads depth + 1 and the kernel sets *overflow, which the
 // wrapper turns into an error.
 //
+// Scheduling: a warp takes two consecutive rays (a 32-wide group walks
+// both in turn, each 16-wide group one); each is first checked by one
+// lane, and a dead ray is settled there (a miss, no work), so the dead
+// lanes the wrapper's caller sorts to the back cost a lane, not a walk.
+// Registers are held to 48 per thread (__launch_bounds__(128, 10)), which
+// buys 40 resident warps per SM for a few bytes of spill. PERF.md has the
+// designs this was measured against (one ray per group, a group of W / 2
+// lanes, persistent and resident grids, leaf rows staged in shared
+// memory) and their times.
+//
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): the work depends on the
 // rays. Bytes: 40 per ray in and out (44 with start refs), plus each table
 // row the rays visit, once. Operations: a supernode visit is W slab tests
@@ -59,9 +71,11 @@
 // test 52 (Moeller-Trumbore). On a 409,612-triangle scene (24.4 MB of
 // table, under the 50 MB L2) a bounce ray makes about 2 supernode and 2
 // leaf visits with 16 primitive tests: 0.67 Gop and 31 MB per 262,144
-// rays, about 10 us either way. What the card does instead is issue: some
-// 60 warp instructions per visit of a ray, one visit's loads in flight
-// per group at a time (PERF.md has the measured times).
+// rays, about 10 us either way. The kernel is bound instead by the chain
+// of each visit (row loads from L2, the tests, a ballot, the pop and its
+// shuffle) over the 40 rays an SM has in flight; coherent rays, which the
+// one-thread-per-ray walk of the visit bodies in packet_visit.cuh runs at
+// a fraction of the cost, gain nothing here (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
@@ -69,12 +83,14 @@
 
 #include <cuda_runtime.h>
 
+// From packet_visit.cuh the walk takes the ray set-up (Ray, make_ray,
+// RayArrays) and the table constants; its visit bodies, which the dual
+// walk K4 and the microbenchmark K5 run, are not used here.
 #include "packet_visit.cuh"
 
-#define K3_BLOCK 128    // threads per block
-#define LEAF_WORDS 120  // a leaf row's geometry and ids: cols 0..119
+#define K3_BLOCK 128  // threads per block
 
-// The G lanes of one warp that walk one ray.
+// The G lanes of one warp that walk one ray (G = the table's width).
 template <int G>
 struct Lanes {
   unsigned mask;  // the group's lanes in the warp
@@ -93,7 +109,6 @@ struct Lanes {
   __device__ __forceinline__ T shfl(T v, int src) const {
     return __shfl_sync(mask, v, src, G);
   }
-  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
 };
 
 // One box of test_boxes2 (packet_visit.cuh) in its operation order; the
@@ -158,93 +173,45 @@ __device__ __forceinline__ int nearest(int e, unsigned m) {
   return (e >> 30) ? 31 - __clz(m) : __ffs(m) - 1;
 }
 
-// A leaf visit of the group: lane s tests slots s, s + G, ... of rows
-// lrow (and lrow + 1 for S = 2), read straight from the table (STAGED:
-// first copied into the group's `stage` in shared memory with 16-byte
-// loads). Folds the hit into (best, prim) and the valid slots tested into
-// n_tests; true when any hit and a slot blocks the ray.
-template <int S, int G, bool ANY, bool STAGED>
+// A leaf visit of the group of W lanes: lane s tests slot s of rows lrow
+// (slots 0..11) and lrow + 1 (12..23, W = 32). Folds the hit into (best,
+// prim) and the valid slots tested into n_tests; true when any hit and a
+// slot blocks the ray.
+template <int W, bool ANY>
 __device__ __forceinline__ bool leaf_visit_group(const int* __restrict__ table, int lrow,
                                                  const Ray& r, int n_tris, float& best,
-                                                 int& prim, int& n_tests, float* stage,
-                                                 const Lanes<G>& g) {
-  constexpr int SL = (LEAF_TRIS * S + G - 1) / G;  // slots per lane
-  if (STAGED) {
-    constexpr int CHUNKS = S * LEAF_WORDS / 4;
-    const float4* src = reinterpret_cast<const float4*>(table + (size_t)lrow * 128);
-    float4* dst = reinterpret_cast<float4*>(stage);
-    g.sync();  // every lane is done with the leaf staged before
+                                                 int& prim, int& n_tests, const Lanes<W>& g) {
+  const int s = g.lane;
+  int pid = -1;
+  bool hit = false;
+  float tt = 0.0f;
+  if (s < LEAF_TRIS * (W / 16)) {
+    const int j = s % LEAF_TRIS;
+    const int* row = table + (size_t)(lrow + s / LEAF_TRIS) * 128;
+    float geo[9];
 #pragma unroll
-    for (int c = 0; c < (CHUNKS + G - 1) / G; ++c) {
-      const int q = g.lane + c * G;
-      if (q < CHUNKS) dst[q] = __ldg(src + (q / (LEAF_WORDS / 4)) * 32 + q % (LEAF_WORDS / 4));
-    }
-    g.sync();
+    for (int m = 0; m < 9; ++m) geo[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * j + m);
+    pid = __ldg(row + 108 + j);
+    if (pid >= 0) hit = prim_hit(geo, pid, r, n_tris, best, tt);
   }
-  float tt[SL];
-  int pid[SL];
-  bool hit[SL];
-  unsigned valid_b[SL], hit_b[SL];
-  int key = 0x7fffffff;  // no hit
-  bool any = false;
-#pragma unroll
-  for (int c = 0; c < SL; ++c) {
-    const int s = g.lane + c * G;
-    pid[c] = -1;
-    hit[c] = false;
-    tt[c] = 0.0f;
-    if (s < LEAF_TRIS * S) {
-      const int j = s % LEAF_TRIS;
-      if (STAGED) {
-        const float* row = stage + (s / LEAF_TRIS) * LEAF_WORDS;
-        pid[c] = __float_as_int(row[108 + j]);
-        if (pid[c] >= 0) hit[c] = prim_hit(row + 9 * j, pid[c], r, n_tris, best, tt[c]);
-      } else {
-        const int* row = table + (size_t)(lrow + s / LEAF_TRIS) * 128;
-        float geo[9];
-#pragma unroll
-        for (int m = 0; m < 9; ++m)
-          geo[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * j + m);
-        pid[c] = __ldg(row + 108 + j);
-        if (pid[c] >= 0) hit[c] = prim_hit(geo, pid[c], r, n_tris, best, tt[c]);
-      }
-    }
-    valid_b[c] = g.ballot(pid[c] >= 0);
-    hit_b[c] = g.ballot(hit[c]);
-    any |= hit_b[c] != 0u;
-    if (hit[c]) key = min(key, t_key(tt[c]));
-  }
-  int tested = 0;
-#pragma unroll
-  for (int c = 0; c < SL; ++c) tested += __popc(valid_b[c]);
-  if (!any) {
-    n_tests += tested;
+  const unsigned valid = g.ballot(pid >= 0);
+  unsigned hits = g.ballot(hit);
+  if (hits == 0u) {
+    n_tests += __popc(valid);
     return false;
   }
   if (!ANY) {
     // The group's smallest t: one reduction over keys that order like the
     // floats, with -0.0 and +0.0 one key (they compare equal).
-    const int kmin = __reduce_min_sync(g.mask, key);
-#pragma unroll
-    for (int c = 0; c < SL; ++c) hit_b[c] = g.ballot(hit[c] && t_key(tt[c]) == kmin);
+    const int kmin = __reduce_min_sync(g.mask, hit ? t_key(tt) : 0x7fffffff);
+    hits = g.ballot(hit && t_key(tt) == kmin);
   }
-  // The lowest slot in hit_b: the winner among equal t, or the first
+  // The lowest slot in hits: the first among equal t, or the first
   // blocking slot.
-  bool done = false;
-#pragma unroll
-  for (int c = 0; c < SL; ++c) {
-    if (done || hit_b[c] == 0u) continue;
-    const int w = __ffs(hit_b[c]) - 1;
-    best = g.shfl(tt[c], w);
-    prim = g.shfl(pid[c], w);
-    if (ANY) {
-      tested = __popc(valid_b[c] & (0xffffffffu >> (31 - w)));
-#pragma unroll
-      for (int c2 = 0; c2 < c; ++c2) tested += __popc(valid_b[c2]);
-    }
-    done = true;
-  }
-  n_tests += tested;
+  const int w = __ffs(hits) - 1;
+  best = g.shfl(tt, w);
+  prim = g.shfl(pid, w);
+  n_tests += __popc(ANY ? valid & (0xffffffffu >> (31 - w)) : valid);
   return ANY;
 }
 
@@ -272,15 +239,12 @@ __device__ __forceinline__ void store(const WalkArgs& w, int i, float t, int pri
   }
 }
 
-// Live ray i's walk by the group; lane 0 stores its results.
-template <int W, int G, bool ANY, bool STAGED = false>
-__device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G>& g,
-                                         float* stage = nullptr) {
-  constexpr int C = W / G;          // children per lane
-  constexpr int D = MAX_DEPTH / G;  // stack entries per lane
+// Live ray i's walk by the group of W lanes; lane 0 stores its results.
+template <int W, bool ANY>
+__device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<W>& g) {
+  constexpr int D = MAX_DEPTH / W;  // stack entries per lane
   const int* __restrict__ table = w.table;
   const RayArrays& a = w.rays;
-  const int last = w.last;
   const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
   float best = a.tfar[i];
   int prim = -1;
@@ -289,9 +253,9 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G
   int sp = 0;            // stack entries, the top one included
   int top_e = 0;         // the top entry: row | reversed << 30,
   unsigned top_m = 0u;   // and its pending children
-  int low_e[D];          // entry j < sp - 1: lane j % G, slot j / G
+  int low_e[D];          // entry j < sp - 1: lane j % W, slot j / W
   unsigned low_m[D];
-  int kid[C];            // refs of the last supernode visit: child lane + c * G
+  int kid = 0;           // the ref of this lane's child at the last supernode visit
   bool fresh = false;    // the top entry is that visit's
 #pragma unroll
   for (int d = 0; d < D; ++d) low_e[d] = 0, low_m[d] = 0u;
@@ -303,19 +267,14 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G
       next_old = __ldg(table + (size_t)((top_e & ROW_MASK) + (k >> 4)) * 128 + 96 + (k & 15));
     }
     if (node >= 0) {
-      const int srow = min(node, last);
+      const int srow = min(node, w.last);
       const int* row0 = table + (size_t)srow * 128;
-      unsigned mask = 0u;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int k = g.lane + c * G;
-        const int* row = W == 32 ? row0 + (k >> 4) * 128 : row0;
-        const float2* bx = reinterpret_cast<const float2*>(row) + 3 * (k & 15);
-        const float2 p = __ldg(bx), q = __ldg(bx + 1), s = __ldg(bx + 2);
-        kid[c] = __ldg(row + 96 + (k & 15));
-        mask |= g.ballot(box_hit(p, q, s, r, best)) << (c * G);
-      }
-      mask &= (unsigned)__ldg(row0 + 120);
+      const int k = g.lane;
+      const int* row = W == 32 ? row0 + (k >> 4) * 128 : row0;
+      const float2* bx = reinterpret_cast<const float2*>(row) + 3 * (k & 15);
+      const float2 p = __ldg(bx), q = __ldg(bx + 1), u = __ldg(bx + 2);
+      kid = __ldg(row + 96 + (k & 15));
+      const unsigned mask = g.ballot(box_hit(p, q, u, r, best)) & (unsigned)__ldg(row0 + 120);
       const int axis = __ldg(row0 + 121);
       ++n_super;
       fresh = mask != 0u;
@@ -330,7 +289,7 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G
           const int j = sp - 1;
 #pragma unroll
           for (int d = 0; d < D; ++d)
-            if (d == j / G && g.lane == j % G) low_e[d] = top_e, low_m[d] = top_m;
+            if (d == j / W && g.lane == j % W) low_e[d] = top_e, low_m[d] = top_m;
         }
         top_e = srow | ((sgn <= 0.0f ? 1 : 0) << 30);
         top_m = mask;
@@ -340,23 +299,13 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G
     } else {
       ++n_leaf;
       fresh = false;
-      const int lrow = min((~node) & ROW_MASK, last);
-      if (leaf_visit_group<W / 16, G, ANY, STAGED>(table, lrow, r, w.n_tris, best, prim,
-                                                   n_tests, stage, g))
-        break;
+      const int lrow = min((~node) & ROW_MASK, w.last);
+      if (leaf_visit_group<W, ANY>(table, lrow, r, w.n_tris, best, prim, n_tests, g)) break;
     }
     if (sp == 0) break;
     const int k = nearest(top_e, top_m);
     top_m &= ~(1u << k);
-    if (fresh) {
-      int v = kid[0];
-#pragma unroll
-      for (int c = 1; c < C; ++c)
-        if (k / G == c) v = kid[c];
-      node = g.shfl(v, k % G);
-    } else {
-      node = next_old;
-    }
+    node = fresh ? g.shfl(kid, k) : next_old;
     if (top_m == 0u) {
       --sp;
       if (sp > 0) {  // the entry below comes up
@@ -365,24 +314,24 @@ __device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<G
         unsigned m = low_m[0];
 #pragma unroll
         for (int d = 1; d < D; ++d)
-          if (j / G == d) e = low_e[d], m = low_m[d];
-        top_e = g.shfl(e, j % G);
-        top_m = g.shfl(m, j % G);
+          if (j / W == d) e = low_e[d], m = low_m[d];
+        top_e = g.shfl(e, j % W);
+        top_m = g.shfl(m, j % W);
       }
     }
   }
   if (g.lane == 0) store(w, i, best, prim, n_super, n_leaf, n_tests, deepest);
 }
 
-// Rays K * q .. K * q + K - 1 for group q: each of the first K lanes
-// looks at one and settles it if it is dead (a miss, no work); the group
-// walks the live ones in turn.
-template <int W, int G, int K, bool ANY, bool STAGED, int MINB>
-__global__ void __launch_bounds__(K3_BLOCK, MINB) packet_trace_grid(WalkArgs w) {
-  __shared__ __align__(16) float stage[STAGED ? K3_BLOCK / G : 1][(W / 16) * LEAF_WORDS];
-  const Lanes<G> g;
-  const int gi = threadIdx.x / G;
-  const long long first = ((long long)blockIdx.x * (K3_BLOCK / G) + gi) * K;
+// A warp's two consecutive rays: K = W / 16 per group, rays K * q ..
+// K * q + K - 1 for group q. Each of the group's first K lanes looks at
+// one and settles it if it is dead (a miss, no work); the group walks the
+// live ones in turn.
+template <int W, bool ANY>
+__global__ void __launch_bounds__(K3_BLOCK, 10) packet_trace_kernel(WalkArgs w) {
+  constexpr int K = W / 16;
+  const Lanes<W> g;
+  const long long first = ((long long)blockIdx.x * (K3_BLOCK / W) + threadIdx.x / W) * K;
   const long long i = first + g.lane;
   bool live = false;
   if (g.lane < K && i < w.n) {
@@ -391,112 +340,13 @@ __global__ void __launch_bounds__(K3_BLOCK, MINB) packet_trace_grid(WalkArgs w) 
     if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
   }
   for (unsigned todo = g.ballot(live); todo != 0u; todo &= todo - 1u)
-    walk_ray<W, G, ANY, STAGED>(w, (int)first + __ffs(todo) - 1, g, stage[STAGED ? gi : 0]);
+    walk_ray<W, ANY>(w, (int)first + __ffs(todo) - 1, g);
 }
 
-// Persistent: as many blocks as fit on the card; a group takes its next
-// ray from a global counter (*next, zeroed by the caller).
 template <int W, bool ANY>
-__global__ void __launch_bounds__(K3_BLOCK, 10) packet_trace_persistent(WalkArgs w, int* next) {
-  const Lanes<W> g;
-  const int groups = gridDim.x * (K3_BLOCK / W);
-  for (int i = blockIdx.x * (K3_BLOCK / W) + threadIdx.x / W; i < w.n;) {
-    const float tf = w.rays.tfar[i];
-    if (tf >= w.rays.tnear[i])
-      walk_ray<W, W, ANY>(w, i, g);
-    else if (g.lane == 0)
-      store(w, i, tf, -1, 0, 0, 0, 0);
-    int nx = 0;
-    if (g.lane == 0) nx = groups + atomicAdd(next, 1);
-    i = g.shfl(nx, 0);
-  }
-}
-
-// Resident: as many blocks as fit on the card, S groups in all; group q
-// walks rays q, q + S, q + 2S, ... Lane j looks ahead at the group's ray
-// j of its next G and settles it if it is dead; the group walks the live
-// ones in turn.
-template <int W, bool ANY>
-__global__ void __launch_bounds__(K3_BLOCK, 10) packet_trace_stride(WalkArgs w) {
-  const Lanes<W> g;
-  const long long S = (long long)gridDim.x * (K3_BLOCK / W);
-  for (long long c0 = (long long)blockIdx.x * (K3_BLOCK / W) + threadIdx.x / W; c0 < w.n;
-       c0 += S * W) {
-    const long long i = c0 + g.lane * S;
-    bool live = false;
-    if (i < w.n) {
-      const float tf = w.rays.tfar[i];
-      live = tf >= w.rays.tnear[i];
-      if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
-    }
-    for (unsigned todo = g.ballot(live); todo != 0u; todo &= todo - 1u)
-      walk_ray<W, W, ANY>(w, (int)(c0 + (__ffs(todo) - 1) * S), g);
-  }
-}
-
-template <int W, int G, int K, bool ANY, bool STAGED, int MINB>
-static void launch_grid(const WalkArgs& w, cudaStream_t s) {
-  const long long per = (long long)(K3_BLOCK / G) * K;
-  packet_trace_grid<W, G, K, ANY, STAGED, MINB>
-      <<<(unsigned)((w.n + per - 1) / per), K3_BLOCK, 0, s>>>(w);
-}
-
-template <class F>
-static int resident_blocks(F kernel) {
-  int per_sm = 0, sms = 0, dev = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, K3_BLOCK, 0);
-  return per_sm * sms;
-}
-
-// Designs of the comparison (design 0 is the one gdpt_trace_packets
-// launches): 0 G = W, a warp takes two consecutive rays (K = 2 at W = 32,
-// 1 at W = 16), at most 48 registers; 1 one ray per group; 2 four rays
-// per warp; 3 G = W / 2, one ray per group; 4 persistent, a global
-// counter; 5 resident, grid-stride; 6 design 0 with the leaf rows staged
-// in shared memory; 7 design 0 without the register bound.
-template <int W, bool ANY>
-static void launch_design(const WalkArgs& w, int design, int* next, cudaStream_t s) {
-  constexpr int K2 = W / 16;  // two rays per warp
-  switch (design) {
-    case 1: launch_grid<W, W, 1, ANY, false, 10>(w, s); break;
-    case 2: launch_grid<W, W, 2 * K2, ANY, false, 10>(w, s); break;
-    case 3: launch_grid<W, W / 2, 1, ANY, false, 10>(w, s); break;
-    case 4:
-      packet_trace_persistent<W, ANY>
-          <<<resident_blocks(packet_trace_persistent<W, ANY>), K3_BLOCK, 0, s>>>(w, next);
-      break;
-    case 5:
-      packet_trace_stride<W, ANY>
-          <<<resident_blocks(packet_trace_stride<W, ANY>), K3_BLOCK, 0, s>>>(w);
-      break;
-    case 6: launch_grid<W, W, K2, ANY, true, 10>(w, s); break;
-    case 7: launch_grid<W, W, K2, ANY, false, 1>(w, s); break;
-    default: launch_grid<W, W, K2, ANY, false, 10>(w, s);
-  }
-}
-
-static int trace(const int* table, int n_rows, int width, int depth, const float* ox,
-                 const float* oy, const float* oz, const float* dx, const float* dy,
-                 const float* dz, const float* tnear, const float* tfar, const int* rref, int n,
-                 int n_tris, int any_hit, int ceiling, float* t, int* prim, int* counts,
-                 int* overflow, void* stream, int design, int* next) {
-  if ((width != 16 && width != 32) || depth < 1 || depth > MAX_DEPTH)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const WalkArgs w = {table, n_rows - width / 16, depth,
-                        {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
-                        n, n_tris, ceiling, t, prim, counts, overflow};
-    cudaStream_t s = (cudaStream_t)stream;
-    if (width == 32)
-      any_hit ? launch_design<32, true>(w, design, next, s)
-              : launch_design<32, false>(w, design, next, s);
-    else
-      any_hit ? launch_design<16, true>(w, design, next, s)
-              : launch_design<16, false>(w, design, next, s);
-  }
-  return (int)cudaGetLastError();
+static void launch(const WalkArgs& w, cudaStream_t s) {
+  const int per_block = 2 * K3_BLOCK / 32;  // two rays per warp
+  packet_trace_kernel<W, ANY><<<(w.n - 1) / per_block + 1, K3_BLOCK, 0, s>>>(w);
 }
 
 extern "C" {
@@ -511,21 +361,19 @@ int gdpt_trace_packets(const int* table, int n_rows, int width, int depth,
                        int n, int n_tris, int any_hit, int ceiling,
                        float* t, int* prim, int* counts, int* overflow,
                        void* stream) {
-  return trace(table, n_rows, width, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n,
-               n_tris, any_hit, ceiling, t, prim, counts, overflow, stream, 0, nullptr);
-}
-
-// The design comparison (launch_design): *next is the persistent
-// design's counter, zeroed by the caller.
-int gdpt_trace_packets_ab(const int* table, int n_rows, int width, int depth,
-                          const float* ox, const float* oy, const float* oz,
-                          const float* dx, const float* dy, const float* dz,
-                          const float* tnear, const float* tfar, const int* rref,
-                          int n, int n_tris, int any_hit, int ceiling,
-                          float* t, int* prim, int* counts, int* overflow,
-                          void* stream, int design, int* next) {
-  return trace(table, n_rows, width, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n,
-               n_tris, any_hit, ceiling, t, prim, counts, overflow, stream, design, next);
+  if ((width != 16 && width != 32) || depth < 1 || depth > MAX_DEPTH)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const WalkArgs w = {table, n_rows - width / 16, depth,
+                        {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
+                        n, n_tris, ceiling, t, prim, counts, overflow};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (width == 32)
+      any_hit ? launch<32, true>(w, s) : launch<32, false>(w, s);
+    else
+      any_hit ? launch<16, true>(w, s) : launch<16, false>(w, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -428,6 +428,94 @@ def test_visit_counts_and_stack_depth():
     assert int(cnt3[:, :2].sum(1).max()) == 1 and (prim3 == -1).all()
 
 
+def _tie_case(wide, spheres=False):
+    """A leaf group built to stress the leaf reduction: T in z = 0 and its
+    reversed twin (a ray from a point of T with tnear = 0 hits both at
+    t = 0, one +0.0 and one -0.0), five coplanar copies of D in z = 5,
+    E and its twin in z = 9; with `spheres` two equal in-table spheres
+    below D's level. (positional args, keyword args, n_tris)."""
+    corner = lambda x, y, z, s: [np.array(p, np.float32) for p in  # noqa: E731
+                                 ((x, y, z), (x + s, y, z), (x, y + s, z))]
+    t, d, e = corner(-4, -4, 0, 10), corner(-3, -3, 5, 8), corner(-2, -2, 9, 6)
+    tris = [t, [t[0], t[2], t[1]]] + [d] * 5 + [e, [e[0], e[2], e[1]]]
+    v0, v1, v2 = (np.stack([tri[k] for tri in tris]) for k in range(3))
+    kw = dict(wide=wide)
+    if spheres:
+        kw.update(sph_center=np.array([[-1.0, -1.0, 6.2]] * 2, np.float32),
+                  sph_radius=np.array([0.5, 0.5], np.float32))
+    return _arrays(v0, v1, v2, **{k: v for k, v in kw.items() if k != "wide"}), kw, \
+        (len(tris) if spheres else None)
+
+
+def _tie_rays(seed=0):
+    """Rays at the _tie_case leaf, 128 of them: 48 from z = 7 straight
+    down onto the copies of D (tfar 1e9), 40 from points of T with
+    tnear = 0 (up and down), 40 from z = 7 down with tfar = 3 (only the
+    copies of D block them)."""
+    rng = np.random.default_rng(seed)
+    org = np.zeros((128, 3), np.float32)
+    d = np.zeros((128, 3), np.float32)
+    org[:, :2] = rng.uniform(-2.5, 0.5, (128, 2))
+    org[:48, 2] = org[88:, 2] = 7.0
+    org[48:88, :2] = rng.uniform(-3.5, -0.5, (40, 2))
+    d[:, :2] = rng.uniform(-0.05, 0.05, (128, 2))
+    d[:, 2] = -1.0
+    d[48:88, 2] = np.where(np.arange(40) % 2 == 0, 1.0, -1.0)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tnear = np.full(128, 1e-4, np.float32)
+    tnear[48:88] = 0.0
+    tfar = np.full(128, 1e9, np.float32)
+    tfar[88:] = 3.0
+    return [np.ascontiguousarray(a) for a in (*org.T, *d.T, tnear, tfar)]
+
+
+@pytest.mark.parametrize("wide", [16, 32])
+def test_leaf_tie_rules_match_pallas(wide):
+    """The tie rules the kernel's group reduction must match, held on the
+    plain walk against the Pallas kernel in interpret mode: closest hit
+    takes the first slot among equal t, -0.0 and +0.0 included (the
+    reference's sequential strict t < best scan); any hit takes the lowest
+    blocking slot, with the valid slots up to it tested."""
+    import jax.numpy as jnp
+    from gdpt_tpu.accel import packet_trace as jpt
+
+    args, kw, _ = _tie_case(wide)
+    jtab = _reference_table(args, **kw)
+    tab = _carry(jtab)
+    (leaf,), _ = _walk_table(tab)
+    ids = np.concatenate([tab.table.numpy()[leaf[2] + r, 108:120] for r in range(wide // 16)])
+    np.testing.assert_array_equal(ids[ids >= 0], np.arange(9))   # slot s holds prim s
+    rays = [torch.from_numpy(a) for a in _tie_rays()]
+    # The two zero-distance hits from T's points have opposite signs.
+    geo = tab.geo9[:2][None].expand(40, 2, 9)
+    tz, hz = pk._prim_hits(geo, torch.tensor([[0, 1]] * 40),
+                           tuple(c[48:88, None] for c in rays[:3]),
+                           tuple(c[48:88, None] for c in rays[3:6]),
+                           rays[6][48:88, None], rays[7][48:88, None], None)
+    assert bool(hz.all()) and bool((tz == 0).all())
+    assert bool((torch.signbit(tz[:, 0]) != torch.signbit(tz[:, 1])).all())
+    # The Pallas walk takes whole packets (PACKET_ROWS x 128 lanes): the
+    # 128 rays eight times over.
+    shape = lambda a: jnp.asarray(np.tile(a.numpy(), 8).reshape(-1, 128))  # noqa: E731
+    jrays = [shape(a) for a in (*rays, torch.zeros(128, dtype=torch.int32))]
+    t, prim, cnt = pk.trace_packets_plain(tab, *rays, counts=True)
+    jt, jp = (np.asarray(a).reshape(8, 128)[0]
+              for a in jpt._trace_packets(jtab, *jrays, any_hit=False, interpret=True))
+    want = np.r_[np.full(48, 2), np.zeros(40, int), np.full(40, 2)]
+    np.testing.assert_array_equal(prim.numpy(), want)        # first copy of D; T, not its twin
+    np.testing.assert_array_equal(jp, want)
+    np.testing.assert_array_equal(t.numpy()[48:88], 0.0)
+    assert torch.equal(torch.signbit(t[48:88]), torch.signbit(tz[:, 0]))  # T's own zero
+    np.testing.assert_allclose(t.numpy(), jt, rtol=1e-6)
+    np.testing.assert_array_equal(cnt[:, 2].numpy(), 9)      # every valid slot tested
+    t, prim, cnt = pk.trace_packets_plain(tab, *rays, any_hit=True, counts=True)
+    _, jp = jpt._trace_packets(jtab, *jrays, any_hit=True, interpret=True)
+    np.testing.assert_array_equal(prim.numpy() >= 0, np.asarray(jp).reshape(8, 128)[0] >= 0)
+    want = np.r_[np.zeros(88, int), np.full(40, 2)]          # T blocks first; else D's first copy
+    np.testing.assert_array_equal(prim.numpy(), want)
+    np.testing.assert_array_equal(cnt[:, 2].numpy(), want + 1)
+
+
 def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
     _, tab, _, _ = _tables("triangles", 32)
     org, d = _rays(256, seed=5)
@@ -577,6 +665,33 @@ def test_cuda_kernel_matches_plain(mode):
         assert 0.05 < float((ref[1] >= 0).float().mean()) < 0.95
         for a, b in zip(got, ref):  # t, prim and the visit counts, bit for bit
             assert torch.equal(a, b)
+    # Hand-built leaves that stress the group's reduction (_tie_case: equal
+    # t in one leaf, hits at t = tnear = 0 of both signs, several blocking
+    # slots, equal in-table spheres), on both widths: 0, 1, W + 1 and
+    # 3W + 1 rays and all 128, from the root and from a leaf-group ref,
+    # and a batch of dead rays.
+    for wide in (16, 32):
+        for spheres in (False, True):
+            args, kw, n_tris = _tie_case(wide, spheres)
+            tab = tpt.packet_table_to(tpt.build_packet_table(*args, **kw), "cuda")
+            rays = [torch.from_numpy(a).cuda() for a in _tie_rays(seed=wide)]
+            leaf_ref = int(tab.table[0, 96])
+            assert leaf_ref < 0
+            dead = rays[:7] + [torch.full_like(rays[7], -1.0)]
+            for n in (0, 1, wide + 1, 3 * wide + 1, 128):
+                for rref in (None, torch.full((n,), leaf_ref, dtype=torch.int32, device="cuda")):
+                    for rr in (rays, dead):
+                        cut = [c[:n].contiguous() for c in rr]
+                        got = pk.trace_packets(tab, *cut, rref=rref, n_tris=n_tris,
+                                               any_hit=mode == "any_hit", counts=True)
+                        ref = pk.trace_packets_plain(tab, *cut, rref=rref, n_tris=n_tris,
+                                                     any_hit=mode == "any_hit", counts=True)
+                        torch.cuda.synchronize()
+                        for a, b in zip(got, ref):
+                            assert torch.equal(a, b), (wide, spheres, n, rref is None)
+            if spheres:  # the two equal spheres are hit
+                hit = pk.trace_packets_plain(tab, *rays, n_tris=n_tris)[1]
+                assert bool((hit >= n_tris).any())
 
 
 @pytest.mark.gpu
