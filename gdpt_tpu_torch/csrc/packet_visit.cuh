@@ -1,8 +1,9 @@
-// Visit bodies and per-ray walk state of the packet-table BVH walk, shared
-// by the solo walk (packet_trace.cu, K3), the dual walk
-// (packet_trace_dual.cu, K4) and the visit microbenchmark
-// (visit_microbench.cu, K5), so all three run, and the benchmark times,
-// the same code.
+// Visit bodies and per-ray walk state of the one-thread-per-ray packet-table
+// BVH walk, shared by the dual walk (packet_trace_dual.cu, K4) and the
+// visit microbenchmark (visit_microbench.cu, K5), so the benchmark times
+// what K4 runs. The solo walk (packet_trace.cu, K3) walks a ray with a
+// group of lanes and takes only the ray set-up (Ray, make_ray, RayArrays)
+// and the table constants from here.
 //
 // Table layout (gdpt_tpu_torch/accel/packet_trace.py): (R, 128) int32 rows
 // with f32 payloads as bit patterns. A supernode is one row (16 children)

@@ -8,7 +8,8 @@ with no walk around them, so a walk's time per visit splits into the
 visit bodies and everything else (divergence, scattered rows, the
 dependent child-ref loads). The hand-written Hopper kernel lives in
 csrc/visit_microbench.cu over the visit bodies of csrc/packet_visit.cuh,
-the code K3 and K4 run. `visit_microbench` takes its plain PyTorch
+the code K4 runs (K3 walks a ray with a group of lanes and runs
+bodies of its own). `visit_microbench` takes its plain PyTorch
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises. LAUNCHES counts kernel launches, by mode.
 
