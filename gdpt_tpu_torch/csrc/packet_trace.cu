@@ -72,10 +72,11 @@
 // table, under the 50 MB L2) a bounce ray makes about 2 supernode and 2
 // leaf visits with 16 primitive tests: 0.67 Gop and 31 MB per 262,144
 // rays, about 10 us either way. The kernel is bound instead by the chain
-// of each visit (row loads from L2, the tests, a ballot, the pop and its
-// shuffle) over the 40 rays an SM has in flight; coherent rays, which the
-// one-thread-per-ray walk of the visit bodies in packet_visit.cuh runs at
-// a fraction of the cost, gain nothing here (PERF.md).
+// of each visit (the row loads, the tests, a ballot, the pop and its
+// shuffle) over the 40 warps an SM holds: its time per visit stays the
+// same when the rows hit L1, so coherent rays, which the
+// one-thread-per-ray walk of packet_visit.cuh's bodies runs at a
+// fraction of the cost, gain nothing here (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
