@@ -64,8 +64,10 @@ Phases, each fatal on failure:
      gradpath lane pool hands the walk in its steady state (the pool's
      own rays, the 8n-lane probe/replay cast with most lanes dead, the
      5n-lane primary cast of a refill, the shadow rays): 0 rays may
-     differ; time K3 on each by CUDA graph replay beside its bound; then
-     profile one gradpath wavefront chunk (6 iterations).
+     differ; time K3 on the 32- and the 16-wide table and K4 on each by
+     CUDA graph replay beside its bound, and sum each walk's time over a
+     gradpath iteration; then profile one gradpath wavefront chunk (6
+     iterations).
 
 Prints one "kernels" JSON line, then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
@@ -762,7 +764,7 @@ def _gradpath_phases(card, ctx):
     ns3 = ctx["k3_ns_per_visit"]
     print(f"phase 14: K5 on {card}: launches by mode {k5_launches}; K3 (a lane group per ray) "
           f"spends {ns3[0]:.4f} (closest) and {ns3[1]:.4f} (any hit) ns per visit per ray on "
-          f"the 32-wide table; K5's one-thread-per-ray bodies (K4's) cost "
+          f"the 32-wide table; K5's one-thread-per-ray bodies (the reference's) cost "
           f"{timed[32]['super32'][1]:.5f} (super32) and {timed[32]['leaf24'][1]:.5f} (leaf24) ns "
           f"coherent, the bare loop {timed[32]['empty'][1]:.5f}")
     k5_rows = []
@@ -896,15 +898,30 @@ def _gradpath_phases(card, ctx):
         _compare_k3(pk, tab32, rays, None, any_hit, label + ", 32-wide table")
         _compare_k4(pk, tab16, rays, any_hit, label)
     print("phase 19: K3 and K4 agree with their plain versions on the pool's own batches")
+    # Launches per gradpath iteration (phase 15): the base, shadow and 8n
+    # probe/replay casts every iteration, the 5n primary cast in those that
+    # refill the pool.
+    per_iter = {(pool, False): 1.0, (pool, True): 1.0, (8 * pool, False): 1.0,
+                (5 * pool, False): (grad_launches["packet_intersect"] - 2 * iters) / iters}
+    iter_us = dict.fromkeys(("K3, 32-wide table", "K3, 16-wide table", "K4, 16-wide table"), 0.0)
     for (n, any_hit), rays in sorted(batches.items()):
-        ms, _ = _time_ms(lambda: pk.trace_packets(tab32, *rays, any_hit=any_hit), 10, 3)
-        ops, nbytes, n_read, visits = _walk_work(pk, tab32, rays, any_hit)
-        bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
-        print(f"phase 19: K3 {'any hit' if any_hit else 'closest'} on the pool batch of "
-              f"{n // pool} x {pool} lanes ({float((rays[7] < rays[6]).float().mean()):.4f} "
-              f"dead), 32-wide table: {ms * 1e3:.1f} us/launch by CUDA graph replay, bound "
-              f"{bound * 1e3:.2f} us ({ops / 1e9:.3f} Gop, {nbytes / 1e6:.1f} MB, {n_read} rows "
-              f"read), {visits / n:.2f} visits per ray on {card}")
+        dead = float((rays[7] < rays[6]).float().mean())
+        for walker, tab, dual in (("K3", tab32, False), ("K3", tab16, False),
+                                  ("K4", tab16, True)):
+            ms, _ = _time_ms(lambda: pk.trace_packets(tab, *rays, any_hit=any_hit, dual=dual),
+                             10, 3)
+            ops, nbytes, n_read, visits = _walk_work(pk, tab, rays, any_hit)
+            bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
+            what = f"{walker}, {tab.width}-wide table"
+            iter_us[what] += per_iter.get((n, any_hit), 0.0) * ms * 1e3
+            print(f"phase 19: {walker} {'any hit' if any_hit else 'closest'} on the pool batch "
+                  f"of {n // pool} x {pool} lanes ({dead:.4f} dead), {tab.width}-wide table: "
+                  f"{ms * 1e3:.1f} us/launch by CUDA graph replay, bound {bound * 1e3:.2f} us "
+                  f"({ops / 1e9:.3f} Gop, {nbytes / 1e6:.1f} MB, {n_read} rows read), "
+                  f"{visits / n:.2f} visits per ray on {card}")
+    print(f"phase 19: walk time per gradpath iteration (each batch's time x its launches per "
+          f"iteration, {per_iter[(5 * pool, False)]:.4f} for the 5n cast): " + ", ".join(
+              f"{k} {v:.1f} us" for k, v in iter_us.items()) + f" on {card}")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -50,12 +50,16 @@ def _flags(src):
 
 def library_path(source) -> Path:
     """Where csrc/<source> is built to: the name hashes the source, the
-    headers of csrc/ it names in an #include "..." line (the headers
-    include none of their own) and the flags."""
+    headers of csrc/ it names in an #include "..." line, theirs in turn,
+    and the flags."""
     src = CSRC / source
     text = src.read_bytes()
-    for name in sorted(set(re.findall(rb'^#include "([^"]+)"', text, re.M))):
-        text += (CSRC / name.decode()).read_bytes()
+    seen, todo = set(), [text]
+    while todo:
+        for name in sorted(set(re.findall(rb'^#include "([^"]+)"', todo.pop(), re.M)) - seen):
+            seen.add(name)
+            todo.append((CSRC / name.decode()).read_bytes())
+            text += todo[-1]
     key = hashlib.sha256(text + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{key}.so"
 

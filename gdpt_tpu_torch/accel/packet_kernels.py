@@ -6,8 +6,9 @@ Counterpart of gdpt_tpu/accel/packet_trace.py `_make_kernel`,
 kernels live in csrc/packet_trace.cu (K3: a group of as many lanes as
 the table is wide walks one ray, lane k testing child k of a supernode
 and slot k of a leaf, the stack in the lanes' registers) and
-csrc/packet_trace_dual.cu (K4: two rays per thread with the visit
-bodies of csrc/packet_visit.cuh interleaved, 16-wide tables only); this
+csrc/packet_trace_dual.cu (K4, 16-wide tables only: a group of 16 lanes
+walks rays 2q and 2q + 1 with both rays' row loads issued before either
+ray's test; the lane-group pieces are csrc/packet_group.cuh); this
 module builds them at first use
 (accel/native_build.py), binds them with ctypes and launches them on
 PyTorch's current stream. `trace_packets` takes a plain PyTorch
@@ -52,7 +53,6 @@ LAUNCHES = {"packet_intersect": 0, "packet_occluded": 0,
 
 SOURCE = "packet_trace.cu"
 SOURCE_DUAL = "packet_trace_dual.cu"
-BLOCK = 128              # threads per block of both kernels (K4 pairs rays by it)
 MAX_DEPTH = 32           # stack entries per ray compiled into the kernel
 _ROW_MASK = (1 << 22) - 1
 _LEAF_TRIS = 12
@@ -343,30 +343,12 @@ def check_overflow():
 
 def trace_packets_dual_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,
                              n_tris=None, any_hit=False, counts=False):
-    """K4's contract in plain PyTorch: K3's on a 16-wide table, with the
-    kernel's pairing. The rays are padded with dead ones (tfar = -1) to
-    whole blocks of 2 * BLOCK, each block's first BLOCK rays (a thread's
-    first ray) and its last BLOCK (the second) are walked by the plain
-    solo walk, and the results are put back in ray order and cut to N."""
+    """K4's contract in plain PyTorch: K3's on a 16-wide table. The two
+    rays a group walks never interact, so the pairing changes no result:
+    the width check, then the plain solo walk."""
     _check_dual(tab)
-    rays = (ox, oy, oz, dx, dy, dz, tnear, tfar)
-    n, dev, _, _ = _check(tab, rays, rref)
-    pad = (-n) % (2 * BLOCK)
-
-    def padded(a, fill):
-        return torch.cat([a, torch.full((pad,), fill, dtype=a.dtype, device=dev)])
-
-    fills = (0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, -1.0)
-    rays = [padded(a, f) for a, f in zip(rays, fills)]
-    rref = None if rref is None else padded(rref, 0)
-    idx = torch.arange(n + pad, device=dev).view(-1, 2, BLOCK)
-    outs = []
-    for half in (idx[:, 0].reshape(-1), idx[:, 1].reshape(-1)):
-        outs.append(trace_packets_plain(
-            tab, *(a[half] for a in rays), rref=None if rref is None else rref[half],
-            n_tris=n_tris, any_hit=any_hit, counts=counts))
-    order = idx.transpose(0, 1).reshape(-1).argsort()  # (first rays, second rays) -> ray order
-    return tuple(torch.cat(pair)[order][:n] for pair in zip(*outs))
+    return trace_packets_plain(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=rref,
+                               n_tris=n_tris, any_hit=any_hit, counts=counts)
 
 
 def trace_packets(tab, ox, oy, oz, dx, dy, dz, tnear, tfar, rref=None,

@@ -75,8 +75,8 @@
 // of each visit (the row loads, the tests, a ballot, the pop and its
 // shuffle) over the 40 warps an SM holds: its time per visit stays the
 // same when the rows hit L1, so coherent rays, which the
-// one-thread-per-ray walk of packet_visit.cuh's bodies runs at a
-// fraction of the cost, gain nothing here (PERF.md).
+// one-thread-per-ray bodies of packet_visit.cuh (the microbenchmark K5)
+// run at a fraction of the cost, gain nothing here (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
@@ -84,100 +84,19 @@
 
 #include <cuda_runtime.h>
 
-// From packet_visit.cuh the walk takes the ray set-up (Ray, make_ray,
-// RayArrays) and the table constants; its visit bodies, which the dual
-// walk K4 and the microbenchmark K5 run, are not used here.
-#include "packet_visit.cuh"
+// From packet_group.cuh the walk takes the group (Lanes), the slab and
+// primitive tests, the pop order and the leaf reduction, which the dual
+// walk K4 shares, and through it packet_visit.cuh's ray set-up (Ray,
+// make_ray, RayArrays) and table constants; the one-thread-per-ray visit
+// bodies there are the microbenchmark K5's.
+#include "packet_group.cuh"
 
 #define K3_BLOCK 128  // threads per block
 
-// The G lanes of one warp that walk one ray (G = the table's width).
-template <int G>
-struct Lanes {
-  unsigned mask;  // the group's lanes in the warp
-  int base;       // the group's first lane in the warp
-  int lane;       // this lane in the group
-  __device__ __forceinline__ Lanes() {
-    const int w = threadIdx.x & 31;
-    base = G == 32 ? 0 : w & ~(G - 1);
-    lane = G == 32 ? w : w & (G - 1);
-    mask = G == 32 ? 0xffffffffu : (0xffffffffu >> (32 - G)) << base;
-  }
-  __device__ __forceinline__ unsigned ballot(bool p) const {
-    return __ballot_sync(mask, p) >> base;
-  }
-  template <class T>
-  __device__ __forceinline__ T shfl(T v, int src) const {
-    return __shfl_sync(mask, v, src, G);
-  }
-};
-
-// One box of test_boxes2 (packet_visit.cuh) in its operation order; the
-// box is (min.x, min.y), (min.z, max.x), (max.y, max.z).
-__device__ __forceinline__ bool box_hit(float2 a, float2 b, float2 c, const Ray& r,
-                                        float best) {
-  const float t0x = a.x * r.ix - r.oix, t1x = b.y * r.ix - r.oix;
-  const float t0y = a.y * r.iy - r.oiy, t1y = c.x * r.iy - r.oiy;
-  const float t0z = b.x * r.iz - r.oiz, t1z = c.y * r.iz - r.oiz;
-  const float t_in = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                           fmaxf(fminf(t0z, t1z), r.tnear));
-  const float t_o = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                          fminf(fmaxf(t0z, t1z), best));
-  return t_in <= t_o;
-}
-
-// One slot of test_prims4 (packet_visit.cuh) in its operation order: a
-// hit within [tnear, best), its distance in tt.
-__device__ __forceinline__ bool prim_hit(const float* g, int pid, const Ray& r, int n_tris,
-                                         float best, float& tt) {
-  const float v0x = g[0], v0y = g[1], v0z = g[2];
-  const float e1x = g[3], e1y = g[4], e1z = g[5];
-  const float e2x = g[6], e2y = g[7], e2z = g[8];
-  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  if (n_tris >= 0 && pid >= n_tris) {
-    const float r_s = e1x;
-    const float a2 = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-    const float inv_a = 1.0f / (a2 != 0.0f ? a2 : 1.0f);
-    const float tm = -(r.dx * tx + r.dy * ty + r.dz * tz) * inv_a;
-    const float mx = tx + r.dx * tm, my = ty + r.dy * tm, mz = tz + r.dz * tm;
-    const float disc = r_s * r_s - (mx * mx + my * my + mz * mz);
-    const float dtq = sqrtf(fmaxf(disc, 0.0f) * inv_a);
-    const float s0 = tm - dtq, s1 = tm + dtq;
-    const bool use_lo = s0 >= r.tnear && s0 < best;
-    const bool use_hi = s1 >= r.tnear && s1 < best;
-    tt = use_lo ? s0 : s1;
-    return disc >= 0.0f && a2 != 0.0f && (use_lo || use_hi);
-  }
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv_det = det != 0.0f ? 1.0f / det : 0.0f;
-  const float uu = (tx * px + ty * py + tz * pz) * inv_det;
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  return det != 0.0f && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt >= r.tnear &&
-         tt < best;
-}
-
-// An int that orders like the float t, with one key for -0.0 and +0.0.
-__device__ __forceinline__ int t_key(float t) {
-  const int b = __float_as_int(t);
-  return t == 0.0f ? 0 : (b >= 0 ? b : b ^ 0x7fffffff);
-}
-
-// The child a pop peels off entry (e, m): the nearest pending one.
-__device__ __forceinline__ int nearest(int e, unsigned m) {
-  return (e >> 30) ? 31 - __clz(m) : __ffs(m) - 1;
-}
-
 // A leaf visit of the group of W lanes: lane s tests slot s of rows lrow
-// (slots 0..11) and lrow + 1 (12..23, W = 32). Folds the hit into (best,
-// prim) and the valid slots tested into n_tests; true when any hit and a
-// slot blocks the ray.
+// (slots 0..11) and lrow + 1 (12..23, W = 32); leaf_reduce folds the hit
+// into (best, prim) and the valid slots tested into n_tests. True when any
+// hit and a slot blocks the ray.
 template <int W, bool ANY>
 __device__ __forceinline__ bool leaf_visit_group(const int* __restrict__ table, int lrow,
                                                  const Ray& r, int n_tris, float& best,
@@ -195,49 +114,7 @@ __device__ __forceinline__ bool leaf_visit_group(const int* __restrict__ table, 
     pid = __ldg(row + 108 + j);
     if (pid >= 0) hit = prim_hit(geo, pid, r, n_tris, best, tt);
   }
-  const unsigned valid = g.ballot(pid >= 0);
-  unsigned hits = g.ballot(hit);
-  if (hits == 0u) {
-    n_tests += __popc(valid);
-    return false;
-  }
-  if (!ANY) {
-    // The group's smallest t: one reduction over keys that order like the
-    // floats, with -0.0 and +0.0 one key (they compare equal).
-    const int kmin = __reduce_min_sync(g.mask, hit ? t_key(tt) : 0x7fffffff);
-    hits = g.ballot(hit && t_key(tt) == kmin);
-  }
-  // The lowest slot in hits: the first among equal t, or the first
-  // blocking slot.
-  const int w = __ffs(hits) - 1;
-  best = g.shfl(tt, w);
-  prim = g.shfl(pid, w);
-  n_tests += __popc(ANY ? valid & (0xffffffffu >> (31 - w)) : valid);
-  return ANY;
-}
-
-struct WalkArgs {
-  const int* table;
-  int last;  // row clamp that leaves room for row B
-  int depth;
-  RayArrays rays;
-  int n, n_tris, ceiling;
-  float* t;
-  int* prim;
-  int* counts;
-  int* overflow;
-};
-
-__device__ __forceinline__ void store(const WalkArgs& w, int i, float t, int prim, int n_super,
-                                      int n_leaf, int n_tests, int deepest) {
-  w.t[i] = t;
-  w.prim[i] = prim;
-  if (w.counts) {
-    w.counts[4 * i + 0] = n_super;
-    w.counts[4 * i + 1] = n_leaf;
-    w.counts[4 * i + 2] = n_tests;
-    w.counts[4 * i + 3] = deepest;
-  }
+  return leaf_reduce<W, ANY>(hit, tt, pid, best, prim, n_tests, g);
 }
 
 // Live ray i's walk by the group of W lanes; lane 0 stores its results.

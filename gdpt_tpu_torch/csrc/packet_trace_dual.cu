@@ -1,5 +1,5 @@
-// Dual BVH walk over a 16-wide packet table: one thread walks two rays
-// with their visit bodies interleaved, Hopper (K4).
+// Dual BVH walk over a 16-wide packet table: a group of 16 lanes walks a
+// pair of rays with both rays' visits in flight, Hopper (K4).
 //
 // Replaces the Pallas TPU kernel of gdpt_tpu/accel/packet_trace.py:
 //   packet_trace_dual_kernel <- _make_kernel_dual (pallas_call at :1159,
@@ -8,110 +8,338 @@
 //
 // What the TPU kernel is for: its solo walk stalls on a dependent chain
 // (pop -> row load -> test -> push), and a second, independent walk fills
-// the stalls. K3 on this card has the same chain per thread (the child
-// ref of one visit names the row of the next), so this kernel carries
-// the idea over, not the TPU's packet machinery: each thread owns two
-// rays, each with its own (row, mask) stack, best t and prim. Per loop
-// iteration every live ray makes one visit, and where both are live the
-// two visits run as one interleaved body (packet_visit.cuh: super_visit2,
-// leaf_visit2, super_leaf_visit), in which the 16-byte row loads of both
-// rays are started before either ray's arithmetic. The loop ends when both
-// rays have drained (or are blocked, any hit); a drained ray idles
-// without touching its state. The reference measured its dual kernel
-// slower than solo on its TPU (packet_trace.py:842-850) and kept it as an
-// A/B switch; PERF.md has what this card says.
+// the stalls. The solo walk K3 (packet_trace.cu) has the same chain per
+// lane group on this card: a 16-lane group walks one ray, lane k testing
+// child k of a supernode row or slot k of a leaf row, and its time is the
+// latency of that chain over the warps an SM holds, not memory traffic.
+// This kernel carries the TPU's idea onto K3's group: the group walks two
+// rays, and in every loop iteration each live ray makes one visit, with
+// both rays' row loads and both "next ref" loads issued before either
+// ray's test, so one chain's loads overlap the other's arithmetic. Where
+// both rays sit at the same row, one set of loads serves both tests.
+//
+// Per lane, as in K3: a supernode visit loads child `lane`'s box (three
+// 8-byte loads) and ref and runs the slab test, and a group ballot cut to
+// the row's validity bits is the child mask; a leaf visit loads slot
+// `lane` < 12 (nine words and its id) and tests it, and leaf_reduce takes
+// the group's hit by K3's tie rules. Control flow depends only on the two
+// rays' node kinds and liveness, which every lane of the group holds
+// alike, so nothing diverges inside a group. A drained or blocked ray
+// idles without touching its state; the group goes on with the other ray.
+//
+// Stacks: each ray's is K3's, in registers: the top entry in every lane,
+// entry j below it in lane j % 16, slot j / 16 (2 slots for MAX_DEPTH 32).
+// A pop right after a push reads the child's ref from the lane that
+// loaded it; any other pop's ref is the "next ref" load. The visit
+// ceiling (4R + 64 per ray), the full-stack report (the ray stops, its
+// deepest count reads depth + 1, *overflow is set) and the per-ray counts
+// are K3's; the counts are kept only in the kernels that store them.
+//
+// Pairing: group q of the grid walks rays 2q and 2q + 1 of the caller's
+// order. The wrapper's callers sort rays by morton key, so the two rays
+// of a pair usually share their upper rows. Lanes 0 and 1 first look at
+// one ray each and settle a dead one (tfar < tnear: a miss, no work), so
+// the dead lanes the callers sort to the back cost a lane, not a walk.
 //
 // The two rays never interact and every test is K3's in K3's order, so
 // each ray's (t, prim) and visit counts equal K3's on the same table bit
 // for bit.
 //
-// Pairing: thread j of block b takes rays b*2*BLOCK + j and
-// b*2*BLOCK + BLOCK + j. Neighbouring threads then read neighbouring
-// elements of the ray arrays for the first ray and again for the second,
-// so both sets of loads and both sets of stores coalesce (pairing rays 2j
-// and 2j+1 would stride every access by two). Where the second index is
-// >= n the second ray is dead from the start, as the reference pads an
-// odd packet count with one dead packet. For morton-sorted rays the two
-// rays of a thread lie BLOCK places apart in the sort: near, not
-// adjacent.
-//
-// Contract: gdpt_trace_packets' (packet_trace.cu) with width 16 only:
-// eight (N,) ray arrays, an optional per-ray start ref, n_tris for
-// in-table spheres, closest or any hit, the visit ceiling counted per
-// ray, optional (N, 4) counts, the overflow flag.
-//
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): K3's, from the rays' own
 // visits: 40 B per ray plus 512 B per table row read; 25 operations per
-// slab test, 52 per primitive test. Two 32-entry stacks double the local
-// memory per thread (512 B).
+// slab test, 52 per primitive test.
 //
 // Build: as packet_trace.cu (--fmad=false).
 
 #include <cuda_runtime.h>
 
-#include "packet_visit.cuh"
+#include "packet_group.cuh"
 
-__global__ void __launch_bounds__(BLOCK)
-packet_trace_dual_kernel(const int* __restrict__ table, int n_rows, int depth, RayArrays rays,
-                         int n, int n_tris, int any_hit_i, int ceiling,
-                         float* __restrict__ t_out, int* __restrict__ prim_out,
-                         int* __restrict__ counts, int* __restrict__ overflow) {
-  const int ia = blockIdx.x * (2 * BLOCK) + threadIdx.x;
-  const int ib = ia + BLOCK;
-  if (ia >= n) return;
-  const bool any_hit = any_hit_i != 0;
-  const int last = n_rows - 1;
-  Walk a, b;
-  WalkStack stk_a, stk_b;
-  walk_init(a, rays, ia, n);
-  walk_init(b, rays, ib, n);
-  while (a.live || b.live) {
-    const bool live_a = a.live, live_b = b.live, both = live_a && live_b;
-    const bool sup_a = a.node >= 0, sup_b = b.node >= 0;
-    const int ra = sup_a ? super_row(a, last) : leaf_row(a, last);
-    const int rb = sup_b ? super_row(b, last) : leaf_row(b, last);
-    const int* row_a = table + (size_t)ra * 128;
-    const int* row_b = table + (size_t)rb * 128;
-    bool go_a = false, go_b = false;
-    if (both && sup_a && sup_b) {
-      unsigned ma, mb;
-      super_visit2(row_a, a.ray, a.best, ma, row_b, b.ray, b.best, mb);
-      go_a = walk_push(a, stk_a, table, ra, ma, depth, overflow);
-      go_b = walk_push(b, stk_b, table, rb, mb, depth, overflow);
-    } else if (both && !sup_a && !sup_b) {
-      bool blk_a, blk_b;
-      leaf_visit2<true>(row_a, a.ray, a.best, a.prim, a.n_tests, blk_a,
-                        row_b, b.ray, b.best, b.prim, b.n_tests, blk_b, n_tris, any_hit);
-      ++a.n_leaf;
-      ++b.n_leaf;
-      go_a = !blk_a;
-      go_b = !blk_b;
-    } else if (both && sup_a) {
-      unsigned ma;
-      bool blk_b;
-      super_leaf_visit<true>(row_a, a.ray, a.best, ma, row_b, b.ray, b.best, b.prim,
-                             b.n_tests, blk_b, n_tris, any_hit);
-      go_a = walk_push(a, stk_a, table, ra, ma, depth, overflow);
-      ++b.n_leaf;
-      go_b = !blk_b;
-    } else if (both) {  // a at a leaf group, b at a supernode
-      unsigned mb;
-      bool blk_a;
-      super_leaf_visit<true>(row_b, b.ray, b.best, mb, row_a, a.ray, a.best, a.prim,
-                             a.n_tests, blk_a, n_tris, any_hit);
-      ++a.n_leaf;
-      go_a = !blk_a;
-      go_b = walk_push(b, stk_b, table, rb, mb, depth, overflow);
-    } else {  // one ray alone: K3's visit
-      if (live_a) go_a = walk_visit<16>(a, stk_a, table, last, depth, n_tris, any_hit, overflow);
-      if (live_b) go_b = walk_visit<16>(b, stk_b, table, last, depth, n_tris, any_hit, overflow);
-    }
-    // One pop per ray on a common path, whatever kind of visit it made.
-    if (live_a) walk_next(a, stk_a, table, ceiling, go_a);
-    if (live_b) walk_next(b, stk_b, table, ceiling, go_b);
+#define K4_BLOCK 128             // threads per block: 8 groups, 16 rays
+#define K4_SLOTS (MAX_DEPTH / 16)  // stack slots per lane and ray
+
+// Designs compared by gdpt_trace_packets_dual_ab; the wrapper launches
+// DESIGN_FUSED.
+enum Design {
+  DESIGN_FUSED,      // both rays' loads before either test, shared rows, <= 64 registers
+  DESIGN_FUSED_REG,  // the same with no register bound
+  DESIGN_FUSED_80,   // the same at <= 80 registers
+  DESIGN_NO_SHARE,   // fused, but each ray loads its row even where both share it
+  DESIGN_SERIAL,     // a group per pair, the two rays' visits one after the other
+  DESIGN_HALVES,     // one pair per warp: each half-warp walks one ray in one warp loop
+  N_DESIGNS
+};
+
+__host__ __device__ constexpr int k4_min_blocks(int design) {
+  return design == DESIGN_FUSED_REG ? 1 : design == DESIGN_FUSED_80 ? 6
+         : design == DESIGN_HALVES ? 10 : 8;
+}
+
+// One ray of a pair: its walk. Every field but the stack slots below the
+// top is the same in every lane of the group.
+struct Side {
+  Ray r;
+  float best;
+  int prim;
+  int node;           // the next visit: >= 0 a supernode row, < 0 a leaf group ref
+  int sp;             // stack entries, the top one included
+  int top_e;          // the top entry: row | reversed << 30,
+  unsigned top_m;     // and its pending children
+  int low_e[K4_SLOTS];  // entry j < sp - 1: lane j % 16, slot j / 16
+  unsigned low_m[K4_SLOTS];
+  int n_super, n_leaf, n_tests, deepest;
+  bool live;          // a node to visit
+};
+
+// What one visit reads of its row, in this lane: child `lane`'s box
+// (v[0..5]), its ref (id), the row's validity bits and sort axis; or slot
+// `lane`'s nine words (v) and id (-1: no primitive).
+struct Fetch {
+  float v[9];
+  int id;
+  unsigned valid;
+  int axis;
+};
+
+__device__ __forceinline__ void side_init(Side& s, const WalkArgs& w, int i, bool live) {
+  s.live = live;
+  s.prim = -1;
+  s.node = 0;
+  s.sp = 0;
+  s.top_e = 0;
+  s.top_m = 0u;
+#pragma unroll
+  for (int d = 0; d < K4_SLOTS; ++d) s.low_e[d] = 0, s.low_m[d] = 0u;
+  s.n_super = s.n_leaf = s.n_tests = s.deepest = 0;
+  s.best = 0.0f;
+  if (live) {
+    const RayArrays& a = w.rays;
+    s.r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
+    s.best = a.tfar[i];
+    s.node = a.rref ? a.rref[i] : 0;
   }
-  walk_store(a, ia, t_out, prim_out, counts);
-  if (ib < n) walk_store(b, ib, t_out, prim_out, counts);
+}
+
+// The ref the next pop reads if the coming visit pushes nothing.
+__device__ __forceinline__ int side_next(const Side& s, const int* __restrict__ table) {
+  if (s.sp == 0) return 0;
+  const int k = nearest(s.top_e, s.top_m);
+  return __ldg(table + (size_t)(s.top_e & ROW_MASK) * 128 + 96 + k);
+}
+
+__device__ __forceinline__ Fetch fetch(const int* __restrict__ table, int node, int last,
+                                       int lane) {
+  Fetch f;
+  if (node >= 0) {
+    const int* row = table + (size_t)min(node, last) * 128;
+    const float2* bx = reinterpret_cast<const float2*>(row) + 3 * lane;
+    const float2 p = __ldg(bx), q = __ldg(bx + 1), u = __ldg(bx + 2);
+    f.v[0] = p.x, f.v[1] = p.y, f.v[2] = q.x, f.v[3] = q.y, f.v[4] = u.x, f.v[5] = u.y;
+    f.id = __ldg(row + 96 + lane);
+    f.valid = (unsigned)__ldg(row + 120);
+    f.axis = __ldg(row + 121);
+  } else {
+    const int* row = table + (size_t)min((~node) & ROW_MASK, last) * 128;
+    f.id = -1;
+    if (lane < LEAF_TRIS) {
+#pragma unroll
+      for (int m = 0; m < 9; ++m)
+        f.v[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * lane + m);
+      f.id = __ldg(row + 108 + lane);
+    }
+  }
+  return f;
+}
+
+// The visit of s.node from its fetched row. True when it pushed an entry
+// (the next pop then reads the child's ref by shuffle); a ray that is
+// blocked (any hit) or whose stack ran full stops (live = false).
+template <bool ANY, bool COUNTS>
+__device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkArgs& w,
+                                           const Lanes<16>& g) {
+  if (s.node >= 0) {
+    const float2 p = make_float2(f.v[0], f.v[1]), q = make_float2(f.v[2], f.v[3]),
+                 u = make_float2(f.v[4], f.v[5]);
+    const unsigned mask = g.ballot(box_hit(p, q, u, s.r, s.best)) & f.valid;
+    if (COUNTS) ++s.n_super;
+    if (mask == 0u) return false;
+    if (s.sp >= w.depth) {  // the table is deeper than its stack_n says
+      if (COUNTS) s.deepest = w.depth + 1;
+      if (g.lane == 0) atomicOr(w.overflow, 1);
+      s.live = false;
+      return false;
+    }
+    const float sgn = f.axis == 0 ? s.r.dx : (f.axis == 1 ? s.r.dy : s.r.dz);
+    if (s.sp > 0) {  // the old top goes below
+      const int j = s.sp - 1;
+#pragma unroll
+      for (int d = 0; d < K4_SLOTS; ++d)
+        if (d == j / 16 && g.lane == j % 16) s.low_e[d] = s.top_e, s.low_m[d] = s.top_m;
+    }
+    s.top_e = min(s.node, w.last) | ((sgn <= 0.0f ? 1 : 0) << 30);
+    s.top_m = mask;
+    ++s.sp;
+    if (COUNTS) s.deepest = max(s.deepest, s.sp);
+    return true;
+  }
+  if (COUNTS) ++s.n_leaf;
+  bool hit = false;
+  float tt = 0.0f;
+  if (f.id >= 0) hit = prim_hit(f.v, f.id, s.r, w.n_tris, s.best, tt);
+  int unused = 0;
+  if (leaf_reduce<16, ANY>(hit, tt, f.id, s.best, s.prim, COUNTS ? s.n_tests : unused, g))
+    s.live = false;
+  return false;
+}
+
+// Peel the nearest pending child off the stack into s.node; a drained
+// stack ends the walk. kid: this lane's child ref of the visit just made.
+__device__ __forceinline__ void side_pop(Side& s, int kid, bool fresh, int next_old,
+                                         const Lanes<16>& g) {
+  if (s.sp == 0) {
+    s.live = false;
+    return;
+  }
+  const int k = nearest(s.top_e, s.top_m);
+  s.top_m &= ~(1u << k);
+  s.node = fresh ? g.shfl(kid, k) : next_old;
+  if (s.top_m == 0u) {
+    --s.sp;
+    if (s.sp > 0) {  // the entry below comes up
+      const int j = s.sp - 1;
+      int e = s.low_e[0];
+      unsigned m = s.low_m[0];
+#pragma unroll
+      for (int d = 1; d < K4_SLOTS; ++d)
+        if (j / 16 == d) e = s.low_e[d], m = s.low_m[d];
+      s.top_e = g.shfl(e, j % 16);
+      s.top_m = g.shfl(m, j % 16);
+    }
+  }
+}
+
+// One visit of a live ray with nothing interleaved.
+template <bool ANY, bool COUNTS>
+__device__ __forceinline__ void side_step(Side& s, const WalkArgs& w, const Lanes<16>& g) {
+  const int next_old = side_next(s, w.table);
+  const Fetch f = fetch(w.table, s.node, w.last, g.lane);
+  const bool fresh = side_visit<ANY, COUNTS>(s, f, w, g);
+  if (s.live) side_pop(s, f.id, fresh, next_old, g);
+}
+
+__device__ __forceinline__ void side_store(const WalkArgs& w, int i, const Side& s) {
+  store(w, i, s.best, s.prim, s.n_super, s.n_leaf, s.n_tests, s.deepest);
+}
+
+// Group q walks rays 2q and 2q + 1.
+template <bool ANY, bool COUNTS, int DESIGN>
+__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
+packet_trace_dual_kernel(WalkArgs w) {
+  constexpr bool FUSE = DESIGN != DESIGN_SERIAL;
+  constexpr bool SHARE = DESIGN != DESIGN_NO_SHARE;
+  const Lanes<16> g;
+  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * 2;
+  bool live = false;
+  if (g.lane < 2 && first + g.lane < w.n) {
+    const int i = (int)first + g.lane;
+    const float tf = w.rays.tfar[i];
+    live = tf >= w.rays.tnear[i];
+    if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
+  }
+  const unsigned todo = g.ballot(live);
+  if (todo == 0u) return;
+  Side a, b;
+  side_init(a, w, (int)first, todo & 1u);
+  side_init(b, w, (int)first + 1, (todo >> 1) & 1u);
+  for (int it = 0; it < w.ceiling && (a.live || b.live); ++it) {
+    if constexpr (FUSE) {
+      const int next_a = a.live ? side_next(a, w.table) : 0;
+      const int next_b = b.live ? side_next(b, w.table) : 0;
+      Fetch fa, fb;
+      if (a.live) fa = fetch(w.table, a.node, w.last, g.lane);
+      if (b.live) {
+        if (SHARE && a.live && b.node == a.node)
+          fb = fa;
+        else
+          fb = fetch(w.table, b.node, w.last, g.lane);
+      }
+      const bool fresh_a = a.live && side_visit<ANY, COUNTS>(a, fa, w, g);
+      const bool fresh_b = b.live && side_visit<ANY, COUNTS>(b, fb, w, g);
+      if (a.live) side_pop(a, fa.id, fresh_a, next_a, g);
+      if (b.live) side_pop(b, fb.id, fresh_b, next_b, g);
+    } else {
+      if (a.live) side_step<ANY, COUNTS>(a, w, g);
+      if (b.live) side_step<ANY, COUNTS>(b, w, g);
+    }
+  }
+  if (g.lane == 0 && (todo & 1u)) side_store(w, (int)first, a);
+  if (g.lane == 1 && (todo & 2u)) side_store(w, (int)first + 1, b);
+}
+
+// DESIGN_HALVES: the warp's two half-warps walk rays 2q and 2q + 1, one
+// each, in one loop that runs while either ray is live.
+template <bool ANY, bool COUNTS>
+__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN_HALVES))
+packet_trace_halves_kernel(WalkArgs w) {
+  const Lanes<16> g;
+  const long long i = (long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16;
+  bool live = false;
+  if (g.lane == 0 && i < w.n) {
+    const float tf = w.rays.tfar[i];
+    live = tf >= w.rays.tnear[i];
+    if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
+  }
+  live = g.ballot(live) != 0u;
+  Side s;
+  side_init(s, w, (int)i, live);
+  for (int it = 0; it < w.ceiling && __any_sync(0xffffffffu, s.live); ++it)
+    if (s.live) side_step<ANY, COUNTS>(s, w, g);
+  if (g.lane == 0 && live) side_store(w, (int)i, s);
+}
+
+template <bool ANY, bool COUNTS, int DESIGN>
+static void launch(const WalkArgs& w, cudaStream_t s) {
+  if constexpr (DESIGN == DESIGN_HALVES) {
+    const int per_block = K4_BLOCK / 16;
+    packet_trace_halves_kernel<ANY, COUNTS><<<(w.n - 1) / per_block + 1, K4_BLOCK, 0, s>>>(w);
+  } else {
+    const int per_block = 2 * (K4_BLOCK / 16);
+    packet_trace_dual_kernel<ANY, COUNTS, DESIGN><<<(w.n - 1) / per_block + 1, K4_BLOCK, 0, s>>>(w);
+  }
+}
+
+template <int DESIGN>
+static void launch_modes(const WalkArgs& w, bool any_hit, cudaStream_t s) {
+  if (any_hit)
+    w.counts ? launch<true, true, DESIGN>(w, s) : launch<true, false, DESIGN>(w, s);
+  else
+    w.counts ? launch<false, true, DESIGN>(w, s) : launch<false, false, DESIGN>(w, s);
+}
+
+static void launch_design(const WalkArgs& w, int design, bool any_hit, cudaStream_t s) {
+  switch (design) {
+    case DESIGN_FUSED: launch_modes<DESIGN_FUSED>(w, any_hit, s); break;
+    case DESIGN_FUSED_REG: launch_modes<DESIGN_FUSED_REG>(w, any_hit, s); break;
+    case DESIGN_FUSED_80: launch_modes<DESIGN_FUSED_80>(w, any_hit, s); break;
+    case DESIGN_NO_SHARE: launch_modes<DESIGN_NO_SHARE>(w, any_hit, s); break;
+    case DESIGN_SERIAL: launch_modes<DESIGN_SERIAL>(w, any_hit, s); break;
+    default: launch_modes<DESIGN_HALVES>(w, any_hit, s); break;
+  }
+}
+
+static int trace(const int* table, int n_rows, int depth, const float* ox, const float* oy,
+                 const float* oz, const float* dx, const float* dy, const float* dz,
+                 const float* tnear, const float* tfar, const int* rref, int n, int n_tris,
+                 int any_hit, int ceiling, float* t, int* prim, int* counts, int* overflow,
+                 void* stream, int design) {
+  if (depth < 1 || depth > MAX_DEPTH || design < 0 || design >= N_DESIGNS)
+    return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const WalkArgs w = {table, n_rows - 1, depth, {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
+                        n, n_tris, ceiling, t, prim, counts, overflow};
+    launch_design(w, design, any_hit != 0, (cudaStream_t)stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -127,14 +355,20 @@ int gdpt_trace_packets_dual(const int* table, int n_rows, int depth,
                             int n, int n_tris, int any_hit, int ceiling,
                             float* t, int* prim, int* counts, int* overflow,
                             void* stream) {
-  if (depth < 1 || depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const int blocks = (n + 2 * BLOCK - 1) / (2 * BLOCK);
-    const RayArrays rays = {ox, oy, oz, dx, dy, dz, tnear, tfar, rref};
-    packet_trace_dual_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        table, n_rows, depth, rays, n, n_tris, any_hit, ceiling, t, prim, counts, overflow);
-  }
-  return (int)cudaGetLastError();
+  return trace(table, n_rows, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n, n_tris,
+               any_hit, ceiling, t, prim, counts, overflow, stream, DESIGN_FUSED);
+}
+
+// The design comparison: the same with the design picked (enum Design).
+int gdpt_trace_packets_dual_ab(const int* table, int n_rows, int depth,
+                               const float* ox, const float* oy, const float* oz,
+                               const float* dx, const float* dy, const float* dz,
+                               const float* tnear, const float* tfar, const int* rref,
+                               int n, int n_tris, int any_hit, int ceiling,
+                               float* t, int* prim, int* counts, int* overflow,
+                               void* stream, int design) {
+  return trace(table, n_rows, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n, n_tris,
+               any_hit, ceiling, t, prim, counts, overflow, stream, design);
 }
 
 }  // extern "C"

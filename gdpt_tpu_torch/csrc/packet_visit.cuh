@@ -1,9 +1,9 @@
-// Visit bodies and per-ray walk state of the one-thread-per-ray packet-table
-// BVH walk, shared by the dual walk (packet_trace_dual.cu, K4) and the
-// visit microbenchmark (visit_microbench.cu, K5), so the benchmark times
-// what K4 runs. The solo walk (packet_trace.cu, K3) walks a ray with a
-// group of lanes and takes only the ray set-up (Ray, make_ray, RayArrays)
-// and the table constants from here.
+// Ray set-up, table constants and the one-thread-per-ray visit bodies of
+// the packet-table BVH walk. The visit microbenchmark (visit_microbench.cu,
+// K5) times these bodies, as the reference's microbenchmark times its
+// own. The solo and dual walks (packet_trace.cu, K3; packet_trace_dual.cu,
+// K4) walk a ray with a group of lanes (packet_group.cuh) and take only
+// the ray set-up (Ray, make_ray, RayArrays) and the constants from here.
 //
 // Table layout (gdpt_tpu_torch/accel/packet_trace.py): (R, 128) int32 rows
 // with f32 payloads as bit patterns. A supernode is one row (16 children)
@@ -45,6 +45,11 @@ struct Ray {
   float ix, iy, iz;              // guarded 1 / direction
   float oix, oiy, oiz;           // origin * inverse direction
   float tnear;
+};
+
+struct RayArrays {
+  const float *ox, *oy, *oz, *dx, *dy, *dz, *tnear, *tfar;
+  const int* rref;  // per-ray start ref, or null for the root (row 0)
 };
 
 __device__ __forceinline__ Ray make_ray(float ox, float oy, float oz, float dx, float dy,
@@ -104,9 +109,9 @@ __device__ __forceinline__ unsigned test_boxes2(const Boxes2& g, const Ray& r, f
 // The W children of a supernode whose first 16 boxes sit in row0 and, for
 // W = 32, the other 16 in row1: the mask of children the ray enters,
 // already cut to the valid ones (row0 col 120). The second row is reached
-// as an offset from the first, and only where the width has one: in the
-// walks row1 is row0 + 128, which then folds into the address arithmetic
-// (a select between two pointers inside the loop cost the walk 2-5%).
+// as an offset from the first, and only where the width has one (a select
+// between two pointers inside the loop cost the one-thread-per-ray walk
+// that once ran these bodies 2-5%).
 template <int W, bool SCALAR_LOADS = false>
 __device__ __forceinline__ unsigned super_visit(const int* row0, const int* row1,
                                                 const Ray& r, float best) {
@@ -311,143 +316,4 @@ __device__ __forceinline__ void super_leaf_visit(
       done = blocked_l = test_prims4(ids, geo, rl, n_tris, any_hit, best_l, prim_l, tests_l);
   }
   mask_s = ms & (unsigned)__ldg(row_s + 120);
-}
-
-// ---------------------------------------------------------------------------
-// One ray's walk: state, and what follows a visit.
-// ---------------------------------------------------------------------------
-//
-// A supernode visit pushes ONE entry (row | reversed << 30, child mask);
-// each later step peels the nearest pending child: the lowest set bit, or
-// the highest when the ray runs against the row's sort axis. So the stack
-// is as deep as the tree (at most stack_n / W entries, MAX_DEPTH compiled
-// in). A push that finds the stack full is never dropped silently: the ray
-// stops, its deepest count reads depth + 1 and *overflow is set. A ray
-// makes at most `ceiling` visits (the reference's guard against a
-// malformed table).
-
-struct Walk {
-  Ray ray;
-  float best;
-  int prim;
-  int node;   // the next visit: >= 0 a supernode row, < 0 a leaf group ref
-  int sp;
-  int visits;
-  bool live;  // false: drained, blocked, dead from the start, or stopped
-  int n_super, n_leaf, n_tests, deepest;
-};
-
-// A ray's stack, apart from Walk: it is indexed at run time and so lives
-// in local memory, and the scalars of Walk should not follow it there.
-struct WalkStack {
-  int row[MAX_DEPTH];
-  unsigned mask[MAX_DEPTH];
-};
-
-struct RayArrays {
-  const float *ox, *oy, *oz, *dx, *dy, *dz, *tnear, *tfar;
-  const int* rref;  // per-ray start ref, or null for the root (row 0)
-};
-
-// Ray i of the arrays; i >= n gives a dead ray that reads nothing.
-__device__ __forceinline__ void walk_init(Walk& w, const RayArrays& a, int i, int n) {
-  w.prim = -1;
-  w.sp = 0;
-  w.visits = 0;
-  w.n_super = w.n_leaf = w.n_tests = w.deepest = 0;
-  w.node = 0;
-  w.best = -1.0f;
-  w.live = false;
-  if (i >= n) return;
-  const float tnear = a.tnear[i];
-  w.best = a.tfar[i];
-  w.live = w.best >= tnear;
-  if (w.live) {
-    w.ray = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], tnear);
-    w.node = a.rref ? a.rref[i] : 0;
-  }
-}
-
-// After a visit: peel the nearest pending child off the stack into
-// w.node; false when the stack is empty (the walk has drained). Callers
-// reach this on ONE path after their visit branches, so a warp whose
-// threads made different kinds of visit takes the pop and its dependent
-// child-ref load together.
-__device__ __forceinline__ bool walk_pop(Walk& w, WalkStack& stk,
-                                         const int* __restrict__ table) {
-  if (w.sp == 0) return false;
-  const int e = stk.row[w.sp - 1];
-  unsigned m = stk.mask[w.sp - 1];
-  const int k = (e >> 30) ? 31 - __clz(m) : __ffs(m) - 1;
-  m &= ~(1u << k);
-  if (m == 0u) --w.sp; else stk.mask[w.sp - 1] = m;
-  w.node = table[(size_t)((e & ROW_MASK) + (k >> 4)) * 128 + 96 + (k & 15)];
-  return true;
-}
-
-// The same for a ray that shares its loop with another (the dual walk):
-// the ray's own visit count and live flag take the place of the loop's
-// counter and exit. go false: the visit blocked the ray or overflowed its
-// stack.
-__device__ __forceinline__ void walk_next(Walk& w, WalkStack& stk,
-                                          const int* __restrict__ table, int ceiling,
-                                          bool go) {
-  if (!go || ++w.visits >= ceiling || !walk_pop(w, stk, table)) w.live = false;
-}
-
-// Book a supernode visit and push its children; false on a full stack.
-__device__ __forceinline__ bool walk_push(Walk& w, WalkStack& stk,
-                                          const int* __restrict__ table, int srow,
-                                          unsigned mask, int depth, int* overflow) {
-  ++w.n_super;
-  if (mask != 0u) {
-    if (w.sp >= depth) {  // the table is deeper than its stack_n says
-      w.deepest = depth + 1;
-      atomicOr(overflow, 1);
-      return false;
-    }
-    const int axis = table[(size_t)srow * 128 + 121];
-    const float sgn = axis == 0 ? w.ray.dx : (axis == 1 ? w.ray.dy : w.ray.dz);
-    stk.row[w.sp] = srow | ((sgn <= 0.0f ? 1 : 0) << 30);
-    stk.mask[w.sp] = mask;
-    ++w.sp;
-    w.deepest = max(w.deepest, w.sp);
-  }
-  return true;
-}
-
-__device__ __forceinline__ int super_row(const Walk& w, int last) { return min(w.node, last); }
-__device__ __forceinline__ int leaf_row(const Walk& w, int last) {
-  return min((~w.node) & ROW_MASK, last);
-}
-
-// One visit of a live ray; returns whether its walk goes on.
-template <int W>
-__device__ __forceinline__ bool walk_visit(Walk& w, WalkStack& stk,
-                                           const int* __restrict__ table, int last,
-                                           int depth, int n_tris, bool any_hit,
-                                           int* overflow) {
-  if (w.node >= 0) {
-    const int srow = super_row(w, last);
-    const int* row = table + (size_t)srow * 128;
-    const unsigned mask = super_visit<W>(row, row + 128, w.ray, w.best);
-    return walk_push(w, stk, table, srow, mask, depth, overflow);
-  }
-  const int* row = table + (size_t)leaf_row(w, last) * 128;
-  ++w.n_leaf;
-  return !leaf_visit<W / 16, true>(row, row + 128, w.ray, n_tris, any_hit, w.best, w.prim,
-                                   w.n_tests);
-}
-
-__device__ __forceinline__ void walk_store(const Walk& w, int i, float* __restrict__ t_out,
-                                           int* __restrict__ prim_out,
-                                           int* __restrict__ counts) {
-  t_out[i] = w.best;
-  prim_out[i] = w.prim;
-  if (counts) {
-    counts[4 * i + 0] = w.n_super;
-    counts[4 * i + 1] = w.n_leaf;
-    counts[4 * i + 2] = w.n_tests;
-    counts[4 * i + 3] = w.deepest;
-  }
 }

@@ -2,14 +2,14 @@
 
 Counterpart of tools/visit_microbench.py (`build`, `main`): times the
 walk's visit bodies — the supernode slab test and the leaf primitive
-tests, solo, paired as the dual walk K4 runs them, two-row as the 32-wide
-table has them, and with scalar loads — in isolation over the real table,
+tests, solo, paired as the reference's dual walk runs them, two-row as
+the 32-wide table has them, and with scalar loads — in isolation over the real table,
 with no walk around them, so a walk's time per visit splits into the
 visit bodies and everything else (divergence, scattered rows, the
 dependent child-ref loads). The hand-written Hopper kernel lives in
-csrc/visit_microbench.cu over the visit bodies of csrc/packet_visit.cuh,
-the code K4 runs (K3 walks a ray with a group of lanes and runs
-bodies of its own). `visit_microbench` takes its plain PyTorch
+csrc/visit_microbench.cu over the one-thread-per-ray visit bodies of
+csrc/packet_visit.cuh (the walks K3 and K4 visit a row with a group of
+lanes, csrc/packet_group.cuh). `visit_microbench` takes its plain PyTorch
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises. LAUNCHES counts kernel launches, by mode.
 

@@ -57,7 +57,8 @@ def test_slice_modules_are_covered():
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
-                                        "packet_visit.cuh", "bvh_builder.cpp"}
+                                        "packet_visit.cuh", "packet_group.cuh",
+                                        "bvh_builder.cpp"}
 
 
 NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
@@ -85,7 +86,8 @@ def test_native_sources_include_only_cuda_and_std_headers(path):
     # A .cuh holds device code shared by the .cu files and exports nothing.
     assert includes and ('extern "C"' in path.read_text()) == (path.suffix != ".cuh")
     for inc in includes:
-        assert inc in ("<cuda_runtime.h>", '"packet_visit.cuh"') or inc.strip("<>") in (
+        assert inc in ("<cuda_runtime.h>", '"packet_visit.cuh"', '"packet_group.cuh"') or \
+            inc.strip("<>") in (
             "algorithm", "cmath", "cstdint", "cstring", "limits", "vector"), inc
 
 
@@ -104,6 +106,24 @@ def test_a_header_change_rebuilds_the_cuda_sources(tmp_path, monkeypatch):
     after = {s: native_build.library_path(s) for s in before}
     users = {"packet_trace.cu", "packet_trace_dual.cu", "visit_microbench.cu"}
     assert {s for s in before if after[s] != before[s]} == users
+
+
+def test_a_nested_header_change_rebuilds_its_users(tmp_path, monkeypatch):
+    """packet_group.cuh, which the two walks include and which includes
+    packet_visit.cuh in turn, is hashed into the walks' build keys only."""
+    from gdpt_tpu_torch.accel import native_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(native_build.CSRC, csrc)
+    monkeypatch.setattr(native_build, "CSRC", csrc)
+    sources = ("packet_trace.cu", "packet_trace_dual.cu", "visit_microbench.cu",
+               "brute_intersect.cu", "bvh_builder.cpp")
+    before = {s: native_build.library_path(s) for s in sources}
+    with open(csrc / "packet_group.cuh", "a") as f:
+        f.write("// changed\n")
+    after = {s: native_build.library_path(s) for s in sources}
+    assert {s for s in sources if after[s] != before[s]} == {"packet_trace.cu",
+                                                             "packet_trace_dual.cu"}
 
 
 def test_importing_every_module_builds_nothing():

@@ -2,18 +2,19 @@
 dual Pallas kernel.
 
 On the CPU `trace_packets(dual=True)` runs K4's plain version
-(`trace_packets_dual_plain`: the kernel's pairing of rays, each half
-walked by the plain solo walk). The two rays of a pair never interact, so
-dual and solo results are held equal bit for bit, for even and odd ray
-counts, closest and any hit, with start refs and with in-table spheres.
+(`trace_packets_dual_plain`: the width check and the plain solo walk).
+The two rays of a pair never interact, so dual and solo results are held
+equal bit for bit, for even and odd ray counts, closest and any hit,
+with start refs and with in-table spheres.
 Against `gdpt_tpu.accel.packet_trace._trace_packets(..., interpret=True,
 dual=True)` on the same table: prim equal where the closest t is unique,
 t within rtol 1e-5 (XLA's CPU code may differ from torch by an ulp), any-hit
 masks equal. A 32-wide table raises ValueError: the port does not give
 way to the solo kernel quietly as the reference does.
 
-The gpu-marked test holds the CUDA kernel against its plain version and
-against K3 on the card:
+The gpu-marked tests hold the CUDA kernel against its plain version and
+against K3 on the card, bit for bit, among them hand-built leaves that
+stress the group's leaf reduction and pairs whose rays share every row:
     python -m pytest --noconftest -m gpu tests/test_torch_packet_dual.py
 """
 
@@ -26,7 +27,8 @@ from gdpt_tpu_torch.accel import packet_trace as tpt
 from gdpt_tpu_torch.accel import traverse_soa as ttrs
 
 from test_torch_packet import (_arrays, _brute, _carry, _rays, _reference_table, _soup,
-                               _table_case, one_thread)  # noqa: F401 (autouse fixture)
+                               _table_case, _tie_case, _tie_rays,
+                               one_thread)  # noqa: F401 (autouse fixture)
 
 _TABS = {}
 
@@ -190,3 +192,83 @@ def test_cuda_dual_kernel_matches_plain_and_solo(mode):
             torch.cuda.synchronize()
             for a, b, c in zip(got, ref, solo):  # t, prim and the visit counts, bit for bit
                 assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _dual_plain_solo(tab, rays, **kw):
+    """K4, its plain version and K3 on the same rays, with the counts; K4
+    must be launched once and K3's counters left alone by it."""
+    key = "packet_dual_occluded" if kw.get("any_hit") else "packet_dual_intersect"
+    before = dict(pk.LAUNCHES)
+    got = pk.trace_packets(tab, *rays, counts=True, dual=True, **kw)
+    assert pk.LAUNCHES[key] == before[key] + (rays[0].shape[0] > 0)
+    assert pk.LAUNCHES["packet_intersect"] == before["packet_intersect"]
+    assert pk.LAUNCHES["packet_occluded"] == before["packet_occluded"]
+    ref = pk.trace_packets_dual_plain(tab, *rays, counts=True, **kw)
+    solo = pk.trace_packets(tab, *rays, counts=True, **kw)
+    torch.cuda.synchronize()
+    return got, ref, solo
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["closest", "any_hit"])
+def test_cuda_dual_kernel_lane_reductions(mode):
+    """Hand-built leaves that stress the group's leaf reduction (_tie_case:
+    equal t in one leaf, hits at t = tnear = 0 of both signs, several
+    blocking slots, equal in-table spheres): 0, 1, 17, 49 and 128 rays,
+    from the root and from a leaf-group ref, a batch of dead rays, pairs
+    of identical rays (every row shared) and pairs with one ray dead. K4
+    equals its plain version and K3 in t bits, prim and the four counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    any_hit = mode == "any_hit"
+    for spheres in (False, True):
+        args, kw, n_tris = _tie_case(16, spheres)
+        tab = tpt.packet_table_to(tpt.build_packet_table(*args, **kw), "cuda")
+        rays = [torch.from_numpy(a).cuda() for a in _tie_rays(seed=16)]
+        leaf_ref = int(tab.table[0, 96])
+        assert leaf_ref < 0
+        dead = rays[:7] + [torch.full_like(rays[7], -1.0)]
+        twins = [c[torch.arange(128, device="cuda") // 2].contiguous() for c in rays]
+        one_dead = [c.clone() for c in rays]
+        one_dead[7][::2] = -1.0
+        other_dead = [c.clone() for c in rays]
+        other_dead[7][1::2] = -1.0
+        for n in (0, 1, 17, 49, 128):
+            for rref in (None, torch.full((n,), leaf_ref, dtype=torch.int32, device="cuda")):
+                for label, rr in (("live", rays), ("dead", dead), ("twins", twins),
+                                  ("first dead", one_dead), ("second dead", other_dead)):
+                    cut = [c[:n].contiguous() for c in rr]
+                    got, ref, solo = _dual_plain_solo(tab, cut, rref=rref, n_tris=n_tris,
+                                                      any_hit=any_hit)
+                    for a, b, c in zip(got, ref, solo):
+                        a, b, c = (x.view(torch.int32) for x in (a, b, c))
+                        assert torch.equal(a, b) and torch.equal(a, c), \
+                            (spheres, n, rref is None, label)
+        hit = pk.trace_packets_plain(tab, *rays, n_tris=n_tris, any_hit=any_hit)[1]
+        assert bool((hit >= 0).all())
+        if spheres and not any_hit:  # the two equal spheres are hit
+            assert bool((hit >= n_tris).any())
+
+
+@pytest.mark.gpu
+def test_cuda_dual_kernel_reports_stack_overflow():
+    """A table whose stack_n understates its depth: K4 never drops a push
+    silently. The wrapper raises with counts, check_overflow without, as
+    for K3 and the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args, kw = _table_case("triangles", 16)
+    tab = tpt.packet_table_to(tpt.build_packet_table(*args, **kw), "cuda")
+    _, _, rays = _flat(4096, seed=3, device="cuda")
+    rays[7] = torch.full((4096,), 1e9, device="cuda")
+    pk.trace_packets(tab, *rays, counts=True, dual=True)   # deep enough: no error
+    shallow = tab._replace(stack_n=tab.width)               # one stack entry per ray
+    for any_hit in (False, True):
+        with pytest.raises(RuntimeError, match="stack"):
+            pk.trace_packets(shallow, *rays, counts=True, any_hit=any_hit, dual=True)
+        pk.trace_packets(shallow, *rays, any_hit=any_hit, dual=True)
+        with pytest.raises(RuntimeError, match="stack"):
+            pk.check_overflow()
+        pk.check_overflow()                                  # the flag was cleared
+    with pytest.raises(RuntimeError, match="stack"):
+        pk.trace_packets_dual_plain(shallow, *rays)
