@@ -55,38 +55,66 @@
 
 #include "packet_group.cuh"
 
-#define K4_BLOCK 128             // threads per block: 8 groups, 16 rays
-#define K4_SLOTS (MAX_DEPTH / 16)  // stack slots per lane and ray
+#define K4_BLOCK 128  // threads per block: 8 groups, 16 rays
+
+static_assert(MAX_DEPTH <= 32, "a ray's stack is two slots per lane");
 
 // Designs compared by gdpt_trace_packets_dual_ab; the wrapper launches
 // DESIGN_FUSED.
 enum Design {
-  DESIGN_FUSED,      // both rays' loads before either test, shared rows, <= 64 registers
-  DESIGN_FUSED_REG,  // the same with no register bound
-  DESIGN_FUSED_80,   // the same at <= 80 registers
-  DESIGN_NO_SHARE,   // fused, but each ray loads its row even where both share it
-  DESIGN_SERIAL,     // a group per pair, the two rays' visits one after the other
-  DESIGN_HALVES,     // one pair per warp: each half-warp walks one ray in one warp loop
+  DESIGN_FUSED,       // both rays' loads before either test, shared rows, <= 64 registers
+  DESIGN_FUSED_72,    // the same at <= 72 registers
+  DESIGN_NO_SHARE,    // fused, but each ray loads its row even where both share it
+  DESIGN_SERIAL,      // a group per pair, the two rays' visits one after the other
+  DESIGN_SERIAL_72,   // the same at <= 72 registers
+  DESIGN_HALVES,      // one pair per warp: each half-warp walks one ray in one warp loop
+  DESIGN_FUSED_SYNC,  // fused, the warp's two groups iterate in step (a warp vote per visit)
+  DESIGN_REFILL4,     // fused; a group takes 4 rays, two in flight, a finished one's slot refilled
+  DESIGN_REFILL8,     // the same with 8 rays per group
+  DESIGN_SERIAL_56,   // serial at <= 56 registers
+  DESIGN_IN_TURN2,    // a group walks its 2 rays one after the other, one in flight (K3's walk)
+  DESIGN_IN_TURN4,    // the same with 4 rays per group
   N_DESIGNS
 };
 
 __host__ __device__ constexpr int k4_min_blocks(int design) {
-  return design == DESIGN_FUSED_REG ? 1 : design == DESIGN_FUSED_80 ? 6
-         : design == DESIGN_HALVES ? 10 : 8;
+  return design == DESIGN_FUSED_72 || design == DESIGN_SERIAL_72 || design == DESIGN_REFILL4 ||
+                 design == DESIGN_REFILL8 ? 7
+         : design == DESIGN_HALVES || design == DESIGN_IN_TURN2 || design == DESIGN_IN_TURN4 ? 10
+         : design == DESIGN_SERIAL_56 ? 9 : 8;
+}
+
+// A ray as a side keeps it: Ray without origin * inverse direction, which
+// full() recomputes where a slab test needs it (three registers fewer per
+// ray, the same products as make_ray's).
+struct RayS {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
+};
+
+__device__ __forceinline__ Ray full(const RayS& s) {
+  Ray r;
+  r.ox = s.ox; r.oy = s.oy; r.oz = s.oz;
+  r.dx = s.dx; r.dy = s.dy; r.dz = s.dz;
+  r.ix = s.ix; r.iy = s.iy; r.iz = s.iz;
+  r.oix = s.ox * s.ix; r.oiy = s.oy * s.iy; r.oiz = s.oz * s.iz;
+  r.tnear = s.tnear;
+  return r;
 }
 
 // One ray of a pair: its walk. Every field but the stack slots below the
-// top is the same in every lane of the group.
+// top is the same in every lane of the group. The two slots are fields of
+// their own, not an array: an array that a loop indexes keeps the whole
+// struct in local memory.
 struct Side {
-  Ray r;
+  RayS r;
   float best;
   int prim;
   int node;           // the next visit: >= 0 a supernode row, < 0 a leaf group ref
   int sp;             // stack entries, the top one included
   int top_e;          // the top entry: row | reversed << 30,
   unsigned top_m;     // and its pending children
-  int low_e[K4_SLOTS];  // entry j < sp - 1: lane j % 16, slot j / 16
-  unsigned low_m[K4_SLOTS];
+  int low_e0, low_e1;  // entry j < sp - 1: lane j % 16, slot j / 16
+  unsigned low_m0, low_m1;
   int n_super, n_leaf, n_tests, deepest;
   bool live;          // a node to visit
 };
@@ -108,13 +136,14 @@ __device__ __forceinline__ void side_init(Side& s, const WalkArgs& w, int i, boo
   s.sp = 0;
   s.top_e = 0;
   s.top_m = 0u;
-#pragma unroll
-  for (int d = 0; d < K4_SLOTS; ++d) s.low_e[d] = 0, s.low_m[d] = 0u;
+  s.low_e0 = s.low_e1 = 0;
+  s.low_m0 = s.low_m1 = 0u;
   s.n_super = s.n_leaf = s.n_tests = s.deepest = 0;
   s.best = 0.0f;
   if (live) {
     const RayArrays& a = w.rays;
-    s.r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
+    const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
+    s.r = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.ix, r.iy, r.iz, r.tnear};
     s.best = a.tfar[i];
     s.node = a.rref ? a.rref[i] : 0;
   }
@@ -160,7 +189,7 @@ __device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkAr
   if (s.node >= 0) {
     const float2 p = make_float2(f.v[0], f.v[1]), q = make_float2(f.v[2], f.v[3]),
                  u = make_float2(f.v[4], f.v[5]);
-    const unsigned mask = g.ballot(box_hit(p, q, u, s.r, s.best)) & f.valid;
+    const unsigned mask = g.ballot(box_hit(p, q, u, full(s.r), s.best)) & f.valid;
     if (COUNTS) ++s.n_super;
     if (mask == 0u) return false;
     if (s.sp >= w.depth) {  // the table is deeper than its stack_n says
@@ -172,9 +201,12 @@ __device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkAr
     const float sgn = f.axis == 0 ? s.r.dx : (f.axis == 1 ? s.r.dy : s.r.dz);
     if (s.sp > 0) {  // the old top goes below
       const int j = s.sp - 1;
-#pragma unroll
-      for (int d = 0; d < K4_SLOTS; ++d)
-        if (d == j / 16 && g.lane == j % 16) s.low_e[d] = s.top_e, s.low_m[d] = s.top_m;
+      if (g.lane == (j & 15)) {
+        if (j < 16)
+          s.low_e0 = s.top_e, s.low_m0 = s.top_m;
+        else
+          s.low_e1 = s.top_e, s.low_m1 = s.top_m;
+      }
     }
     s.top_e = min(s.node, w.last) | ((sgn <= 0.0f ? 1 : 0) << 30);
     s.top_m = mask;
@@ -185,10 +217,10 @@ __device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkAr
   if (COUNTS) ++s.n_leaf;
   bool hit = false;
   float tt = 0.0f;
-  if (f.id >= 0) hit = prim_hit(f.v, f.id, s.r, w.n_tris, s.best, tt);
-  int unused = 0;
-  if (leaf_reduce<16, ANY>(hit, tt, f.id, s.best, s.prim, COUNTS ? s.n_tests : unused, g))
-    s.live = false;
+  if (f.id >= 0) hit = prim_hit(f.v, f.id, full(s.r), w.n_tris, s.best, tt);
+  int n_tests = 0;  // a local, not a field chosen at run time: s stays in registers
+  if (leaf_reduce<16, ANY>(hit, tt, f.id, s.best, s.prim, n_tests, g)) s.live = false;
+  if (COUNTS) s.n_tests += n_tests;
   return false;
 }
 
@@ -207,13 +239,8 @@ __device__ __forceinline__ void side_pop(Side& s, int kid, bool fresh, int next_
     --s.sp;
     if (s.sp > 0) {  // the entry below comes up
       const int j = s.sp - 1;
-      int e = s.low_e[0];
-      unsigned m = s.low_m[0];
-#pragma unroll
-      for (int d = 1; d < K4_SLOTS; ++d)
-        if (j / 16 == d) e = s.low_e[d], m = s.low_m[d];
-      s.top_e = g.shfl(e, j % 16);
-      s.top_m = g.shfl(m, j % 16);
+      s.top_e = g.shfl(j < 16 ? s.low_e0 : s.low_e1, j & 15);
+      s.top_m = g.shfl(j < 16 ? s.low_m0 : s.low_m1, j & 15);
     }
   }
 }
@@ -235,8 +262,10 @@ __device__ __forceinline__ void side_store(const WalkArgs& w, int i, const Side&
 template <bool ANY, bool COUNTS, int DESIGN>
 __global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
 packet_trace_dual_kernel(WalkArgs w) {
-  constexpr bool FUSE = DESIGN != DESIGN_SERIAL;
+  constexpr bool FUSE =
+      DESIGN != DESIGN_SERIAL && DESIGN != DESIGN_SERIAL_72 && DESIGN != DESIGN_SERIAL_56;
   constexpr bool SHARE = DESIGN != DESIGN_NO_SHARE;
+  constexpr bool SYNC = DESIGN == DESIGN_FUSED_SYNC;
   const Lanes<16> g;
   const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * 2;
   bool live = false;
@@ -247,11 +276,12 @@ packet_trace_dual_kernel(WalkArgs w) {
     if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
   }
   const unsigned todo = g.ballot(live);
-  if (todo == 0u) return;
+  if (!SYNC && todo == 0u) return;
   Side a, b;
   side_init(a, w, (int)first, todo & 1u);
   side_init(b, w, (int)first + 1, (todo >> 1) & 1u);
-  for (int it = 0; it < w.ceiling && (a.live || b.live); ++it) {
+  for (int it = 0; it < w.ceiling; ++it) {
+    if (SYNC ? !__any_sync(0xffffffffu, a.live || b.live) : !(a.live || b.live)) break;
     if constexpr (FUSE) {
       const int next_a = a.live ? side_next(a, w.table) : 0;
       const int next_b = b.live ? side_next(b, w.table) : 0;
@@ -297,9 +327,102 @@ packet_trace_halves_kernel(WalkArgs w) {
   if (g.lane == 0 && live) side_store(w, (int)i, s);
 }
 
+// The next ray of a group's mask of live rays (an offset), -1 when none.
+__device__ __forceinline__ int take(unsigned& todo) {
+  const int k = __ffs(todo) - 1;
+  todo &= todo - 1u;
+  return k;
+}
+
+// DESIGN_REFILL4/8: group q takes rays P * q .. P * q + P - 1; lane k < P
+// settles ray k if it is dead, and the group walks the live ones two at a
+// time, fused, a finished ray's slot taking the next live one.
+template <bool ANY, bool COUNTS, int P, int DESIGN>
+__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
+packet_trace_refill_kernel(WalkArgs w) {
+  const Lanes<16> g;
+  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * P;
+  bool live = false;
+  if (g.lane < P && first + g.lane < w.n) {
+    const int i = (int)first + g.lane;
+    const float tf = w.rays.tfar[i];
+    live = tf >= w.rays.tnear[i];
+    if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
+  }
+  unsigned todo = g.ballot(live);
+  if (todo == 0u) return;
+  Side a, b;
+  int ia = take(todo), ib = take(todo);
+  side_init(a, w, (int)first + max(ia, 0), ia >= 0);
+  side_init(b, w, (int)first + max(ib, 0), ib >= 0);
+  int va = 0, vb = 0;  // visits of the rays in the slots
+  while (a.live || b.live) {
+    const int next_a = a.live ? side_next(a, w.table) : 0;
+    const int next_b = b.live ? side_next(b, w.table) : 0;
+    Fetch fa, fb;
+    if (a.live) fa = fetch(w.table, a.node, w.last, g.lane);
+    if (b.live) {
+      if (a.live && b.node == a.node)
+        fb = fa;
+      else
+        fb = fetch(w.table, b.node, w.last, g.lane);
+    }
+    const bool fresh_a = a.live && side_visit<ANY, COUNTS>(a, fa, w, g);
+    const bool fresh_b = b.live && side_visit<ANY, COUNTS>(b, fb, w, g);
+    if (a.live) side_pop(a, fa.id, fresh_a, next_a, g);
+    if (b.live) side_pop(b, fb.id, fresh_b, next_b, g);
+    if (a.live && ++va >= w.ceiling) a.live = false;
+    if (b.live && ++vb >= w.ceiling) b.live = false;
+    if (!a.live && ia >= 0) {
+      if (g.lane == 0) side_store(w, (int)first + ia, a);
+      ia = take(todo);
+      side_init(a, w, (int)first + max(ia, 0), ia >= 0);
+      va = 0;
+    }
+    if (!b.live && ib >= 0) {
+      if (g.lane == 0) side_store(w, (int)first + ib, b);
+      ib = take(todo);
+      side_init(b, w, (int)first + max(ib, 0), ib >= 0);
+      vb = 0;
+    }
+  }
+}
+
+// DESIGN_IN_TURN2/4: group q takes rays P * q .. P * q + P - 1; lane k < P
+// settles ray k if it is dead, and the group walks the live ones one
+// after the other.
+template <bool ANY, bool COUNTS, int P, int DESIGN>
+__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
+packet_trace_in_turn_kernel(WalkArgs w) {
+  const Lanes<16> g;
+  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * P;
+  bool live = false;
+  if (g.lane < P && first + g.lane < w.n) {
+    const int i = (int)first + g.lane;
+    const float tf = w.rays.tfar[i];
+    live = tf >= w.rays.tnear[i];
+    if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
+  }
+  for (unsigned todo = g.ballot(live); todo != 0u;) {
+    const int i = (int)first + take(todo);
+    Side s;
+    side_init(s, w, i, true);
+    for (int it = 0; it < w.ceiling && s.live; ++it) side_step<ANY, COUNTS>(s, w, g);
+    if (g.lane == 0) side_store(w, i, s);
+  }
+}
+
 template <bool ANY, bool COUNTS, int DESIGN>
 static void launch(const WalkArgs& w, cudaStream_t s) {
-  if constexpr (DESIGN == DESIGN_HALVES) {
+  if constexpr (DESIGN == DESIGN_IN_TURN2 || DESIGN == DESIGN_IN_TURN4) {
+    constexpr int P = DESIGN == DESIGN_IN_TURN2 ? 2 : 4;
+    const int blocks = (w.n - 1) / (P * (K4_BLOCK / 16)) + 1;
+    packet_trace_in_turn_kernel<ANY, COUNTS, P, DESIGN><<<blocks, K4_BLOCK, 0, s>>>(w);
+  } else if constexpr (DESIGN == DESIGN_REFILL4 || DESIGN == DESIGN_REFILL8) {
+    constexpr int P = DESIGN == DESIGN_REFILL4 ? 4 : 8;
+    const int blocks = (w.n - 1) / (P * (K4_BLOCK / 16)) + 1;
+    packet_trace_refill_kernel<ANY, COUNTS, P, DESIGN><<<blocks, K4_BLOCK, 0, s>>>(w);
+  } else if constexpr (DESIGN == DESIGN_HALVES) {
     const int per_block = K4_BLOCK / 16;
     packet_trace_halves_kernel<ANY, COUNTS><<<(w.n - 1) / per_block + 1, K4_BLOCK, 0, s>>>(w);
   } else {
@@ -319,11 +442,17 @@ static void launch_modes(const WalkArgs& w, bool any_hit, cudaStream_t s) {
 static void launch_design(const WalkArgs& w, int design, bool any_hit, cudaStream_t s) {
   switch (design) {
     case DESIGN_FUSED: launch_modes<DESIGN_FUSED>(w, any_hit, s); break;
-    case DESIGN_FUSED_REG: launch_modes<DESIGN_FUSED_REG>(w, any_hit, s); break;
-    case DESIGN_FUSED_80: launch_modes<DESIGN_FUSED_80>(w, any_hit, s); break;
+    case DESIGN_FUSED_72: launch_modes<DESIGN_FUSED_72>(w, any_hit, s); break;
     case DESIGN_NO_SHARE: launch_modes<DESIGN_NO_SHARE>(w, any_hit, s); break;
     case DESIGN_SERIAL: launch_modes<DESIGN_SERIAL>(w, any_hit, s); break;
-    default: launch_modes<DESIGN_HALVES>(w, any_hit, s); break;
+    case DESIGN_SERIAL_72: launch_modes<DESIGN_SERIAL_72>(w, any_hit, s); break;
+    case DESIGN_HALVES: launch_modes<DESIGN_HALVES>(w, any_hit, s); break;
+    case DESIGN_FUSED_SYNC: launch_modes<DESIGN_FUSED_SYNC>(w, any_hit, s); break;
+    case DESIGN_REFILL4: launch_modes<DESIGN_REFILL4>(w, any_hit, s); break;
+    case DESIGN_REFILL8: launch_modes<DESIGN_REFILL8>(w, any_hit, s); break;
+    case DESIGN_SERIAL_56: launch_modes<DESIGN_SERIAL_56>(w, any_hit, s); break;
+    case DESIGN_IN_TURN2: launch_modes<DESIGN_IN_TURN2>(w, any_hit, s); break;
+    case DESIGN_IN_TURN4: launch_modes<DESIGN_IN_TURN4>(w, any_hit, s); break;
   }
 }
 

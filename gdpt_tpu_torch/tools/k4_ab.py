@@ -31,8 +31,10 @@ from gdpt_tpu_torch.accel import packet_trace as pt
 from gdpt_tpu_torch.core.soa import V3
 
 ROOT = Path(__file__).resolve().parents[2]
-DESIGNS = ("fused, 64 registers", "fused, no register bound", "fused, 80 registers",
-           "fused, no shared row", "serial", "half-warp per ray")
+DESIGNS = ("fused, 64 registers", "fused, 72 registers", "fused, no shared row", "serial",
+           "serial, 72 registers", "half-warp per ray", "fused, warp in step",
+           "refill, 4 rays per group", "refill, 8 rays per group", "serial, 56 registers",
+           "in turn, 2 rays per group", "in turn, 4 rays per group")
 
 
 def _bind(lib, name, solo, extra=()):
