@@ -1,5 +1,5 @@
 // Dual BVH walk over a 16-wide packet table: a group of 16 lanes walks a
-// pair of rays with both rays' visits in flight, Hopper (K4).
+// pair of adjacent rays, one after the other, Hopper (K4).
 //
 // Replaces the Pallas TPU kernel of gdpt_tpu/accel/packet_trace.py:
 //   packet_trace_dual_kernel <- _make_kernel_dual (pallas_call at :1159,
@@ -8,42 +8,42 @@
 //
 // What the TPU kernel is for: its solo walk stalls on a dependent chain
 // (pop -> row load -> test -> push), and a second, independent walk fills
-// the stalls. The solo walk K3 (packet_trace.cu) has the same chain per
-// lane group on this card: a 16-lane group walks one ray, lane k testing
-// child k of a supernode row or slot k of a leaf row, and its time is the
-// latency of that chain over the warps an SM holds, not memory traffic.
-// This kernel carries the TPU's idea onto K3's group: the group walks two
-// rays, and in every loop iteration each live ray makes one visit, with
-// both rays' row loads and both "next ref" loads issued before either
-// ray's test, so one chain's loads overlap the other's arithmetic. Where
-// both rays sit at the same row, one set of loads serves both tests.
+// the stalls. On this card the solo walk K3 (packet_trace.cu) is a group
+// of lanes per ray, and what bounds it is the chain of instructions of
+// each visit (loads, slab or primitive tests, ballots, pop, shuffles)
+// over the warps an SM holds, not load latency inside a group: its time
+// per visit is the same on rows that hit L1. Walking a pair with both
+// visits in flight (both rays' loads issued before either test) needs
+// both rays' state in every lane: 64 registers with about 170 B of spill,
+// or 72 and fewer warps, and it lost to this design on every ray set
+// (PERF.md has the designs and their times). So the group walks the two
+// rays of its pair in turn with one ray's state, at K3's 48 registers,
+// and the pair pays off where the gradpath lane pool's batches carry many
+// dead lanes: lanes 0 and 1 check both rays at once and settle a dead one
+// (tfar < tnear: a miss, no work), and the grid has half K3's groups.
 //
 // Per lane, as in K3: a supernode visit loads child `lane`'s box (three
 // 8-byte loads) and ref and runs the slab test, and a group ballot cut to
 // the row's validity bits is the child mask; a leaf visit loads slot
 // `lane` < 12 (nine words and its id) and tests it, and leaf_reduce takes
-// the group's hit by K3's tie rules. Control flow depends only on the two
-// rays' node kinds and liveness, which every lane of the group holds
-// alike, so nothing diverges inside a group. A drained or blocked ray
-// idles without touching its state; the group goes on with the other ray.
+// the group's hit by K3's tie rules (packet_group.cuh holds both walks'
+// tests and reduction). Control flow depends only on the ray's node kind,
+// which every lane of the group holds alike, so nothing diverges inside a
+// group.
 //
-// Stacks: each ray's is K3's, in registers: the top entry in every lane,
-// entry j below it in lane j % 16, slot j / 16 (2 slots for MAX_DEPTH 32).
-// A pop right after a push reads the child's ref from the lane that
-// loaded it; any other pop's ref is the "next ref" load. The visit
-// ceiling (4R + 64 per ray), the full-stack report (the ray stops, its
-// deepest count reads depth + 1, *overflow is set) and the per-ray counts
-// are K3's; the counts are kept only in the kernels that store them.
+// The stack is K3's, in registers: the top entry in every lane, entry j
+// below it in lane j % 16, slot j / 16 (two slots for MAX_DEPTH 32). A pop
+// right after a push reads the child's ref from the lane that loaded it;
+// any other pop's ref is loaded before the visit that precedes it. The
+// visit ceiling (4R + 64 per ray), the full-stack report (the ray stops,
+// its deepest count reads depth + 1, *overflow is set) and the per-ray
+// counts are K3's; the counts are kept only in the kernels that store
+// them.
 //
 // Pairing: group q of the grid walks rays 2q and 2q + 1 of the caller's
-// order. The wrapper's callers sort rays by morton key, so the two rays
-// of a pair usually share their upper rows. Lanes 0 and 1 first look at
-// one ray each and settle a dead one (tfar < tnear: a miss, no work), so
-// the dead lanes the callers sort to the back cost a lane, not a walk.
-//
-// The two rays never interact and every test is K3's in K3's order, so
-// each ray's (t, prim) and visit counts equal K3's on the same table bit
-// for bit.
+// order, which the wrapper's callers sort by morton key. Every test is
+// K3's in K3's order, so each ray's (t, prim) and visit counts equal K3's
+// on the same table bit for bit.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): K3's, from the rays' own
 // visits: 40 B per ray plus 512 B per table row read; 25 operations per
@@ -59,34 +59,9 @@
 
 static_assert(MAX_DEPTH <= 32, "a ray's stack is two slots per lane");
 
-// Designs compared by gdpt_trace_packets_dual_ab; the wrapper launches
-// DESIGN_FUSED.
-enum Design {
-  DESIGN_FUSED,       // both rays' loads before either test, shared rows, <= 64 registers
-  DESIGN_FUSED_72,    // the same at <= 72 registers
-  DESIGN_NO_SHARE,    // fused, but each ray loads its row even where both share it
-  DESIGN_SERIAL,      // a group per pair, the two rays' visits one after the other
-  DESIGN_SERIAL_72,   // the same at <= 72 registers
-  DESIGN_HALVES,      // one pair per warp: each half-warp walks one ray in one warp loop
-  DESIGN_FUSED_SYNC,  // fused, the warp's two groups iterate in step (a warp vote per visit)
-  DESIGN_REFILL4,     // fused; a group takes 4 rays, two in flight, a finished one's slot refilled
-  DESIGN_REFILL8,     // the same with 8 rays per group
-  DESIGN_SERIAL_56,   // serial at <= 56 registers
-  DESIGN_IN_TURN2,    // a group walks its 2 rays one after the other, one in flight (K3's walk)
-  DESIGN_IN_TURN4,    // the same with 4 rays per group
-  N_DESIGNS
-};
-
-__host__ __device__ constexpr int k4_min_blocks(int design) {
-  return design == DESIGN_FUSED_72 || design == DESIGN_SERIAL_72 || design == DESIGN_REFILL4 ||
-                 design == DESIGN_REFILL8 ? 7
-         : design == DESIGN_HALVES || design == DESIGN_IN_TURN2 || design == DESIGN_IN_TURN4 ? 10
-         : design == DESIGN_SERIAL_56 ? 9 : 8;
-}
-
-// A ray as a side keeps it: Ray without origin * inverse direction, which
-// full() recomputes where a slab test needs it (three registers fewer per
-// ray, the same products as make_ray's).
+// A ray as the walk keeps it: Ray without origin * inverse direction,
+// which full() recomputes where a slab test needs it (three registers
+// fewer, the same products as make_ray's).
 struct RayS {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
 };
@@ -101,11 +76,11 @@ __device__ __forceinline__ Ray full(const RayS& s) {
   return r;
 }
 
-// One ray of a pair: its walk. Every field but the stack slots below the
-// top is the same in every lane of the group. The two slots are fields of
-// their own, not an array: an array that a loop indexes keeps the whole
-// struct in local memory.
-struct Side {
+// One ray's walk. Every field but the stack slots below the top is the
+// same in every lane of the group. The two slots are fields of their own,
+// not an array: an array that a loop indexes keeps the whole struct in
+// local memory.
+struct Walk {
   RayS r;
   float best;
   int prim;
@@ -129,28 +104,24 @@ struct Fetch {
   int axis;
 };
 
-__device__ __forceinline__ void side_init(Side& s, const WalkArgs& w, int i, bool live) {
-  s.live = live;
+__device__ __forceinline__ void walk_init(Walk& s, const WalkArgs& w, int i) {
+  const RayArrays& a = w.rays;
+  const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
+  s.r = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.ix, r.iy, r.iz, r.tnear};
+  s.best = a.tfar[i];
+  s.node = a.rref ? a.rref[i] : 0;
+  s.live = true;
   s.prim = -1;
-  s.node = 0;
   s.sp = 0;
   s.top_e = 0;
   s.top_m = 0u;
   s.low_e0 = s.low_e1 = 0;
   s.low_m0 = s.low_m1 = 0u;
   s.n_super = s.n_leaf = s.n_tests = s.deepest = 0;
-  s.best = 0.0f;
-  if (live) {
-    const RayArrays& a = w.rays;
-    const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
-    s.r = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.ix, r.iy, r.iz, r.tnear};
-    s.best = a.tfar[i];
-    s.node = a.rref ? a.rref[i] : 0;
-  }
 }
 
 // The ref the next pop reads if the coming visit pushes nothing.
-__device__ __forceinline__ int side_next(const Side& s, const int* __restrict__ table) {
+__device__ __forceinline__ int walk_next(const Walk& s, const int* __restrict__ table) {
   if (s.sp == 0) return 0;
   const int k = nearest(s.top_e, s.top_m);
   return __ldg(table + (size_t)(s.top_e & ROW_MASK) * 128 + 96 + k);
@@ -184,7 +155,7 @@ __device__ __forceinline__ Fetch fetch(const int* __restrict__ table, int node, 
 // (the next pop then reads the child's ref by shuffle); a ray that is
 // blocked (any hit) or whose stack ran full stops (live = false).
 template <bool ANY, bool COUNTS>
-__device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkArgs& w,
+__device__ __forceinline__ bool walk_visit(Walk& s, const Fetch& f, const WalkArgs& w,
                                            const Lanes<16>& g) {
   if (s.node >= 0) {
     const float2 p = make_float2(f.v[0], f.v[1]), q = make_float2(f.v[2], f.v[3]),
@@ -218,7 +189,7 @@ __device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkAr
   bool hit = false;
   float tt = 0.0f;
   if (f.id >= 0) hit = prim_hit(f.v, f.id, full(s.r), w.n_tris, s.best, tt);
-  int n_tests = 0;  // a local, not a field chosen at run time: s stays in registers
+  int n_tests = 0;
   if (leaf_reduce<16, ANY>(hit, tt, f.id, s.best, s.prim, n_tests, g)) s.live = false;
   if (COUNTS) s.n_tests += n_tests;
   return false;
@@ -226,7 +197,7 @@ __device__ __forceinline__ bool side_visit(Side& s, const Fetch& f, const WalkAr
 
 // Peel the nearest pending child off the stack into s.node; a drained
 // stack ends the walk. kid: this lane's child ref of the visit just made.
-__device__ __forceinline__ void side_pop(Side& s, int kid, bool fresh, int next_old,
+__device__ __forceinline__ void walk_pop(Walk& s, int kid, bool fresh, int next_old,
                                          const Lanes<16>& g) {
   if (s.sp == 0) {
     s.live = false;
@@ -245,86 +216,17 @@ __device__ __forceinline__ void side_pop(Side& s, int kid, bool fresh, int next_
   }
 }
 
-// One visit of a live ray with nothing interleaved.
+// One visit of a live ray.
 template <bool ANY, bool COUNTS>
-__device__ __forceinline__ void side_step(Side& s, const WalkArgs& w, const Lanes<16>& g) {
-  const int next_old = side_next(s, w.table);
+__device__ __forceinline__ void walk_step(Walk& s, const WalkArgs& w, const Lanes<16>& g) {
+  const int next_old = walk_next(s, w.table);
   const Fetch f = fetch(w.table, s.node, w.last, g.lane);
-  const bool fresh = side_visit<ANY, COUNTS>(s, f, w, g);
-  if (s.live) side_pop(s, f.id, fresh, next_old, g);
+  const bool fresh = walk_visit<ANY, COUNTS>(s, f, w, g);
+  if (s.live) walk_pop(s, f.id, fresh, next_old, g);
 }
 
-__device__ __forceinline__ void side_store(const WalkArgs& w, int i, const Side& s) {
+__device__ __forceinline__ void walk_store(const WalkArgs& w, int i, const Walk& s) {
   store(w, i, s.best, s.prim, s.n_super, s.n_leaf, s.n_tests, s.deepest);
-}
-
-// Group q walks rays 2q and 2q + 1.
-template <bool ANY, bool COUNTS, int DESIGN>
-__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
-packet_trace_dual_kernel(WalkArgs w) {
-  constexpr bool FUSE =
-      DESIGN != DESIGN_SERIAL && DESIGN != DESIGN_SERIAL_72 && DESIGN != DESIGN_SERIAL_56;
-  constexpr bool SHARE = DESIGN != DESIGN_NO_SHARE;
-  constexpr bool SYNC = DESIGN == DESIGN_FUSED_SYNC;
-  const Lanes<16> g;
-  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * 2;
-  bool live = false;
-  if (g.lane < 2 && first + g.lane < w.n) {
-    const int i = (int)first + g.lane;
-    const float tf = w.rays.tfar[i];
-    live = tf >= w.rays.tnear[i];
-    if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
-  }
-  const unsigned todo = g.ballot(live);
-  if (!SYNC && todo == 0u) return;
-  Side a, b;
-  side_init(a, w, (int)first, todo & 1u);
-  side_init(b, w, (int)first + 1, (todo >> 1) & 1u);
-  for (int it = 0; it < w.ceiling; ++it) {
-    if (SYNC ? !__any_sync(0xffffffffu, a.live || b.live) : !(a.live || b.live)) break;
-    if constexpr (FUSE) {
-      const int next_a = a.live ? side_next(a, w.table) : 0;
-      const int next_b = b.live ? side_next(b, w.table) : 0;
-      Fetch fa, fb;
-      if (a.live) fa = fetch(w.table, a.node, w.last, g.lane);
-      if (b.live) {
-        if (SHARE && a.live && b.node == a.node)
-          fb = fa;
-        else
-          fb = fetch(w.table, b.node, w.last, g.lane);
-      }
-      const bool fresh_a = a.live && side_visit<ANY, COUNTS>(a, fa, w, g);
-      const bool fresh_b = b.live && side_visit<ANY, COUNTS>(b, fb, w, g);
-      if (a.live) side_pop(a, fa.id, fresh_a, next_a, g);
-      if (b.live) side_pop(b, fb.id, fresh_b, next_b, g);
-    } else {
-      if (a.live) side_step<ANY, COUNTS>(a, w, g);
-      if (b.live) side_step<ANY, COUNTS>(b, w, g);
-    }
-  }
-  if (g.lane == 0 && (todo & 1u)) side_store(w, (int)first, a);
-  if (g.lane == 1 && (todo & 2u)) side_store(w, (int)first + 1, b);
-}
-
-// DESIGN_HALVES: the warp's two half-warps walk rays 2q and 2q + 1, one
-// each, in one loop that runs while either ray is live.
-template <bool ANY, bool COUNTS>
-__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN_HALVES))
-packet_trace_halves_kernel(WalkArgs w) {
-  const Lanes<16> g;
-  const long long i = (long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16;
-  bool live = false;
-  if (g.lane == 0 && i < w.n) {
-    const float tf = w.rays.tfar[i];
-    live = tf >= w.rays.tnear[i];
-    if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
-  }
-  live = g.ballot(live) != 0u;
-  Side s;
-  side_init(s, w, (int)i, live);
-  for (int it = 0; it < w.ceiling && __any_sync(0xffffffffu, s.live); ++it)
-    if (s.live) side_step<ANY, COUNTS>(s, w, g);
-  if (g.lane == 0 && live) side_store(w, (int)i, s);
 }
 
 // The next ray of a group's mask of live rays (an offset), -1 when none.
@@ -334,70 +236,15 @@ __device__ __forceinline__ int take(unsigned& todo) {
   return k;
 }
 
-// DESIGN_REFILL4/8: group q takes rays P * q .. P * q + P - 1; lane k < P
-// settles ray k if it is dead, and the group walks the live ones two at a
-// time, fused, a finished ray's slot taking the next live one.
-template <bool ANY, bool COUNTS, int P, int DESIGN>
-__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
-packet_trace_refill_kernel(WalkArgs w) {
+// Group q: lanes 0 and 1 look at rays 2q and 2q + 1 and settle a dead one;
+// the group walks the live ones in turn. Registers are held to 48 per
+// thread (__launch_bounds__(128, 10)), as K3's.
+template <bool ANY, bool COUNTS>
+__global__ void __launch_bounds__(K4_BLOCK, 10) packet_trace_dual_kernel(WalkArgs w) {
   const Lanes<16> g;
-  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * P;
+  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * 2;
   bool live = false;
-  if (g.lane < P && first + g.lane < w.n) {
-    const int i = (int)first + g.lane;
-    const float tf = w.rays.tfar[i];
-    live = tf >= w.rays.tnear[i];
-    if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
-  }
-  unsigned todo = g.ballot(live);
-  if (todo == 0u) return;
-  Side a, b;
-  int ia = take(todo), ib = take(todo);
-  side_init(a, w, (int)first + max(ia, 0), ia >= 0);
-  side_init(b, w, (int)first + max(ib, 0), ib >= 0);
-  int va = 0, vb = 0;  // visits of the rays in the slots
-  while (a.live || b.live) {
-    const int next_a = a.live ? side_next(a, w.table) : 0;
-    const int next_b = b.live ? side_next(b, w.table) : 0;
-    Fetch fa, fb;
-    if (a.live) fa = fetch(w.table, a.node, w.last, g.lane);
-    if (b.live) {
-      if (a.live && b.node == a.node)
-        fb = fa;
-      else
-        fb = fetch(w.table, b.node, w.last, g.lane);
-    }
-    const bool fresh_a = a.live && side_visit<ANY, COUNTS>(a, fa, w, g);
-    const bool fresh_b = b.live && side_visit<ANY, COUNTS>(b, fb, w, g);
-    if (a.live) side_pop(a, fa.id, fresh_a, next_a, g);
-    if (b.live) side_pop(b, fb.id, fresh_b, next_b, g);
-    if (a.live && ++va >= w.ceiling) a.live = false;
-    if (b.live && ++vb >= w.ceiling) b.live = false;
-    if (!a.live && ia >= 0) {
-      if (g.lane == 0) side_store(w, (int)first + ia, a);
-      ia = take(todo);
-      side_init(a, w, (int)first + max(ia, 0), ia >= 0);
-      va = 0;
-    }
-    if (!b.live && ib >= 0) {
-      if (g.lane == 0) side_store(w, (int)first + ib, b);
-      ib = take(todo);
-      side_init(b, w, (int)first + max(ib, 0), ib >= 0);
-      vb = 0;
-    }
-  }
-}
-
-// DESIGN_IN_TURN2/4: group q takes rays P * q .. P * q + P - 1; lane k < P
-// settles ray k if it is dead, and the group walks the live ones one
-// after the other.
-template <bool ANY, bool COUNTS, int P, int DESIGN>
-__global__ void __launch_bounds__(K4_BLOCK, k4_min_blocks(DESIGN))
-packet_trace_in_turn_kernel(WalkArgs w) {
-  const Lanes<16> g;
-  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * P;
-  bool live = false;
-  if (g.lane < P && first + g.lane < w.n) {
+  if (g.lane < 2 && first + g.lane < w.n) {
     const int i = (int)first + g.lane;
     const float tf = w.rays.tfar[i];
     live = tf >= w.rays.tnear[i];
@@ -405,70 +252,17 @@ packet_trace_in_turn_kernel(WalkArgs w) {
   }
   for (unsigned todo = g.ballot(live); todo != 0u;) {
     const int i = (int)first + take(todo);
-    Side s;
-    side_init(s, w, i, true);
-    for (int it = 0; it < w.ceiling && s.live; ++it) side_step<ANY, COUNTS>(s, w, g);
-    if (g.lane == 0) side_store(w, i, s);
+    Walk s;
+    walk_init(s, w, i);
+    for (int it = 0; it < w.ceiling && s.live; ++it) walk_step<ANY, COUNTS>(s, w, g);
+    if (g.lane == 0) walk_store(w, i, s);
   }
 }
 
-template <bool ANY, bool COUNTS, int DESIGN>
+template <bool ANY, bool COUNTS>
 static void launch(const WalkArgs& w, cudaStream_t s) {
-  if constexpr (DESIGN == DESIGN_IN_TURN2 || DESIGN == DESIGN_IN_TURN4) {
-    constexpr int P = DESIGN == DESIGN_IN_TURN2 ? 2 : 4;
-    const int blocks = (w.n - 1) / (P * (K4_BLOCK / 16)) + 1;
-    packet_trace_in_turn_kernel<ANY, COUNTS, P, DESIGN><<<blocks, K4_BLOCK, 0, s>>>(w);
-  } else if constexpr (DESIGN == DESIGN_REFILL4 || DESIGN == DESIGN_REFILL8) {
-    constexpr int P = DESIGN == DESIGN_REFILL4 ? 4 : 8;
-    const int blocks = (w.n - 1) / (P * (K4_BLOCK / 16)) + 1;
-    packet_trace_refill_kernel<ANY, COUNTS, P, DESIGN><<<blocks, K4_BLOCK, 0, s>>>(w);
-  } else if constexpr (DESIGN == DESIGN_HALVES) {
-    const int per_block = K4_BLOCK / 16;
-    packet_trace_halves_kernel<ANY, COUNTS><<<(w.n - 1) / per_block + 1, K4_BLOCK, 0, s>>>(w);
-  } else {
-    const int per_block = 2 * (K4_BLOCK / 16);
-    packet_trace_dual_kernel<ANY, COUNTS, DESIGN><<<(w.n - 1) / per_block + 1, K4_BLOCK, 0, s>>>(w);
-  }
-}
-
-template <int DESIGN>
-static void launch_modes(const WalkArgs& w, bool any_hit, cudaStream_t s) {
-  if (any_hit)
-    w.counts ? launch<true, true, DESIGN>(w, s) : launch<true, false, DESIGN>(w, s);
-  else
-    w.counts ? launch<false, true, DESIGN>(w, s) : launch<false, false, DESIGN>(w, s);
-}
-
-static void launch_design(const WalkArgs& w, int design, bool any_hit, cudaStream_t s) {
-  switch (design) {
-    case DESIGN_FUSED: launch_modes<DESIGN_FUSED>(w, any_hit, s); break;
-    case DESIGN_FUSED_72: launch_modes<DESIGN_FUSED_72>(w, any_hit, s); break;
-    case DESIGN_NO_SHARE: launch_modes<DESIGN_NO_SHARE>(w, any_hit, s); break;
-    case DESIGN_SERIAL: launch_modes<DESIGN_SERIAL>(w, any_hit, s); break;
-    case DESIGN_SERIAL_72: launch_modes<DESIGN_SERIAL_72>(w, any_hit, s); break;
-    case DESIGN_HALVES: launch_modes<DESIGN_HALVES>(w, any_hit, s); break;
-    case DESIGN_FUSED_SYNC: launch_modes<DESIGN_FUSED_SYNC>(w, any_hit, s); break;
-    case DESIGN_REFILL4: launch_modes<DESIGN_REFILL4>(w, any_hit, s); break;
-    case DESIGN_REFILL8: launch_modes<DESIGN_REFILL8>(w, any_hit, s); break;
-    case DESIGN_SERIAL_56: launch_modes<DESIGN_SERIAL_56>(w, any_hit, s); break;
-    case DESIGN_IN_TURN2: launch_modes<DESIGN_IN_TURN2>(w, any_hit, s); break;
-    case DESIGN_IN_TURN4: launch_modes<DESIGN_IN_TURN4>(w, any_hit, s); break;
-  }
-}
-
-static int trace(const int* table, int n_rows, int depth, const float* ox, const float* oy,
-                 const float* oz, const float* dx, const float* dy, const float* dz,
-                 const float* tnear, const float* tfar, const int* rref, int n, int n_tris,
-                 int any_hit, int ceiling, float* t, int* prim, int* counts, int* overflow,
-                 void* stream, int design) {
-  if (depth < 1 || depth > MAX_DEPTH || design < 0 || design >= N_DESIGNS)
-    return (int)cudaErrorInvalidValue;
-  if (n > 0) {
-    const WalkArgs w = {table, n_rows - 1, depth, {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
-                        n, n_tris, ceiling, t, prim, counts, overflow};
-    launch_design(w, design, any_hit != 0, (cudaStream_t)stream);
-  }
-  return (int)cudaGetLastError();
+  const int blocks = (w.n - 1) / (2 * (K4_BLOCK / 16)) + 1;
+  packet_trace_dual_kernel<ANY, COUNTS><<<blocks, K4_BLOCK, 0, s>>>(w);
 }
 
 extern "C" {
@@ -484,20 +278,17 @@ int gdpt_trace_packets_dual(const int* table, int n_rows, int depth,
                             int n, int n_tris, int any_hit, int ceiling,
                             float* t, int* prim, int* counts, int* overflow,
                             void* stream) {
-  return trace(table, n_rows, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n, n_tris,
-               any_hit, ceiling, t, prim, counts, overflow, stream, DESIGN_FUSED);
-}
-
-// The design comparison: the same with the design picked (enum Design).
-int gdpt_trace_packets_dual_ab(const int* table, int n_rows, int depth,
-                               const float* ox, const float* oy, const float* oz,
-                               const float* dx, const float* dy, const float* dz,
-                               const float* tnear, const float* tfar, const int* rref,
-                               int n, int n_tris, int any_hit, int ceiling,
-                               float* t, int* prim, int* counts, int* overflow,
-                               void* stream, int design) {
-  return trace(table, n_rows, depth, ox, oy, oz, dx, dy, dz, tnear, tfar, rref, n, n_tris,
-               any_hit, ceiling, t, prim, counts, overflow, stream, design);
+  if (depth < 1 || depth > MAX_DEPTH) return (int)cudaErrorInvalidValue;
+  if (n > 0) {
+    const WalkArgs w = {table, n_rows - 1, depth, {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
+                        n, n_tris, ceiling, t, prim, counts, overflow};
+    cudaStream_t s = (cudaStream_t)stream;
+    if (any_hit)
+      counts ? launch<true, true>(w, s) : launch<true, false>(w, s);
+    else
+      counts ? launch<false, true>(w, s) : launch<false, false>(w, s);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"
