@@ -16,11 +16,12 @@
 // visits in flight (both rays' loads issued before either test) needs
 // both rays' state in every lane: 64 registers with about 170 B of spill,
 // or 72 and fewer warps, and it lost to this design on every ray set
-// (PERF.md has the designs and their times). So the group walks the two
-// rays of its pair in turn with one ray's state, at K3's 48 registers,
-// and the pair pays off where the gradpath lane pool's batches carry many
-// dead lanes: lanes 0 and 1 check both rays at once and settle a dead one
-// (tfar < tnear: a miss, no work), and the grid has half K3's groups.
+// (PERF.md has the designs and their times on an NVIDIA H100 80GB HBM3
+// at 700.00 W). So the group walks the two rays of its pair in turn with
+// one ray's state, at K3's 48 registers, and the pair pays off where the
+// gradpath lane pool's batches carry many dead lanes: lanes 0 and 1 check
+// both rays at once and settle a dead one (tfar < tnear: a miss, no
+// work), and the grid has half K3's groups.
 //
 // Per lane, as in K3: a supernode visit loads child `lane`'s box (three
 // 8-byte loads) and ref and runs the slab test, and a group ballot cut to
@@ -237,8 +238,8 @@ __device__ __forceinline__ int take(unsigned& todo) {
 }
 
 // Group q: lanes 0 and 1 look at rays 2q and 2q + 1 and settle a dead one;
-// the group walks the live ones in turn. Registers are held to 48 per
-// thread (__launch_bounds__(128, 10)), as K3's.
+// the group walks the live ones in turn. __launch_bounds__(128, 10)
+// caps registers at 48 per thread, as K3's.
 template <bool ANY, bool COUNTS>
 __global__ void __launch_bounds__(K4_BLOCK, 10) packet_trace_dual_kernel(WalkArgs w) {
   const Lanes<16> g;
