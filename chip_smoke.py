@@ -906,11 +906,14 @@ def _gradpath_phases(card, ctx):
     iter_us = dict.fromkeys(("K3, 32-wide table", "K3, 16-wide table", "K4, 16-wide table"), 0.0)
     for (n, any_hit), rays in sorted(batches.items()):
         dead = float((rays[7] < rays[6]).float().mean())
+        work = {}  # K3 and K4 do the same work on the 16-wide table
         for walker, tab, dual in (("K3", tab32, False), ("K3", tab16, False),
                                   ("K4", tab16, True)):
             ms, _ = _time_ms(lambda: pk.trace_packets(tab, *rays, any_hit=any_hit, dual=dual),
                              10, 3)
-            ops, nbytes, n_read, visits = _walk_work(pk, tab, rays, any_hit)
+            if tab.width not in work:
+                work[tab.width] = _walk_work(pk, tab, rays, any_hit)
+            ops, nbytes, n_read, visits = work[tab.width]
             bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
             what = f"{walker}, {tab.width}-wide table"
             iter_us[what] += per_iter.get((n, any_hit), 0.0) * ms * 1e3

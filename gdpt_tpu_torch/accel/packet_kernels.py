@@ -8,7 +8,7 @@ the table is wide walks one ray, lane k testing child k of a supernode
 and slot k of a leaf, the stack in the lanes' registers) and
 csrc/packet_trace_dual.cu (K4, 16-wide tables only: a group of 16 lanes
 walks rays 2q and 2q + 1 one after the other, its lanes checking both
-for a dead ray at once; both walks take their tests and tie rules from
+for a dead ray at once; both kernels are instances of the one walk in
 csrc/packet_group.cuh); this module builds them at first use
 (accel/native_build.py), binds them with ctypes and launches them on
 PyTorch's current stream. `trace_packets` takes a plain PyTorch

@@ -1,15 +1,19 @@
-// Lane-group pieces of the packet-table BVH walks, shared by the solo walk
-// (packet_trace.cu, K3) and the dual walk (packet_trace_dual.cu, K4), so
-// both take one slab test, one primitive test and one set of tie rules.
+// The lane-group BVH walk over the packet table, shared by the solo walk
+// (packet_trace.cu, K3) and the dual walk (packet_trace_dual.cu, K4): one
+// walk, one slab test, one primitive test and one set of tie rules. The
+// two kernels differ only in how many rays a group walks in turn (K3: one
+// on a 16-wide table, two on a 32-wide one; K4: two on a 16-wide table).
 //
-// A group is G lanes of one warp (G = 16 or 32); its ballots and shuffles
-// name its own lanes only. Lane k of a group tests child k of a supernode
-// row (box_hit) or slot k of a leaf row (prim_hit); leaf_reduce folds the
-// slots' hits into the ray's (best, prim) as a sequential strict t < best
-// scan over the slots would. The tests are the reference's, operation for
-// operation (gdpt_tpu/accel/packet_trace.py `super_mask`, `visit_leaf`),
-// in the order of packet_visit.cuh's test_boxes2 and test_prims4; every
-// source that includes this file is built with --fmad=false.
+// A group is G lanes of one warp (G = 16 or 32, the table's width); its
+// ballots and shuffles name its own lanes only. Lane k of a group tests
+// child k of a supernode row (box_hit) or slot k of a leaf row
+// (prim_hit); leaf_reduce folds the slots' hits into the ray's (best,
+// prim) as a sequential strict t < best scan over the slots would. The
+// tests are the reference's, operation for operation
+// (gdpt_tpu/accel/packet_trace.py `super_mask`, `visit_leaf`), in the
+// order of packet_visit.cuh's test_boxes2 and test_prims4; every source
+// that includes this file is built with --fmad=false. packet_trace.cu's
+// top comment describes the walk and its stack.
 
 #pragma once
 
@@ -153,3 +157,165 @@ __device__ __forceinline__ void store(const WalkArgs& w, int i, float t, int pri
     w.counts[4 * i + 3] = deepest;
   }
 }
+
+#define WALK_BLOCK 128  // threads per block of either walk
+
+// A ray as the walk keeps it: Ray without origin * inverse direction,
+// which full() recomputes where a slab test needs it (three registers
+// fewer under the walk's 48-register bound; the same products as
+// make_ray's).
+struct RayS {
+  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
+};
+
+__device__ __forceinline__ Ray full(const RayS& s) {
+  Ray r;
+  r.ox = s.ox; r.oy = s.oy; r.oz = s.oz;
+  r.dx = s.dx; r.dy = s.dy; r.dz = s.dz;
+  r.ix = s.ix; r.iy = s.iy; r.iz = s.iz;
+  r.oix = s.ox * s.ix; r.oiy = s.oy * s.iy; r.oiz = s.oz * s.iz;
+  r.tnear = s.tnear;
+  return r;
+}
+
+// A leaf visit of the group of W lanes: lane s tests slot s of rows lrow
+// (slots 0..11) and lrow + 1 (12..23, W = 32); leaf_reduce folds the hit
+// into (best, prim) and the valid slots tested into n_tests. True when any
+// hit and a slot blocks the ray.
+template <int W, bool ANY>
+__device__ __forceinline__ bool leaf_visit_group(const int* __restrict__ table, int lrow,
+                                                 const Ray& r, int n_tris, float& best,
+                                                 int& prim, int& n_tests, const Lanes<W>& g) {
+  const int s = g.lane;
+  int pid = -1;
+  bool hit = false;
+  float tt = 0.0f;
+  if (s < LEAF_TRIS * (W / 16)) {
+    const int j = s % LEAF_TRIS;
+    const int* row = table + (size_t)(lrow + s / LEAF_TRIS) * 128;
+    float geo[9];
+#pragma unroll
+    for (int m = 0; m < 9; ++m) geo[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * j + m);
+    pid = __ldg(row + 108 + j);
+    if (pid >= 0) hit = prim_hit(geo, pid, r, n_tris, best, tt);
+  }
+  return leaf_reduce<W, ANY>(hit, tt, pid, best, prim, n_tests, g);
+}
+
+// Live ray i's walk by the group of W lanes; lane 0 stores its results,
+// and its visit counts only where COUNTS (the kernels built without keep
+// no counters).
+template <int W, bool ANY, bool COUNTS>
+__device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<W>& g) {
+  constexpr int D = MAX_DEPTH / W;  // stack entries per lane
+  const int* __restrict__ table = w.table;
+  const RayArrays& a = w.rays;
+  const Ray r0 = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
+  const RayS r = {r0.ox, r0.oy, r0.oz, r0.dx, r0.dy, r0.dz, r0.ix, r0.iy, r0.iz, r0.tnear};
+  float best = a.tfar[i];
+  int prim = -1;
+  int n_super = 0, n_leaf = 0, n_tests = 0, deepest = 0;
+  int node = a.rref ? a.rref[i] : 0;
+  int sp = 0;            // stack entries, the top one included
+  int top_e = 0;         // the top entry: row | reversed << 30,
+  unsigned top_m = 0u;   // and its pending children
+  int low_e[D];          // entry j < sp - 1: lane j % W, slot j / W
+  unsigned low_m[D];
+  int kid = 0;           // the ref of this lane's child at the last supernode visit
+  bool fresh = false;    // the top entry is that visit's
+#pragma unroll
+  for (int d = 0; d < D; ++d) low_e[d] = 0, low_m[d] = 0u;
+  for (int it = 0; it < w.ceiling; ++it) {
+    // The ref the next pop reads if this visit pushes nothing.
+    int next_old = 0;
+    if (sp > 0) {
+      const int k = nearest(top_e, top_m);
+      next_old = __ldg(table + (size_t)((top_e & ROW_MASK) + (k >> 4)) * 128 + 96 + (k & 15));
+    }
+    if (node >= 0) {
+      const int srow = min(node, w.last);
+      const int* row0 = table + (size_t)srow * 128;
+      const int k = g.lane;
+      const int* row = W == 32 ? row0 + (k >> 4) * 128 : row0;
+      const float2* bx = reinterpret_cast<const float2*>(row) + 3 * (k & 15);
+      const float2 p = __ldg(bx), q = __ldg(bx + 1), u = __ldg(bx + 2);
+      kid = __ldg(row + 96 + (k & 15));
+      const unsigned mask =
+          g.ballot(box_hit(p, q, u, full(r), best)) & (unsigned)__ldg(row0 + 120);
+      const int axis = __ldg(row0 + 121);
+      ++n_super;
+      fresh = mask != 0u;
+      if (fresh) {
+        if (sp >= w.depth) {  // the table is deeper than its stack_n says
+          deepest = w.depth + 1;
+          if (g.lane == 0) atomicOr(w.overflow, 1);
+          break;
+        }
+        const float sgn = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+        if (sp > 0) {  // the old top goes below
+          const int j = sp - 1;
+#pragma unroll
+          for (int d = 0; d < D; ++d)
+            if (d == j / W && g.lane == j % W) low_e[d] = top_e, low_m[d] = top_m;
+        }
+        top_e = srow | ((sgn <= 0.0f ? 1 : 0) << 30);
+        top_m = mask;
+        ++sp;
+        deepest = max(deepest, sp);
+      }
+    } else {
+      ++n_leaf;
+      fresh = false;
+      const int lrow = min((~node) & ROW_MASK, w.last);
+      if (leaf_visit_group<W, ANY>(table, lrow, full(r), w.n_tris, best, prim, n_tests, g))
+        break;
+    }
+    if (sp == 0) break;
+    const int k = nearest(top_e, top_m);
+    top_m &= ~(1u << k);
+    node = fresh ? g.shfl(kid, k) : next_old;
+    if (top_m == 0u) {
+      --sp;
+      if (sp > 0) {  // the entry below comes up
+        const int j = sp - 1;
+        int e = low_e[0];
+        unsigned m = low_m[0];
+#pragma unroll
+        for (int d = 1; d < D; ++d)
+          if (j / W == d) e = low_e[d], m = low_m[d];
+        top_e = g.shfl(e, j % W);
+        top_m = g.shfl(m, j % W);
+      }
+    }
+  }
+  if (g.lane == 0) {
+    if (COUNTS)
+      store(w, i, best, prim, n_super, n_leaf, n_tests, deepest);
+    else
+      store(w, i, best, prim, 0, 0, 0, 0);
+  }
+}
+
+// The walk of one group of W lanes of a grid of WALK_BLOCK-thread blocks:
+// group q takes rays K * q .. K * q + K - 1 (K <= W). Each of its first K
+// lanes looks at one and settles it if it is dead (tfar < tnear: a miss,
+// no work), so the dead lanes the wrapper's caller sorts to the back cost
+// a lane, not a walk; the group walks the live ones in turn.
+template <int W, int K, bool ANY, bool COUNTS>
+__device__ __forceinline__ void walk_group(const WalkArgs& w) {
+  static_assert(K >= 1 && K <= W, "a group settles its rays one lane each");
+  const Lanes<W> g;
+  const long long first = ((long long)blockIdx.x * (WALK_BLOCK / W) + threadIdx.x / W) * K;
+  const long long i = first + g.lane;
+  bool live = false;
+  if (g.lane < K && i < w.n) {
+    const float tf = w.rays.tfar[i];
+    live = tf >= w.rays.tnear[i];
+    if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
+  }
+  for (unsigned todo = g.ballot(live); todo != 0u; todo &= todo - 1u)
+    walk_ray<W, ANY, COUNTS>(w, (int)first + __ffs(todo) - 1, g);
+}
+
+// Blocks for n > 0 rays at K rays per group of W lanes.
+inline int walk_blocks(int n, int W, int K) { return (n - 1) / (WALK_BLOCK / W * K) + 1; }

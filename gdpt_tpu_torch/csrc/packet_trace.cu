@@ -58,11 +58,12 @@
 // both in turn, each 16-wide group one); each is first checked by one
 // lane, and a dead ray is settled there (a miss, no work), so the dead
 // lanes the wrapper's caller sorts to the back cost a lane, not a walk.
-// Registers are held to 48 per thread (__launch_bounds__(128, 10)), which
-// buys 40 resident warps per SM for a few bytes of spill. PERF.md has the
-// designs this was measured against (one ray per group, a group of W / 2
-// lanes, persistent and resident grids, leaf rows staged in shared
-// memory) and their times.
+// The dual walk K4 (packet_trace_dual.cu) is this walk with a 16-wide
+// group taking two rays in turn. Registers are held to 48 per thread
+// (__launch_bounds__(128, 10)), which buys 40 resident warps per SM for a
+// few bytes of spill. PERF.md has the designs this was measured against
+// (one ray per group, a group of W / 2 lanes, persistent and resident
+// grids, leaf rows staged in shared memory) and their times.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): the work depends on the
 // rays. Bytes: 40 per ray in and out (44 with start refs), plus each table
@@ -84,147 +85,29 @@
 
 #include <cuda_runtime.h>
 
-// From packet_group.cuh the walk takes the group (Lanes), the slab and
-// primitive tests, the pop order and the leaf reduction, which the dual
-// walk K4 shares, and through it packet_visit.cuh's ray set-up (Ray,
-// make_ray, RayArrays) and table constants; the one-thread-per-ray visit
-// bodies there are the microbenchmark K5's.
+// packet_group.cuh holds the walk (walk_group, walk_ray), which K4
+// shares, with its lane group, tests, pop order and leaf reduction; it
+// takes packet_visit.cuh's ray set-up and table constants, whose
+// one-thread-per-ray visit bodies only the microbenchmark K5 runs.
 #include "packet_group.cuh"
 
-#define K3_BLOCK 128  // threads per block
-
-// A leaf visit of the group of W lanes: lane s tests slot s of rows lrow
-// (slots 0..11) and lrow + 1 (12..23, W = 32); leaf_reduce folds the hit
-// into (best, prim) and the valid slots tested into n_tests. True when any
-// hit and a slot blocks the ray.
-template <int W, bool ANY>
-__device__ __forceinline__ bool leaf_visit_group(const int* __restrict__ table, int lrow,
-                                                 const Ray& r, int n_tris, float& best,
-                                                 int& prim, int& n_tests, const Lanes<W>& g) {
-  const int s = g.lane;
-  int pid = -1;
-  bool hit = false;
-  float tt = 0.0f;
-  if (s < LEAF_TRIS * (W / 16)) {
-    const int j = s % LEAF_TRIS;
-    const int* row = table + (size_t)(lrow + s / LEAF_TRIS) * 128;
-    float geo[9];
-#pragma unroll
-    for (int m = 0; m < 9; ++m) geo[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * j + m);
-    pid = __ldg(row + 108 + j);
-    if (pid >= 0) hit = prim_hit(geo, pid, r, n_tris, best, tt);
-  }
-  return leaf_reduce<W, ANY>(hit, tt, pid, best, prim, n_tests, g);
+// A warp's two consecutive rays: K = W / 16 per group of W lanes.
+template <int W, bool ANY, bool COUNTS>
+__global__ void __launch_bounds__(WALK_BLOCK, 10) packet_trace_kernel(WalkArgs w) {
+  walk_group<W, W / 16, ANY, COUNTS>(w);
 }
 
-// Live ray i's walk by the group of W lanes; lane 0 stores its results.
-template <int W, bool ANY>
-__device__ __forceinline__ void walk_ray(const WalkArgs& w, int i, const Lanes<W>& g) {
-  constexpr int D = MAX_DEPTH / W;  // stack entries per lane
-  const int* __restrict__ table = w.table;
-  const RayArrays& a = w.rays;
-  const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
-  float best = a.tfar[i];
-  int prim = -1;
-  int n_super = 0, n_leaf = 0, n_tests = 0, deepest = 0;
-  int node = a.rref ? a.rref[i] : 0;
-  int sp = 0;            // stack entries, the top one included
-  int top_e = 0;         // the top entry: row | reversed << 30,
-  unsigned top_m = 0u;   // and its pending children
-  int low_e[D];          // entry j < sp - 1: lane j % W, slot j / W
-  unsigned low_m[D];
-  int kid = 0;           // the ref of this lane's child at the last supernode visit
-  bool fresh = false;    // the top entry is that visit's
-#pragma unroll
-  for (int d = 0; d < D; ++d) low_e[d] = 0, low_m[d] = 0u;
-  for (int it = 0; it < w.ceiling; ++it) {
-    // The ref the next pop reads if this visit pushes nothing.
-    int next_old = 0;
-    if (sp > 0) {
-      const int k = nearest(top_e, top_m);
-      next_old = __ldg(table + (size_t)((top_e & ROW_MASK) + (k >> 4)) * 128 + 96 + (k & 15));
-    }
-    if (node >= 0) {
-      const int srow = min(node, w.last);
-      const int* row0 = table + (size_t)srow * 128;
-      const int k = g.lane;
-      const int* row = W == 32 ? row0 + (k >> 4) * 128 : row0;
-      const float2* bx = reinterpret_cast<const float2*>(row) + 3 * (k & 15);
-      const float2 p = __ldg(bx), q = __ldg(bx + 1), u = __ldg(bx + 2);
-      kid = __ldg(row + 96 + (k & 15));
-      const unsigned mask = g.ballot(box_hit(p, q, u, r, best)) & (unsigned)__ldg(row0 + 120);
-      const int axis = __ldg(row0 + 121);
-      ++n_super;
-      fresh = mask != 0u;
-      if (fresh) {
-        if (sp >= w.depth) {  // the table is deeper than its stack_n says
-          deepest = w.depth + 1;
-          if (g.lane == 0) atomicOr(w.overflow, 1);
-          break;
-        }
-        const float sgn = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
-        if (sp > 0) {  // the old top goes below
-          const int j = sp - 1;
-#pragma unroll
-          for (int d = 0; d < D; ++d)
-            if (d == j / W && g.lane == j % W) low_e[d] = top_e, low_m[d] = top_m;
-        }
-        top_e = srow | ((sgn <= 0.0f ? 1 : 0) << 30);
-        top_m = mask;
-        ++sp;
-        deepest = max(deepest, sp);
-      }
-    } else {
-      ++n_leaf;
-      fresh = false;
-      const int lrow = min((~node) & ROW_MASK, w.last);
-      if (leaf_visit_group<W, ANY>(table, lrow, r, w.n_tris, best, prim, n_tests, g)) break;
-    }
-    if (sp == 0) break;
-    const int k = nearest(top_e, top_m);
-    top_m &= ~(1u << k);
-    node = fresh ? g.shfl(kid, k) : next_old;
-    if (top_m == 0u) {
-      --sp;
-      if (sp > 0) {  // the entry below comes up
-        const int j = sp - 1;
-        int e = low_e[0];
-        unsigned m = low_m[0];
-#pragma unroll
-        for (int d = 1; d < D; ++d)
-          if (j / W == d) e = low_e[d], m = low_m[d];
-        top_e = g.shfl(e, j % W);
-        top_m = g.shfl(m, j % W);
-      }
-    }
-  }
-  if (g.lane == 0) store(w, i, best, prim, n_super, n_leaf, n_tests, deepest);
-}
-
-// A warp's two consecutive rays: K = W / 16 per group, rays K * q ..
-// K * q + K - 1 for group q. Each of the group's first K lanes looks at
-// one and settles it if it is dead (a miss, no work); the group walks the
-// live ones in turn.
-template <int W, bool ANY>
-__global__ void __launch_bounds__(K3_BLOCK, 10) packet_trace_kernel(WalkArgs w) {
-  constexpr int K = W / 16;
-  const Lanes<W> g;
-  const long long first = ((long long)blockIdx.x * (K3_BLOCK / W) + threadIdx.x / W) * K;
-  const long long i = first + g.lane;
-  bool live = false;
-  if (g.lane < K && i < w.n) {
-    const float tf = w.rays.tfar[i];
-    live = tf >= w.rays.tnear[i];
-    if (!live) store(w, (int)i, tf, -1, 0, 0, 0, 0);
-  }
-  for (unsigned todo = g.ballot(live); todo != 0u; todo &= todo - 1u)
-    walk_ray<W, ANY>(w, (int)first + __ffs(todo) - 1, g);
-}
-
-template <int W, bool ANY>
+template <int W, bool ANY, bool COUNTS>
 static void launch(const WalkArgs& w, cudaStream_t s) {
-  const int per_block = 2 * K3_BLOCK / 32;  // two rays per warp
-  packet_trace_kernel<W, ANY><<<(w.n - 1) / per_block + 1, K3_BLOCK, 0, s>>>(w);
+  packet_trace_kernel<W, ANY, COUNTS><<<walk_blocks(w.n, W, W / 16), WALK_BLOCK, 0, s>>>(w);
+}
+
+template <int W>
+static void dispatch(const WalkArgs& w, bool any_hit, cudaStream_t s) {
+  if (any_hit)
+    w.counts ? launch<W, true, true>(w, s) : launch<W, true, false>(w, s);
+  else
+    w.counts ? launch<W, false, true>(w, s) : launch<W, false, false>(w, s);
 }
 
 extern "C" {
@@ -246,10 +129,7 @@ int gdpt_trace_packets(const int* table, int n_rows, int width, int depth,
                         {ox, oy, oz, dx, dy, dz, tnear, tfar, rref},
                         n, n_tris, ceiling, t, prim, counts, overflow};
     cudaStream_t s = (cudaStream_t)stream;
-    if (width == 32)
-      any_hit ? launch<32, true>(w, s) : launch<32, false>(w, s);
-    else
-      any_hit ? launch<16, true>(w, s) : launch<16, false>(w, s);
+    width == 32 ? dispatch<32>(w, any_hit, s) : dispatch<16>(w, any_hit, s);
   }
   return (int)cudaGetLastError();
 }

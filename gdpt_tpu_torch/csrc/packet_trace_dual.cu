@@ -15,36 +15,18 @@
 // per visit is the same on rows that hit L1. Walking a pair with both
 // visits in flight (both rays' loads issued before either test) needs
 // both rays' state in every lane: 64 registers with about 170 B of spill,
-// or 72 and fewer warps, and it lost to this design on every ray set
-// (PERF.md has the designs and their times on an NVIDIA H100 80GB HBM3
-// at 700.00 W). So the group walks the two rays of its pair in turn with
-// one ray's state, at K3's 48 registers, and the pair pays off where the
-// gradpath lane pool's batches carry many dead lanes: lanes 0 and 1 check
-// both rays at once and settle a dead one (tfar < tnear: a miss, no
-// work), and the grid has half K3's groups.
-//
-// Per lane, as in K3: a supernode visit loads child `lane`'s box (three
-// 8-byte loads) and ref and runs the slab test, and a group ballot cut to
-// the row's validity bits is the child mask; a leaf visit loads slot
-// `lane` < 12 (nine words and its id) and tests it, and leaf_reduce takes
-// the group's hit by K3's tie rules (packet_group.cuh holds both walks'
-// tests and reduction). Control flow depends only on the ray's node kind,
-// which every lane of the group holds alike, so nothing diverges inside a
-// group.
-//
-// The stack is K3's, in registers: the top entry in every lane, entry j
-// below it in lane j % 16, slot j / 16 (two slots for MAX_DEPTH 32). A pop
-// right after a push reads the child's ref from the lane that loaded it;
-// any other pop's ref is loaded before the visit that precedes it. The
-// visit ceiling (4R + 64 per ray), the full-stack report (the ray stops,
-// its deepest count reads depth + 1, *overflow is set) and the per-ray
-// counts are K3's; the counts are kept only in the kernels that store
-// them.
+// or 72 and fewer warps, and it lost to walking the pair in turn on every
+// ray set (PERF.md has the designs and their times on an NVIDIA H100 80GB
+// HBM3 at 700.00 W). So K4 is K3's walk (packet_group.cuh's walk_group)
+// with a 16-lane group taking the pair in turn, at K3's 48 registers; the
+// pair pays off where the gradpath lane pool's batches carry many dead
+// lanes: lanes 0 and 1 check both rays at once and settle a dead one
+// (tfar < tnear: a miss, no work), and the grid has half K3's groups.
 //
 // Pairing: group q of the grid walks rays 2q and 2q + 1 of the caller's
-// order, which the wrapper's callers sort by morton key. Every test is
-// K3's in K3's order, so each ray's (t, prim) and visit counts equal K3's
-// on the same table bit for bit.
+// order, which the wrapper's callers sort by morton key. Every visit is
+// K3's, so each ray's (t, prim) and visit counts equal K3's on the same
+// table bit for bit.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32): K3's, from the rays' own
 // visits: 40 B per ray plus 512 B per table row read; 25 operations per
@@ -56,214 +38,16 @@
 
 #include "packet_group.cuh"
 
-#define K4_BLOCK 128  // threads per block: 8 groups, 16 rays
-
-static_assert(MAX_DEPTH <= 32, "a ray's stack is two slots per lane");
-
-// A ray as the walk keeps it: Ray without origin * inverse direction,
-// which full() recomputes where a slab test needs it (three registers
-// fewer, the same products as make_ray's).
-struct RayS {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tnear;
-};
-
-__device__ __forceinline__ Ray full(const RayS& s) {
-  Ray r;
-  r.ox = s.ox; r.oy = s.oy; r.oz = s.oz;
-  r.dx = s.dx; r.dy = s.dy; r.dz = s.dz;
-  r.ix = s.ix; r.iy = s.iy; r.iz = s.iz;
-  r.oix = s.ox * s.ix; r.oiy = s.oy * s.iy; r.oiz = s.oz * s.iz;
-  r.tnear = s.tnear;
-  return r;
-}
-
-// One ray's walk. Every field but the stack slots below the top is the
-// same in every lane of the group. The two slots are fields of their own,
-// not an array: an array that a loop indexes keeps the whole struct in
-// local memory.
-struct Walk {
-  RayS r;
-  float best;
-  int prim;
-  int node;           // the next visit: >= 0 a supernode row, < 0 a leaf group ref
-  int sp;             // stack entries, the top one included
-  int top_e;          // the top entry: row | reversed << 30,
-  unsigned top_m;     // and its pending children
-  int low_e0, low_e1;  // entry j < sp - 1: lane j % 16, slot j / 16
-  unsigned low_m0, low_m1;
-  int n_super, n_leaf, n_tests, deepest;
-  bool live;          // a node to visit
-};
-
-// What one visit reads of its row, in this lane: child `lane`'s box
-// (v[0..5]), its ref (id), the row's validity bits and sort axis; or slot
-// `lane`'s nine words (v) and id (-1: no primitive).
-struct Fetch {
-  float v[9];
-  int id;
-  unsigned valid;
-  int axis;
-};
-
-__device__ __forceinline__ void walk_init(Walk& s, const WalkArgs& w, int i) {
-  const RayArrays& a = w.rays;
-  const Ray r = make_ray(a.ox[i], a.oy[i], a.oz[i], a.dx[i], a.dy[i], a.dz[i], a.tnear[i]);
-  s.r = {r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, r.ix, r.iy, r.iz, r.tnear};
-  s.best = a.tfar[i];
-  s.node = a.rref ? a.rref[i] : 0;
-  s.live = true;
-  s.prim = -1;
-  s.sp = 0;
-  s.top_e = 0;
-  s.top_m = 0u;
-  s.low_e0 = s.low_e1 = 0;
-  s.low_m0 = s.low_m1 = 0u;
-  s.n_super = s.n_leaf = s.n_tests = s.deepest = 0;
-}
-
-// The ref the next pop reads if the coming visit pushes nothing.
-__device__ __forceinline__ int walk_next(const Walk& s, const int* __restrict__ table) {
-  if (s.sp == 0) return 0;
-  const int k = nearest(s.top_e, s.top_m);
-  return __ldg(table + (size_t)(s.top_e & ROW_MASK) * 128 + 96 + k);
-}
-
-__device__ __forceinline__ Fetch fetch(const int* __restrict__ table, int node, int last,
-                                       int lane) {
-  Fetch f;
-  if (node >= 0) {
-    const int* row = table + (size_t)min(node, last) * 128;
-    const float2* bx = reinterpret_cast<const float2*>(row) + 3 * lane;
-    const float2 p = __ldg(bx), q = __ldg(bx + 1), u = __ldg(bx + 2);
-    f.v[0] = p.x, f.v[1] = p.y, f.v[2] = q.x, f.v[3] = q.y, f.v[4] = u.x, f.v[5] = u.y;
-    f.id = __ldg(row + 96 + lane);
-    f.valid = (unsigned)__ldg(row + 120);
-    f.axis = __ldg(row + 121);
-  } else {
-    const int* row = table + (size_t)min((~node) & ROW_MASK, last) * 128;
-    f.id = -1;
-    if (lane < LEAF_TRIS) {
-#pragma unroll
-      for (int m = 0; m < 9; ++m)
-        f.v[m] = __ldg(reinterpret_cast<const float*>(row) + 9 * lane + m);
-      f.id = __ldg(row + 108 + lane);
-    }
-  }
-  return f;
-}
-
-// The visit of s.node from its fetched row. True when it pushed an entry
-// (the next pop then reads the child's ref by shuffle); a ray that is
-// blocked (any hit) or whose stack ran full stops (live = false).
+// A pair of rays per group of 16 lanes; __launch_bounds__(128, 10) caps
+// registers at 48 per thread, as K3's.
 template <bool ANY, bool COUNTS>
-__device__ __forceinline__ bool walk_visit(Walk& s, const Fetch& f, const WalkArgs& w,
-                                           const Lanes<16>& g) {
-  if (s.node >= 0) {
-    const float2 p = make_float2(f.v[0], f.v[1]), q = make_float2(f.v[2], f.v[3]),
-                 u = make_float2(f.v[4], f.v[5]);
-    const unsigned mask = g.ballot(box_hit(p, q, u, full(s.r), s.best)) & f.valid;
-    if (COUNTS) ++s.n_super;
-    if (mask == 0u) return false;
-    if (s.sp >= w.depth) {  // the table is deeper than its stack_n says
-      if (COUNTS) s.deepest = w.depth + 1;
-      if (g.lane == 0) atomicOr(w.overflow, 1);
-      s.live = false;
-      return false;
-    }
-    const float sgn = f.axis == 0 ? s.r.dx : (f.axis == 1 ? s.r.dy : s.r.dz);
-    if (s.sp > 0) {  // the old top goes below
-      const int j = s.sp - 1;
-      if (g.lane == (j & 15)) {
-        if (j < 16)
-          s.low_e0 = s.top_e, s.low_m0 = s.top_m;
-        else
-          s.low_e1 = s.top_e, s.low_m1 = s.top_m;
-      }
-    }
-    s.top_e = min(s.node, w.last) | ((sgn <= 0.0f ? 1 : 0) << 30);
-    s.top_m = mask;
-    ++s.sp;
-    if (COUNTS) s.deepest = max(s.deepest, s.sp);
-    return true;
-  }
-  if (COUNTS) ++s.n_leaf;
-  bool hit = false;
-  float tt = 0.0f;
-  if (f.id >= 0) hit = prim_hit(f.v, f.id, full(s.r), w.n_tris, s.best, tt);
-  int n_tests = 0;
-  if (leaf_reduce<16, ANY>(hit, tt, f.id, s.best, s.prim, n_tests, g)) s.live = false;
-  if (COUNTS) s.n_tests += n_tests;
-  return false;
-}
-
-// Peel the nearest pending child off the stack into s.node; a drained
-// stack ends the walk. kid: this lane's child ref of the visit just made.
-__device__ __forceinline__ void walk_pop(Walk& s, int kid, bool fresh, int next_old,
-                                         const Lanes<16>& g) {
-  if (s.sp == 0) {
-    s.live = false;
-    return;
-  }
-  const int k = nearest(s.top_e, s.top_m);
-  s.top_m &= ~(1u << k);
-  s.node = fresh ? g.shfl(kid, k) : next_old;
-  if (s.top_m == 0u) {
-    --s.sp;
-    if (s.sp > 0) {  // the entry below comes up
-      const int j = s.sp - 1;
-      s.top_e = g.shfl(j < 16 ? s.low_e0 : s.low_e1, j & 15);
-      s.top_m = g.shfl(j < 16 ? s.low_m0 : s.low_m1, j & 15);
-    }
-  }
-}
-
-// One visit of a live ray.
-template <bool ANY, bool COUNTS>
-__device__ __forceinline__ void walk_step(Walk& s, const WalkArgs& w, const Lanes<16>& g) {
-  const int next_old = walk_next(s, w.table);
-  const Fetch f = fetch(w.table, s.node, w.last, g.lane);
-  const bool fresh = walk_visit<ANY, COUNTS>(s, f, w, g);
-  if (s.live) walk_pop(s, f.id, fresh, next_old, g);
-}
-
-__device__ __forceinline__ void walk_store(const WalkArgs& w, int i, const Walk& s) {
-  store(w, i, s.best, s.prim, s.n_super, s.n_leaf, s.n_tests, s.deepest);
-}
-
-// The next ray of a group's mask of live rays (an offset), -1 when none.
-__device__ __forceinline__ int take(unsigned& todo) {
-  const int k = __ffs(todo) - 1;
-  todo &= todo - 1u;
-  return k;
-}
-
-// Group q: lanes 0 and 1 look at rays 2q and 2q + 1 and settle a dead one;
-// the group walks the live ones in turn. __launch_bounds__(128, 10)
-// caps registers at 48 per thread, as K3's.
-template <bool ANY, bool COUNTS>
-__global__ void __launch_bounds__(K4_BLOCK, 10) packet_trace_dual_kernel(WalkArgs w) {
-  const Lanes<16> g;
-  const long long first = ((long long)blockIdx.x * (K4_BLOCK / 16) + threadIdx.x / 16) * 2;
-  bool live = false;
-  if (g.lane < 2 && first + g.lane < w.n) {
-    const int i = (int)first + g.lane;
-    const float tf = w.rays.tfar[i];
-    live = tf >= w.rays.tnear[i];
-    if (!live) store(w, i, tf, -1, 0, 0, 0, 0);
-  }
-  for (unsigned todo = g.ballot(live); todo != 0u;) {
-    const int i = (int)first + take(todo);
-    Walk s;
-    walk_init(s, w, i);
-    for (int it = 0; it < w.ceiling && s.live; ++it) walk_step<ANY, COUNTS>(s, w, g);
-    if (g.lane == 0) walk_store(w, i, s);
-  }
+__global__ void __launch_bounds__(WALK_BLOCK, 10) packet_trace_dual_kernel(WalkArgs w) {
+  walk_group<16, 2, ANY, COUNTS>(w);
 }
 
 template <bool ANY, bool COUNTS>
 static void launch(const WalkArgs& w, cudaStream_t s) {
-  const int blocks = (w.n - 1) / (2 * (K4_BLOCK / 16)) + 1;
-  packet_trace_dual_kernel<ANY, COUNTS><<<blocks, K4_BLOCK, 0, s>>>(w);
+  packet_trace_dual_kernel<ANY, COUNTS><<<walk_blocks(w.n, 16, 2), WALK_BLOCK, 0, s>>>(w);
 }
 
 extern "C" {
