@@ -11,9 +11,11 @@ CPU. For CUDA tensors it launches the kernel or raises: there is no
 fallback. LAUNCHES counts kernel launches, one per call that reached a
 kernel, so a run can show that its main path went through them.
 
-The plain versions repeat the kernels' arithmetic operation for
-operation (broadcast over (primitives, rays); argmin takes the first
-minimum, which is the kernel's lowest-index tie rule).
+Both kernels take a per-ray tfar and look for hits within [tnear, tfar);
+a lane with tfar <= tnear is dead and gets a miss. The plain versions
+repeat the kernels' arithmetic operation for operation (broadcast over
+(primitives, rays); argmin takes the first minimum, which is the
+kernel's lowest-index tie rule), so the two agree bit for bit.
 """
 
 import ctypes
@@ -43,7 +45,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gdpt_intersect_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, i, f,
+        lib.gdpt_intersect_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, f,
                                              p, p, p, p, p, p, p, p]
         lib.gdpt_intersect_brute.restype = i
         lib.gdpt_occluded_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, f,
@@ -135,22 +137,22 @@ def _sphere_test_rows(sph_soup, n_sph, o, d, tnear, tfar):
 
 
 def intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
-                          ox, oy, oz, dx, dy, dz, tnear):
+                          ox, oy, oz, dx, dy, dz, tfar, tnear):
     """K1's contract in plain PyTorch: (t, prim, u, v, gx, gy, gz)."""
     tnear = float(np.float32(tnear))
     n = ox.shape[0]
     dev = ox.device
     o, d = (ox, oy, oz), (dx, dy, dz)
     lane = torch.arange(n, device=dev)
-    best_t = torch.full((n,), BIG, dtype=REAL, device=dev)
+    best_t = tfar
     prim = torch.full((n,), -1, dtype=INT, device=dev)
     u = torch.zeros(n, dtype=REAL, device=dev)
     v = torch.zeros(n, dtype=REAL, device=dev)
     gx, gy = torch.zeros_like(u), torch.zeros_like(u)
     gz = torch.ones_like(u)
     if n_tris:
-        t, tu, tv, hit = _tri_test_rows(tri_soup, n_tris, o, d, tnear, BIG)
-        t = torch.where(hit, t, BIG)
+        t, tu, tv, hit = _tri_test_rows(tri_soup, n_tris, o, d, tnear, tfar)
+        t = torch.where(hit, t, torch.inf)
         i = torch.argmin(t, dim=0)
         ti = t[i, lane]
         closer = ti < best_t
@@ -164,7 +166,7 @@ def intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
         gz = torch.where(closer, e1x * e2y - e1y * e2x, gz)
     if n_sph:
         t, hit = _sphere_test_rows(sph_soup, n_sph, o, d, tnear, best_t)
-        t = torch.where(hit, t, BIG)
+        t = torch.where(hit, t, torch.inf)
         i = torch.argmin(t, dim=0)
         ti = t[i, lane]
         closer = ti < best_t
@@ -174,7 +176,7 @@ def intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
         gx = torch.where(closer, ox + ti * dx - cx, gx)
         gy = torch.where(closer, oy + ti * dy - cy, gy)
         gz = torch.where(closer, oz + ti * dz - cz, gz)
-    return best_t, prim, u, v, gx, gy, gz
+    return torch.where(prim >= 0, best_t, BIG), prim, u, v, gx, gy, gz
 
 
 def occluded_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
@@ -190,11 +192,11 @@ def occluded_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
     return blocked.to(REAL)
 
 
-def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, tnear):
-    """Closest hit of every ray over all primitives (K1). tfar is not an
-    input: every ray is cast over [tnear, BIG). Returns (t, prim, u, v,
-    gx, gy, gz); a miss gives t = BIG, prim = -1, u = v = 0, g = (0,0,1)."""
-    rays = (ox, oy, oz, dx, dy, dz)
+def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, tfar, tnear):
+    """Closest hit of every ray within [tnear, tfar) over all primitives
+    (K1). Returns (t, prim, u, v, gx, gy, gz); a miss, and every lane with
+    tfar <= tnear, gives t = BIG, prim = -1, u = v = 0, g = (0, 0, 1)."""
+    rays = (ox, oy, oz, dx, dy, dz, tfar)
     n, dev = _check(tri_soup, sph_soup, n_tris, n_sph, rays)
     if dev.type == "cpu":
         return intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph, *rays, tnear)
@@ -216,8 +218,8 @@ def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, t
 
 
 def occluded_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, tfar, tnear):
-    """Any hit within [tnear, tfar) per ray (K2); tfar <= tnear marks a
-    dead lane. Returns blocked (N,) float32 0/1."""
+    """Any hit within [tnear, tfar) per ray (K2); a lane with tfar <=
+    tnear is dead and gives 0. Returns blocked (N,) float32 0/1."""
     rays = (ox, oy, oz, dx, dy, dz, tfar)
     n, dev = _check(tri_soup, sph_soup, n_tris, n_sph, rays)
     if dev.type == "cpu":

@@ -97,21 +97,32 @@ class HitSoA(NamedTuple):
         return self.prim_id >= 0
 
 
-def intersect_brute_soa(static, g: GeomSoA, org: V3, d: V3, tnear):
-    """Closest hit over every primitive (K1) and the unnormalized
-    geometric normal of the hit primitive. Every ray is cast over
-    [tnear, BIG): K1 takes no tfar, so callers mask lanes they retired."""
+def _per_ray(tfar, n, dev):
+    """tfar as an (N,) float32 tensor (the kernels take one per ray)."""
+    if isinstance(tfar, torch.Tensor) and tfar.dim():
+        return tfar.to(REAL).contiguous()
+    return torch.full((n,), float(tfar), dtype=REAL, device=dev)
+
+
+def intersect_brute_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
+    """Closest hit within [tnear, tfar) over every primitive (K1) and the
+    unnormalized geometric normal of the hit primitive. tfar is a scalar
+    or an (N,) tensor; a lane with tfar <= tnear runs no test and gets a
+    miss (t = BIG, prim -1, normal (0, 0, 1))."""
+    tfar = _per_ray(tfar, org.x.shape[0], org.x.device)
     t, prim, u, v, gx, gy, gz = bk.intersect_brute(
         g.tri_soup, g.sph_soup, static.n_tris, static.n_spheres,
-        org.x, org.y, org.z, d.x, d.y, d.z, tnear)
+        org.x, org.y, org.z, d.x, d.y, d.z, tfar, tnear)
     return HitSoA(t, prim, u, v), V3(gx, gy, gz)
 
 
 def occluded_brute_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
-    """Any hit within [tnear, tfar) per ray (K2); f32 0/1 mask."""
+    """Any hit within [tnear, tfar) per ray (K2); f32 0/1 mask. tfar is a
+    scalar or an (N,) tensor; a lane with tfar <= tnear gives 0."""
     return bk.occluded_brute(
         g.tri_soup, g.sph_soup, static.n_tris, static.n_spheres,
-        org.x, org.y, org.z, d.x, d.y, d.z, tfar, tnear)
+        org.x, org.y, org.z, d.x, d.y, d.z, _per_ray(tfar, org.x.shape[0], org.x.device),
+        tnear)
 
 
 def _sph_outside(static):
@@ -149,12 +160,14 @@ def _table_n_tris(static):
 
 def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
                      sort_rays=True):
-    """(HitSoA, unnormalized geometric normal V3). tfar is a scalar or an
-    (N,) tensor with tfar < tnear on retired lanes; the brute-force cast
-    ignores it (K1 casts every lane). sort_rays=False skips the packet
-    backend's per-dispatch morton/octant sort."""
+    """Closest hit within [tnear, tfar): (HitSoA, unnormalized geometric
+    normal V3), both backends. tfar is a scalar or an (N,) tensor; a lane
+    with tfar <= tnear (a retired one) runs no test and comes back a
+    miss. A miss has prim -1 (t is BIG from the brute-force kernel, tfar
+    from the walk). sort_rays=False skips the packet backend's
+    per-dispatch morton/octant sort."""
     if static.use_brute_force:
-        return intersect_brute_soa(static, g, org, d, tnear)
+        return intersect_brute_soa(static, g, org, d, tnear, tfar)
     t, prim, u, v, gn = packet_trace.intersect_packet(
         g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static),
         sort_rays=sort_rays, dual=g.dual)

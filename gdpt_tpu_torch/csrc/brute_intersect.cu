@@ -7,39 +7,52 @@
 //   K2 occluded_brute_kernel  <- _anyhit_kernel_body (pallas_call at :307,
 //      launched by pallas_occluded_brute): any hit within [tnear, tfar).
 //
-// Contract (as the TPU kernels'): soups are (9, T) rows v0.xyz e1.xyz
-// e2.xyz and (4, S) rows center.xyz radius, T, S <= 128. Rays are six
-// (N,) component arrays. K1 ignores tfar: inactive lanes get a real hit
-// that the caller masks. Its running best is replaced on strict t < best,
-// so the lowest primitive index wins a tie. Outputs t (BIG on a miss),
-// prim (-1), u, v and the unnormalized geometric normal (cross(e1, e2),
-// or hit - centre for a sphere; (0, 0, 1) on a miss). K2 takes a per-ray
-// tfar (dead lanes carry tfar <= tnear) and writes 0/1 as float.
+// Contract: soups are (9, T) rows v0.xyz e1.xyz e2.xyz and (4, S) rows
+// center.xyz radius, T, S <= 128. Rays are six (N,) component arrays and
+// a per-ray tfar; both kernels look for hits within [tnear, tfar), and a
+// lane with tfar <= tnear (or NaN) is dead: it runs no test. K1's running
+// best is replaced on strict t < best, so the lowest primitive index wins
+// a tie and every triangle comes before every sphere. K1 writes t, prim,
+// u, v and the unnormalized geometric normal (cross(e1, e2), or hit -
+// centre for a sphere); a miss, dead lanes included, gets t = BIG, prim
+// -1, u = v = 0, g = (0, 0, 1). u and v are the closest triangle's, also
+// when a sphere in front of it wins, as in the TPU kernel. K2 writes 0/1
+// as float.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
-// cores), for K1 at the 512x512 cbox (T = 32, S = 0, N = 262,144):
-//   bytes: 24 in + 28 out per ray = 13.6 MB  -> 4.1 us;
-//   operations: 52 per ray-triangle pair (46 f32 add/sub/mul/div of
-//   Moeller-Trumbore plus 6 compares) x 32 x N = 0.44 G -> 6.5 us.
-// So K1 is bound by arithmetic. K2 does the same 52 per pair, but only
-// up to the first blocking triangle, and none for dead lanes.
+// cores), for K1 at the 512x512 cbox (T = 32, S = 0, N = 262,144, all
+// live): bytes: 28 in + 28 out per ray = 14.7 MB -> 4.4 us; operations:
+// 52 per ray-triangle pair (46 f32 add/sub/mul/div of Moeller-Trumbore
+// plus 6 compares) x 32 x N = 0.44 G -> 6.5 us. So K1 is bound by
+// arithmetic where rays are live, and by the miss records it writes where
+// they are dead. K2 does the same 52 per pair, but only up to the first
+// blocking triangle.
 //
-// Design: one thread per ray, 128 threads per block. Each block stages
-// both soups (<= 128 x 13 floats, 6.6 KB) into shared memory; every
-// thread of a warp then reads the same primitive at the same step, a
-// broadcast with no bank conflict. Rays are read as SoA component arrays
-// (coalesced), with the ragged last block masked and no padding.
+// Design:
+// - Live rays only. A block takes BLOCK consecutive lanes. Each thread
+//   reads its lane's tfar; dead lanes write their miss record (K1) or 0
+//   (K2) at once, coalesced. A ballot per warp and a prefix over the
+//   block's warps list the live lanes in shared memory, in lane order; a
+//   block with none is done. Thread j then casts the j-th live lane, so
+//   full warps work on live rays and a warp whose lanes all ran out
+//   exits.
+// - Primitives off the load path. The block stages the soups into shared
+//   memory as rows of float4 (a triangle in 2 x 16 B + 4 B, a sphere in
+//   16 B), read by every lane at the same step: a broadcast, 3 loads per
+//   triangle instead of 9.
+// - Less work per closer hit: the loop keeps the winning index, t, u and
+//   v; the normal is computed once after the loop, from the winning
+//   index, with the same operations.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
 // separately rounded, as the plain PyTorch versions do, so the kernels
-// match them operation for operation; division and sqrt are IEEE-rounded
-// by default (-prec-div=true, -prec-sqrt=true).
+// match them bit for bit; division and sqrt are IEEE-rounded by default
+// (-prec-div=true, -prec-sqrt=true).
 
 #include <cuda_runtime.h>
 
 #define MAX_PRIMS 128
-#define BLOCK 128
 #define BIG 1e30f
 
 // max() that propagates NaN like torch.clamp_min / jnp.maximum.
@@ -47,156 +60,303 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return (a != a || a > b) ? a : b;
 }
 
-__device__ __forceinline__ void stage_soups(float* s_tri, const float* tri, int n_tris,
-                                            float* s_sph, const float* sph, int n_sph) {
-  for (int i = threadIdx.x; i < 9 * n_tris; i += blockDim.x) s_tri[i] = tri[i];
-  for (int i = threadIdx.x; i < 4 * n_sph; i += blockDim.x) s_sph[i] = sph[i];
-  __syncthreads();
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// The soups in shared memory: triangle k is tri[3k] = (v0.xyz, e1.x),
+// tri[3k + 1] = (e1.yz, e2.xy) and tri[3k + 2].x = e2.z; sphere k is
+// sph[k] = (center.xyz, radius).
+struct Soups {
+  float4 tri[3 * MAX_PRIMS];
+  float4 sph[MAX_PRIMS];
+};
+
+__device__ __forceinline__ void stage_soups(Soups& s, const float* __restrict__ tri, int n_tris,
+                                            const float* __restrict__ sph, int n_sph) {
+  float* st = reinterpret_cast<float*>(s.tri);
+  for (int i = threadIdx.x; i < 9 * n_tris; i += blockDim.x) {
+    const int c = i / n_tris;
+    st[12 * (i - c * n_tris) + c] = tri[i];
+  }
+  float* ss = reinterpret_cast<float*>(s.sph);
+  for (int i = threadIdx.x; i < 4 * n_sph; i += blockDim.x) {
+    const int c = i / n_sph;
+    ss[4 * (i - c * n_sph) + c] = sph[i];
+  }
 }
 
-// Moeller-Trumbore, in the reference's operation order. Returns whether
-// the ray hits within [tnear, tmax).
-__device__ __forceinline__ bool tri_test(const float* s_tri, int n_tris, int k,
-                                         float o_x, float o_y, float o_z,
-                                         float d_x, float d_y, float d_z,
-                                         float tnear, float tmax,
-                                         float* t_out, float* u_out, float* v_out) {
-  const float v0x = s_tri[0 * n_tris + k], v0y = s_tri[1 * n_tris + k], v0z = s_tri[2 * n_tris + k];
-  const float e1x = s_tri[3 * n_tris + k], e1y = s_tri[4 * n_tris + k], e1z = s_tri[5 * n_tris + k];
-  const float e2x = s_tri[6 * n_tris + k], e2y = s_tri[7 * n_tris + k], e2z = s_tri[8 * n_tris + k];
-  const float px = d_y * e2z - d_z * e2y;
-  const float py = d_z * e2x - d_x * e2z;
-  const float pz = d_x * e2y - d_y * e2x;
+// The block's live lanes (tfar > tnear) in lane order into list[];
+// returns their count, the same in every thread. dead: this thread's
+// lane exists and is dead. warp_n holds BLOCK / 32 + 1 ints.
+template <int BLOCK>
+__device__ __forceinline__ int live_lanes(const float* __restrict__ tfar, int n, float tnear,
+                                          bool& dead, int* list, int* warp_n) {
+  const int i = blockIdx.x * BLOCK + threadIdx.x;
+  const bool live = i < n && tfar[i] > tnear;
+  dead = i < n && !live;
+  const unsigned m = __ballot_sync(0xffffffffu, live);
+  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
+  if (l == 0) warp_n[w] = __popc(m);
+  __syncthreads();
+  if (w == 0) {
+    const int c = l < BLOCK / 32 ? warp_n[l] : 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (l >= o) incl += y;
+    }
+    if (l < BLOCK / 32) warp_n[l] = incl - c;
+    if (l == 31) warp_n[BLOCK / 32] = incl;
+  }
+  __syncthreads();
+  if (live) list[warp_n[w] + __popc(m & ((1u << l) - 1u))] = i;
+  return warp_n[BLOCK / 32];
+}
+
+// Moeller-Trumbore, in the reference's operation order: whether the ray
+// hits triangle k within [tnear, tmax). With PRE, a pair whose u lies
+// outside [0, 1] stops before q, v and t: the full test rejects it (u <
+// 0 or NaN fails u >= 0; u > 1 and v >= 0 give u + v > 1), and a warp
+// whose lanes all stop skips the rest.
+template <bool PRE>
+__device__ __forceinline__ bool tri_test(const Soups& s, int k, const Ray& r, float tnear,
+                                         float tmax, float& t_out, float& u_out, float& v_out) {
+  const float4 a = s.tri[3 * k], b = s.tri[3 * k + 1];
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = s.tri[3 * k + 2].x;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
   const float inv = det != 0.0f ? 1.0f / det : 0.0f;
-  const float tx = o_x - v0x;
-  const float ty = o_y - v0y;
-  const float tz = o_z - v0z;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
   const float u = (tx * px + ty * py + tz * pz) * inv;
+  if (PRE && !(u >= 0.0f && u <= 1.0f)) return false;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
-  const float v = (d_x * qx + d_y * qy + d_z * qz) * inv;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
   const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  *t_out = t;
-  *u_out = u;
-  *v_out = v;
+  t_out = t;
+  u_out = u;
+  v_out = v;
   return det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tnear && t < tmax;
 }
 
-// Ray-sphere roots t0 <= t1; returns disc >= 0 && a != 0.
-__device__ __forceinline__ bool sph_roots(const float* s_sph, int n_sph, int k,
-                                          float o_x, float o_y, float o_z,
-                                          float d_x, float d_y, float d_z,
-                                          float* t0, float* t1) {
-  const float cx = s_sph[0 * n_sph + k], cy = s_sph[1 * n_sph + k];
-  const float cz = s_sph[2 * n_sph + k], r = s_sph[3 * n_sph + k];
-  const float vx = o_x - cx;
-  const float vy = o_y - cy;
-  const float vz = o_z - cz;
-  const float a = d_x * d_x + d_y * d_y + d_z * d_z;
+// Ray-sphere roots t0 <= t1 of sphere k; returns disc >= 0 && a != 0.
+__device__ __forceinline__ bool sph_roots(const Soups& s, int k, const Ray& r, float& t0,
+                                          float& t1) {
+  const float4 c = s.sph[k];
+  const float vx = r.ox - c.x;
+  const float vy = r.oy - c.y;
+  const float vz = r.oz - c.z;
+  const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float inv_a = 1.0f / (a != 0.0f ? a : 1.0f);
-  const float tm = -(d_x * vx + d_y * vy + d_z * vz) * inv_a;
-  const float mx = vx + d_x * tm;
-  const float my = vy + d_y * tm;
-  const float mz = vz + d_z * tm;
-  const float disc = r * r - (mx * mx + my * my + mz * mz);
+  const float tm = -(r.dx * vx + r.dy * vy + r.dz * vz) * inv_a;
+  const float mx = vx + r.dx * tm;
+  const float my = vy + r.dy * tm;
+  const float mz = vz + r.dz * tm;
+  const float disc = c.w * c.w - (mx * mx + my * my + mz * mz);
   const float dt = sqrtf(max_nan(disc, 0.0f) * inv_a);
-  *t0 = tm - dt;
-  *t1 = tm + dt;
+  t0 = tm - dt;
+  t1 = tm + dt;
   return disc >= 0.0f && a != 0.0f;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-intersect_brute_kernel(const float* __restrict__ tri, int n_tris,
-                       const float* __restrict__ sph, int n_sph,
-                       const float* __restrict__ ox, const float* __restrict__ oy,
-                       const float* __restrict__ oz, const float* __restrict__ dx,
-                       const float* __restrict__ dy, const float* __restrict__ dz,
-                       int n, float tnear,
-                       float* __restrict__ t_out, int* __restrict__ prim_out,
-                       float* __restrict__ u_out, float* __restrict__ v_out,
-                       float* __restrict__ gx_out, float* __restrict__ gy_out,
-                       float* __restrict__ gz_out) {
-  __shared__ float s_tri[9 * MAX_PRIMS];
-  __shared__ float s_sph[4 * MAX_PRIMS];
-  stage_soups(s_tri, tri, n_tris, s_sph, sph, n_sph);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float o_x = ox[i], o_y = oy[i], o_z = oz[i];
-  const float d_x = dx[i], d_y = dy[i], d_z = dz[i];
-  float bt = BIG, bu = 0.0f, bv = 0.0f, bgx = 0.0f, bgy = 0.0f, bgz = 1.0f;
+struct HitOut {
+  float* t;
+  int* prim;
+  float* u;
+  float* v;
+  float* gx;
+  float* gy;
+  float* gz;
+  __device__ __forceinline__ void miss(int i) const {
+    t[i] = BIG;
+    prim[i] = -1;
+    u[i] = 0.0f;
+    v[i] = 0.0f;
+    gx[i] = 0.0f;
+    gy[i] = 0.0f;
+    gz[i] = 1.0f;
+  }
+};
+
+struct RayIn {
+  const float* ox;
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  const float* tfar;
+  __device__ __forceinline__ Ray load(int i) const {
+    return Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+  }
+};
+
+// K1 for one live lane i.
+template <bool PRE>
+__device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, const RayIn& in,
+                                        int i, float tnear, const HitOut& out) {
+  const Ray r = in.load(i);
+  float best = in.tfar[i], bu = 0.0f, bv = 0.0f;
   int bp = -1;
   for (int k = 0; k < n_tris; ++k) {
     float t, u, v;
-    if (tri_test(s_tri, n_tris, k, o_x, o_y, o_z, d_x, d_y, d_z, tnear, bt, &t, &u, &v)) {
-      const float e1x = s_tri[3 * n_tris + k], e1y = s_tri[4 * n_tris + k], e1z = s_tri[5 * n_tris + k];
-      const float e2x = s_tri[6 * n_tris + k], e2y = s_tri[7 * n_tris + k], e2z = s_tri[8 * n_tris + k];
-      bt = t;
+    if (tri_test<PRE>(s, k, r, tnear, best, t, u, v)) {
+      best = t;
       bp = k;
       bu = u;
       bv = v;
-      bgx = e1y * e2z - e1z * e2y;
-      bgy = e1z * e2x - e1x * e2z;
-      bgz = e1x * e2y - e1y * e2x;
     }
   }
   for (int k = 0; k < n_sph; ++k) {
     float t0, t1;
-    const bool ok = sph_roots(s_sph, n_sph, k, o_x, o_y, o_z, d_x, d_y, d_z, &t0, &t1);
-    const bool use_lo = t0 >= tnear && t0 < bt;
-    const bool use_hi = t1 >= tnear && t1 < bt;
+    const bool ok = sph_roots(s, k, r, t0, t1);
+    const bool use_lo = t0 >= tnear && t0 < best;
+    const bool use_hi = t1 >= tnear && t1 < best;
     if (ok && (use_lo || use_hi)) {
-      const float t = use_lo ? t0 : t1;
-      bt = t;
+      best = use_lo ? t0 : t1;
       bp = n_tris + k;
-      bgx = o_x + t * d_x - s_sph[0 * n_sph + k];
-      bgy = o_y + t * d_y - s_sph[1 * n_sph + k];
-      bgz = o_z + t * d_z - s_sph[2 * n_sph + k];
     }
   }
-  t_out[i] = bt;
-  prim_out[i] = bp;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  gx_out[i] = bgx;
-  gy_out[i] = bgy;
-  gz_out[i] = bgz;
+  if (bp < 0) {
+    out.miss(i);
+    return;
+  }
+  float gx, gy, gz;
+  if (bp < n_tris) {
+    const float4 a = s.tri[3 * bp], b = s.tri[3 * bp + 1];
+    const float e1x = a.w, e1y = b.x, e1z = b.y;
+    const float e2x = b.z, e2y = b.w, e2z = s.tri[3 * bp + 2].x;
+    gx = e1y * e2z - e1z * e2y;
+    gy = e1z * e2x - e1x * e2z;
+    gz = e1x * e2y - e1y * e2x;
+  } else {
+    const float4 c = s.sph[bp - n_tris];
+    gx = r.ox + best * r.dx - c.x;
+    gy = r.oy + best * r.dy - c.y;
+    gz = r.oz + best * r.dz - c.z;
+  }
+  out.t[i] = best;
+  out.prim[i] = bp;
+  out.u[i] = bu;
+  out.v[i] = bv;
+  out.gx[i] = gx;
+  out.gy[i] = gy;
+  out.gz[i] = gz;
 }
 
-__global__ void __launch_bounds__(BLOCK)
-occluded_brute_kernel(const float* __restrict__ tri, int n_tris,
-                      const float* __restrict__ sph, int n_sph,
-                      const float* __restrict__ ox, const float* __restrict__ oy,
-                      const float* __restrict__ oz, const float* __restrict__ dx,
-                      const float* __restrict__ dy, const float* __restrict__ dz,
-                      const float* __restrict__ tfar, int n, float tnear,
-                      float* __restrict__ blocked_out) {
-  __shared__ float s_tri[9 * MAX_PRIMS];
-  __shared__ float s_sph[4 * MAX_PRIMS];
-  stage_soups(s_tri, tri, n_tris, s_sph, sph, n_sph);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float t_max = tfar[i];
-  float blocked = 0.0f;
-  // A dead lane (tfar <= tnear) can hit nothing: every test needs
-  // tnear <= t < tfar. Skipping its loops leaves the result unchanged.
-  if (t_max > tnear) {
-    const float o_x = ox[i], o_y = oy[i], o_z = oz[i];
-    const float d_x = dx[i], d_y = dy[i], d_z = dz[i];
-    for (int k = 0; k < n_tris && blocked == 0.0f; ++k) {
-      float t, u, v;
-      if (tri_test(s_tri, n_tris, k, o_x, o_y, o_z, d_x, d_y, d_z, tnear, t_max, &t, &u, &v))
-        blocked = 1.0f;
-    }
-    for (int k = 0; k < n_sph && blocked == 0.0f; ++k) {
-      float t0, t1;
-      const bool ok = sph_roots(s_sph, n_sph, k, o_x, o_y, o_z, d_x, d_y, d_z, &t0, &t1);
-      if (ok && ((t0 >= tnear && t0 < t_max) || (t1 >= tnear && t1 < t_max))) blocked = 1.0f;
-    }
+// K2 for one live lane i.
+template <bool PRE>
+__device__ __forceinline__ float occluded(const Soups& s, int n_tris, int n_sph, const RayIn& in,
+                                          int i, float tnear) {
+  const Ray r = in.load(i);
+  const float t_max = in.tfar[i];
+  bool blocked = false;
+  for (int k = 0; k < n_tris && !blocked; ++k) {
+    float t, u, v;
+    blocked = tri_test<PRE>(s, k, r, tnear, t_max, t, u, v);
   }
-  blocked_out[i] = blocked;
+  for (int k = 0; k < n_sph && !blocked; ++k) {
+    float t0, t1;
+    const bool ok = sph_roots(s, k, r, t0, t1);
+    blocked = ok && ((t0 >= tnear && t0 < t_max) || (t1 >= tnear && t1 < t_max));
+  }
+  return blocked ? 1.0f : 0.0f;
 }
+
+template <int BLOCK, int MINB, bool COMPACT, bool PRE>
+__global__ void __launch_bounds__(BLOCK, MINB)
+intersect_brute_kernel(const float* __restrict__ tri, int n_tris,
+                       const float* __restrict__ sph, int n_sph, RayIn in, int n, float tnear,
+                       HitOut out) {
+  __shared__ Soups s;
+  __shared__ int list[BLOCK];
+  __shared__ int warp_n[BLOCK / 32 + 1];
+  if (COMPACT) {
+    bool dead;
+    const int n_live = live_lanes<BLOCK>(in.tfar, n, tnear, dead, list, warp_n);
+    if (dead) out.miss(blockIdx.x * BLOCK + threadIdx.x);
+    if (n_live == 0) return;
+    stage_soups(s, tri, n_tris, sph, n_sph);
+    __syncthreads();
+    if (threadIdx.x < n_live) closest<PRE>(s, n_tris, n_sph, in, list[threadIdx.x], tnear, out);
+  } else {
+    stage_soups(s, tri, n_tris, sph, n_sph);
+    __syncthreads();
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    if (i >= n) return;
+    if (in.tfar[i] > tnear)
+      closest<PRE>(s, n_tris, n_sph, in, i, tnear, out);
+    else
+      out.miss(i);
+  }
+}
+
+template <int BLOCK, int MINB, bool COMPACT, bool PRE>
+__global__ void __launch_bounds__(BLOCK, MINB)
+occluded_brute_kernel(const float* __restrict__ tri, int n_tris,
+                      const float* __restrict__ sph, int n_sph, RayIn in, int n, float tnear,
+                      float* __restrict__ blocked_out) {
+  __shared__ Soups s;
+  __shared__ int list[BLOCK];
+  __shared__ int warp_n[BLOCK / 32 + 1];
+  if (COMPACT) {
+    bool dead;
+    const int n_live = live_lanes<BLOCK>(in.tfar, n, tnear, dead, list, warp_n);
+    if (dead) blocked_out[blockIdx.x * BLOCK + threadIdx.x] = 0.0f;
+    if (n_live == 0) return;
+    stage_soups(s, tri, n_tris, sph, n_sph);
+    __syncthreads();
+    if (threadIdx.x < n_live) {
+      const int i = list[threadIdx.x];
+      blocked_out[i] = occluded<PRE>(s, n_tris, n_sph, in, i, tnear);
+    }
+  } else {
+    stage_soups(s, tri, n_tris, sph, n_sph);
+    __syncthreads();
+    const int i = blockIdx.x * BLOCK + threadIdx.x;
+    if (i >= n) return;
+    blocked_out[i] = in.tfar[i] > tnear ? occluded<PRE>(s, n_tris, n_sph, in, i, tnear) : 0.0f;
+  }
+}
+
+template <int BLOCK, int MINB, bool COMPACT, bool PRE>
+int launch_intersect(const float* tri, int n_tris, const float* sph, int n_sph,
+                     const float* ox, const float* oy, const float* oz,
+                     const float* dx, const float* dy, const float* dz, const float* tfar,
+                     int n, float tnear, float* t, int* prim, float* u, float* v,
+                     float* gx, float* gy, float* gz, void* stream) {
+  if (n > 0) {
+    intersect_brute_kernel<BLOCK, MINB, COMPACT, PRE>
+        <<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
+            tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear,
+            HitOut{t, prim, u, v, gx, gy, gz});
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int BLOCK, int MINB, bool COMPACT, bool PRE>
+int launch_occluded(const float* tri, int n_tris, const float* sph, int n_sph,
+                    const float* ox, const float* oy, const float* oz,
+                    const float* dx, const float* dy, const float* dz, const float* tfar,
+                    int n, float tnear, float* blocked, void* stream) {
+  if (n > 0) {
+    occluded_brute_kernel<BLOCK, MINB, COMPACT, PRE>
+        <<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
+            tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear, blocked);
+  }
+  return (int)cudaGetLastError();
+}
+
+#define SHIP 256, 8, true, false
 
 extern "C" {
 
@@ -204,17 +364,12 @@ extern "C" {
 
 int gdpt_intersect_brute(const float* tri, int n_tris, const float* sph, int n_sph,
                          const float* ox, const float* oy, const float* oz,
-                         const float* dx, const float* dy, const float* dz,
+                         const float* dx, const float* dy, const float* dz, const float* tfar,
                          int n, float tnear,
                          float* t, int* prim, float* u, float* v,
                          float* gx, float* gy, float* gz, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + BLOCK - 1) / BLOCK;
-    intersect_brute_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, n, tnear,
-        t, prim, u, v, gx, gy, gz);
-  }
-  return (int)cudaGetLastError();
+  return launch_intersect<SHIP>(tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear,
+                                t, prim, u, v, gx, gy, gz, stream);
 }
 
 int gdpt_occluded_brute(const float* tri, int n_tris, const float* sph, int n_sph,
@@ -222,12 +377,8 @@ int gdpt_occluded_brute(const float* tri, int n_tris, const float* sph, int n_sp
                         const float* dx, const float* dy, const float* dz,
                         const float* tfar, int n, float tnear,
                         float* blocked, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + BLOCK - 1) / BLOCK;
-    occluded_brute_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-        tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear, blocked);
-  }
-  return (int)cudaGetLastError();
+  return launch_occluded<SHIP>(tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear,
+                               blocked, stream);
 }
 
 }  // extern "C"

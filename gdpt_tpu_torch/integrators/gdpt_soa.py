@@ -89,17 +89,6 @@ def _cat3(vs):
               torch.cat([v.z for v in vs]))
 
 
-def _cast(static, sc, org: V3, d: V3, tnear, tfar):
-    """Closest hits of a batch whose retired lanes carry tfar = -1. The
-    BVH walk exits those at once and reports a miss; the brute-force
-    kernel K1 takes no tfar and casts them in full, so their hits are
-    turned into misses here."""
-    hit, gn = trs.intersect_soa_gn(static, sc.geom, org, d, tnear, tfar)
-    if static.use_brute_force:
-        hit = hit._replace(prim_id=torch.where(tfar >= 0, hit.prim_id, -1))
-    return hit, gn
-
-
 def _init_gdpt_lanes(static, camera, sc: ps.SceneSoA, pixel, sample, seed, live):
     """Fresh per-lane GDPT state for (pixel, sample) work items (int64
     tensors of uint32 values).
@@ -124,7 +113,7 @@ def _init_gdpt_lanes(static, camera, sc: ps.SceneSoA, pixel, sample, seed, live)
         ds.append(d)
     borg, bdir = _cat3(orgs), _cat3(ds)
     tfar = torch.where(live, BIG, -1.0).repeat(5)
-    bhit, bgn = _cast(static, sc, borg, bdir, 0.0, tfar)
+    bhit, bgn = trs.intersect_soa_gn(static, sc.geom, borg, bdir, 0.0, tfar)
     bv = ps.shade_hit(static, sc, borg, bdir, bhit, bgn)
 
     def part(i):
@@ -268,8 +257,8 @@ def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s):
     )
     survive = (~do_rr) | (u_rr <= rr_prob)
     # Inactive lanes become dead rays (tfar < tnear).
-    nxt_hit, nxt_gn = _cast(static, sc, base_v.position, samp.dir_out, eps_isect,
-                            torch.where(extend, BIG, -1.0))
+    nxt_hit, nxt_gn = trs.intersect_soa_gn(static, sc.geom, base_v.position, samp.dir_out,
+                                           eps_isect, torch.where(extend, BIG, -1.0))
     nxt = ps.shade_hit(static, sc, base_v.position, samp.dir_out, nxt_hit, nxt_gn)
     nxt_ok = nxt.valid > 0
     ok_base = (samp.valid > 0) & (pdf_base > 0) & nxt_ok
@@ -337,7 +326,7 @@ def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s):
     borg = _cat3([off["v"].position for off in s["offs"]] * 2)
     bdir = _cat3([a["dir_rec"] for a in off_a] + [a["o_samp"].dir_out for a in off_a])
     btfar = torch.cat([a["probe_tfar"] for a in off_a] + [a["rep_tfar"] for a in off_a])
-    bhit, bgn = _cast(static, sc, borg, bdir, eps_isect, btfar)
+    bhit, bgn = trs.intersect_soa_gn(static, sc.geom, borg, bdir, eps_isect, btfar)
 
     def part(i):
         sl = slice(i * n, (i + 1) * n)

@@ -640,8 +640,7 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
         new_spread = torch.clamp_min(
             spec_spread * (1.0 - samp.roughness) + 0.2 * samp.roughness, 0.0)
 
-        # Retired lanes are dead rays (tfar < tnear) to the BVH walk; K1
-        # casts every lane, and their hits are masked below.
+        # Retired lanes are dead rays (tfar < tnear): no test, a miss.
         nxt_hit, nxt_gn = trs.intersect_soa_gn(
             static, sc.geom, v.position, d_out, eps_isect,
             torch.where(active, BIG, -1.0))

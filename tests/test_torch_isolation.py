@@ -198,7 +198,7 @@ def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
         visit_microbench.visit_microbench(tab, *(meta,) * 8, 4, "leaf")
     with pytest.raises(ValueError, match="cuda or cpu"):
         brute_kernels.intersect_brute(torch.zeros((9, 1), device="meta"),
-                                      torch.zeros((4, 1), device="meta"), 1, 0, *(meta,) * 6, 0.0)
+                                      torch.zeros((4, 1), device="meta"), 1, 0, *(meta,) * 7, 0.0)
 
 
 def test_package_runs_with_jax_unimportable():
