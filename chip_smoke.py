@@ -8,8 +8,11 @@ Phases, each fatal on failure:
      gdpt_tpu_torch/csrc (four CUDA files, one C++ file; one compiler
      process each, started together; timed);
   2. hold K1 (closest hit) and K2 (any hit) against their plain PyTorch
-     versions at the 512x512 cbox's ray count: camera rays, random
-     bounce rays from the camera hits, and shadow rays toward the light;
+     versions at the 512x512 cbox's ray count, bit for bit (0 rays may
+     differ in the bits of t, u, v, the normal or blocked, or in prim):
+     camera rays, random bounce rays from the camera hits and shadow rays
+     toward the light, all live and with dead lanes (tfar = -1) scattered
+     and in whole warps;
   3. the brute-force main path: render.render(cornell_box(512, 512,
      spp=4)) on cuda, with the kernel launch counters zeroed just before
      and read just after; the image must be finite and not black, and
@@ -67,13 +70,20 @@ Phases, each fatal on failure:
      differ; time K3 on the 32- and the 16-wide table and K4 on each by
      CUDA graph replay beside its bound, and sum each walk's time over a
      gradpath iteration; then profile one gradpath wavefront chunk (6
-     iterations).
+     iterations);
+ 20. record the K1 and K2 batches of one 512x512 cbox `path` sample and
+     one 512x512 cbox `gradpath` sample as the banded loops hand them to
+     the wrappers; hold each against its plain version bit for bit, time
+     it by CUDA graph replay beside its bound, print its live share, and
+     sum K1 + K2 per sample of each render.
 
 Prints one "kernels" JSON line, then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
 """
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -141,26 +151,80 @@ def _time_ms(fn, calls, reps=5):
     return _events_ms(replay, calls * reps), _events_ms(eager, calls)
 
 
-def _compare_k1(got, ref, label):
-    """Max abs error of K1's outputs and the prim mismatch count; fails
-    unless prims agree on all but 0.01% of rays (ties only) and values
-    agree to 1e-5 relative where they do."""
+def _brute_bits(a):
     import torch
 
-    t, prim, *rest = got
-    rt, rprim, *rrest = ref
-    same = prim == rprim
-    mism = int((~same).sum())
-    errs = [float((a - b).abs().max()) for a, b in zip([t, *rest], [rt, *rrest])]
-    rel = max(float(((a - b).abs() / (1.0 + b.abs()))[same].max())
-              for a, b in zip([t, *rest], [rt, *rrest]))
-    print(f"  K1 {label}: prim mismatches {mism} of {prim.numel()}, "
-          f"max abs err {max(errs):.3g} (t {errs[0]:.3g}, u {errs[1]:.3g}, "
-          f"v {errs[2]:.3g}, gn {max(errs[3:]):.3g}), max rel err {rel:.3g}, "
-          f"hits {float((rprim >= 0).float().mean()):.4f}")
-    if mism > prim.numel() // 10000 or not rel <= 1e-5 or not bool(torch.isfinite(t).all()):
+    return a.view(torch.int32) if a.dtype == torch.float32 else a
+
+
+def _compare_k1(got, ref, label):
+    """K1 against its plain version: 0 rays may differ in the bits of t,
+    u, v or the normal, or in prim (the same operations in the same order
+    with the same tie rule). Returns the max abs error (0)."""
+    import torch
+
+    bad = torch.zeros(got[0].shape[0], dtype=torch.bool, device=got[0].device)
+    for a, b in zip(got, ref):
+        bad |= _brute_bits(a) != _brute_bits(b)
+    n_bad = int(bad.sum())
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0 for a, b in zip(got, ref))
+    print(f"  K1 {label}: {n_bad} of {got[0].numel()} rays differ, max abs err {err:.3g}, "
+          f"hits {float((ref[1] >= 0).float().mean()):.4f}")
+    if n_bad or not bool(torch.isfinite(got[0]).all()):
         raise AssertionError(f"K1 disagrees with its plain version on {label}")
-    return max(errs)
+    return err
+
+
+def _compare_k2(got, ref, label, live):
+    """K2 against its plain version: 0 rays may differ."""
+    n_bad = int((got != ref).sum())
+    print(f"  K2 {label}: {n_bad} of {got.numel()} rays differ, blocked "
+          f"{float(ref.mean()):.4f}, live {float(live.float().mean()):.4f}")
+    if n_bad:
+        raise AssertionError(f"K2 disagrees with its plain version on {label}")
+    return float((got - ref).abs().max())
+
+
+def _dead_lanes(n, share, layout, dev, seed):
+    """A mask of dead lanes: `share` of them, one by one or in whole warps."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if layout == "warps":
+        return (torch.rand((n + 31) // 32, generator=gen, device=dev) < share).repeat_interleave(
+            32)[:n]
+    return torch.rand(n, generator=gen, device=dev) < share
+
+
+def _brute_work(kind, args):
+    """(live lanes, operations, bytes) of one K1 or K2 call, from its
+    inputs: 52 operations per ray-triangle and 40 per ray-sphere pair that
+    the live rays test (K2 stops at a ray's first blocking triangle; the
+    plain version finds it), and the bytes the call must move: tfar of
+    every lane, the six ray components of the live lanes, every output (K1
+    28 B a lane, K2 4 B)."""
+    import torch
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+
+    tri, sph, n_tris, n_sph, *rays, tfar, tnear = args
+    n = tfar.shape[0]
+    tn = float(torch.tensor(tnear, dtype=torch.float32))
+    live = tfar > tn
+    n_live = int(live.sum())
+    if kind == "K1":
+        return (n_live, n_live * (n_tris * OPS_PER_TRI_PAIR + n_sph * OPS_PER_SPH_PAIR),
+                4 * n + 24 * n_live + 28 * n)
+    ops = 0.0
+    blk = torch.zeros(n, dtype=torch.bool, device=tfar.device)
+    if n_tris:
+        hit = bk._tri_test_rows(tri, n_tris, tuple(rays[:3]), tuple(rays[3:]), tn, tfar)[3]
+        blk = hit.any(dim=0)
+        tested = torch.where(blk, hit.int().argmax(dim=0) + 1, n_tris)
+        ops += float(tested[live].sum()) * OPS_PER_TRI_PAIR
+    if n_sph:
+        ops += float((live & ~blk).sum()) * n_sph * OPS_PER_SPH_PAIR
+    return n_live, ops, 4 * n + 24 * n_live + 4 * n
 
 
 def _report_profile(prof, wall_us, phase, what, ours, ours_label, card):
@@ -229,27 +293,31 @@ def _brute_phases(card):
     n = st.width * st.height
     org, d = _camera_rays(scene, dev)
     soups = (g.tri_soup, g.sph_soup, st.n_tris, st.n_spheres)
-    cam_rays = (*org, *d)
+    big = torch.full((n,), bk.BIG, device=dev)
+    cam_rays = (*org, *d, big)
     k1_err = _compare_k1(bk.intersect_brute(*soups, *cam_rays, 0.0),
                          bk.intersect_brute_plain(*soups, *cam_rays, 0.0), "camera rays")
     hit = bk.intersect_brute(*soups, *cam_rays, 0.0)
     pos, rd, dl, tfar, live = _secondary_rays(org, d, hit[0], hit[1], st.shadow_epsilon)
-    eps = st.intersection_epsilon
-    bounce_rays = (*pos, *rd)
-    k1_err = max(k1_err, _compare_k1(
-        bk.intersect_brute(*soups, *bounce_rays, eps),
-        bk.intersect_brute_plain(*soups, *bounce_rays, eps), "bounce rays"))
+    eps, seps = st.intersection_epsilon, st.shadow_epsilon
+    bounce_rays = (*pos, *rd, big)
     sh_rays = (*pos, *dl, tfar)
-    seps = st.shadow_epsilon
-    blocked = bk.occluded_brute(*soups, *sh_rays, seps)
-    blocked_ref = bk.occluded_brute_plain(*soups, *sh_rays, seps)
-    k2_err = float((blocked - blocked_ref).abs().max())
-    print(f"  K2 shadow rays: {int((blocked != blocked_ref).sum())} of {n} differ, "
-          f"blocked {float(blocked_ref.mean()):.4f}, live {float(live.float().mean()):.4f}")
-    if k2_err > 0:
-        raise AssertionError("K2 disagrees with its plain version on shadow rays")
+    k2_err = _compare_k2(bk.occluded_brute(*soups, *sh_rays, seps),
+                         bk.occluded_brute_plain(*soups, *sh_rays, seps), "shadow rays", live)
+    for share, layout in ((0.0, "lanes"), (0.5, "lanes"), (0.5, "warps"), (0.93, "lanes"),
+                          (0.93, "warps"), (1.0, "lanes")):
+        dead = _dead_lanes(n, share, layout, dev, seed=int(share * 100) + len(layout))
+        what = f"{share:.2f} dead by {layout}"
+        b_far = torch.where(dead, -1.0, big)
+        k1_err = max(k1_err, _compare_k1(bk.intersect_brute(*soups, *pos, *rd, b_far, eps),
+                                         bk.intersect_brute_plain(*soups, *pos, *rd, b_far, eps),
+                                         f"bounce rays, {what}"))
+        s_far = torch.where(dead, -1.0, tfar)
+        k2_err = max(k2_err, _compare_k2(bk.occluded_brute(*soups, *pos, *dl, s_far, seps),
+                                         bk.occluded_brute_plain(*soups, *pos, *dl, s_far, seps),
+                                         f"shadow rays, {what}", s_far > seps))
     torch.cuda.synchronize()
-    print("phase 2: K1 and K2 agree with their plain versions")
+    print("phase 2: K1 and K2 equal their plain versions bit for bit")
 
     # ---- phase 3: the brute-force main path on cuda ----
     for k in bk.LAUNCHES:
@@ -273,35 +341,27 @@ def _brute_phases(card):
     _cuda_vs_cpu(render, small, 4, "cbox")
 
     # ---- phase 5: timing beside the bound ----
-    k1 = lambda: bk.intersect_brute(*soups, *bounce_rays, eps)  # noqa: E731
-    k1p = lambda: bk.intersect_brute_plain(*soups, *bounce_rays, eps)  # noqa: E731
-    k2 = lambda: bk.occluded_brute(*soups, *sh_rays, seps)  # noqa: E731
-    k2p = lambda: bk.occluded_brute_plain(*soups, *sh_rays, seps)  # noqa: E731
+    k1_args = (*soups, *bounce_rays, eps)
+    k2_args = (*soups, *sh_rays, seps)
+    k1 = lambda: bk.intersect_brute(*k1_args)  # noqa: E731
+    k1p = lambda: bk.intersect_brute_plain(*k1_args)  # noqa: E731
+    k2 = lambda: bk.occluded_brute(*k2_args)  # noqa: E731
+    k2p = lambda: bk.occluded_brute_plain(*k2_args)  # noqa: E731
     (k1_ms, k1_call), (k2_ms, k2_call) = _time_ms(k1, 100), _time_ms(k2, 100)
     (k1p_ms, _), (k2p_ms, _) = _time_ms(k1p, 10), _time_ms(k2p, 10)
-    # K1 tests every pair; K2 stops at the first blocking primitive and
-    # skips dead lanes: count the pairs this run's shadow rays need.
-    t_s, s_s = st.n_tris, st.n_spheres
-    k1_ops = n * (t_s * OPS_PER_TRI_PAIR + s_s * OPS_PER_SPH_PAIR)
-    hit_rows = bk._tri_test_rows(g.tri_soup, t_s, tuple(sh_rays[:3]), tuple(sh_rays[3:6]),
-                                 float(np.float32(seps)), tfar)[3]
-    blk = hit_rows.any(dim=0)
-    tested = torch.where(blk, hit_rows.int().argmax(dim=0) + 1, t_s)
-    live2 = tfar > float(np.float32(seps))
-    k2_ops = float(tested[live2].sum()) * OPS_PER_TRI_PAIR
-    if s_s:
-        k2_ops += float((live2 & ~blk).sum()) * s_s * OPS_PER_SPH_PAIR
     rows = []
     src = "gdpt_tpu_torch/csrc/brute_intersect.cu"
-    for name, src_line, ms, call_ms, pms, nbytes, ops, cnt, err in (
+    for name, src_line, ms, call_ms, pms, kind, args, cnt, err in (
             ("intersect_brute (K1)", "gdpt_tpu/accel/pallas_intersect.py:31", k1_ms, k1_call,
-             k1p_ms, 52 * n, k1_ops, launches["intersect"], k1_err),
+             k1p_ms, "K1", k1_args, launches["intersect"], k1_err),
             ("occluded_brute (K2)", "gdpt_tpu/accel/pallas_intersect.py:223", k2_ms, k2_call,
-             k2p_ms, 32 * n, k2_ops, launches["occluded"], k2_err)):
+             k2p_ms, "K2", k2_args, launches["occluded"], k2_err)):
+        n_live, ops, nbytes = _brute_work(kind, args)
         rows.append(_kernel_row(name, src, src_line, cnt, err, ms, pms, nbytes, ops))
         print(f"phase 5: {name}: {ms * 1e3:.2f} us/launch on the device "
               f"({call_ms * 1e3:.2f} us per eager wrapper call), plain {pms * 1e3:.1f} us, "
-              f"bound {rows[-1]['bound_ms'] * 1e3:.2f} us ({rows[-1]['bound_by']}), "
+              f"bound {rows[-1]['bound_ms'] * 1e3:.2f} us ({rows[-1]['bound_by']}: "
+              f"{ops / 1e9:.3f} Gop, {nbytes / 1e6:.1f} MB, {n_live} of {n} lanes live), "
               f"{cnt / SPP_MAIN:.1f} launches/sample on {card}")
 
     _profile_one_sample(render, presets, card)
@@ -942,6 +1002,82 @@ def _gradpath_phases(card, ctx):
     return rows + k5_rows
 
 
+def _record_brute_batches(render, presets, bk, integrator):
+    """Every K1 / K2 call of one 512x512 cbox sample as (kind, args),
+    recorded through the wrappers' module attributes, in order."""
+    seen = []
+    wrappers = {"K1": bk.intersect_brute, "K2": bk.occluded_brute}
+
+    def recording(kind):
+        def call(*args):
+            seen.append((kind, args))
+            return wrappers[kind](*args)
+        return call
+
+    bk.intersect_brute, bk.occluded_brute = recording("K1"), recording("K2")
+    try:
+        render.render(presets.cornell_box(512, 512, spp=1, integrator=integrator), seed=0,
+                      device="cuda")
+    finally:
+        bk.intersect_brute, bk.occluded_brute = wrappers["K1"], wrappers["K2"]
+    return seen
+
+
+def _batch_phase(card):
+    """Phase 20: K1 and K2 on the batches the banded loops hand them in
+    one cbox sample of each render. Returns {render: {kernel: us}}."""
+    import torch
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.integrators import render
+    from gdpt_tpu_torch.scene import presets
+
+    sums = {}
+    for integrator in ("path", "gradpath"):
+        batches = _record_brute_batches(render, presets, bk, integrator)
+        per = sums.setdefault(integrator, {"K1": 0.0, "K2": 0.0})
+        for j, (kind, args) in enumerate(batches):
+            fn, plain = ((bk.intersect_brute, bk.intersect_brute_plain) if kind == "K1"
+                         else (bk.occluded_brute, bk.occluded_brute_plain))
+            label = f"{integrator} batch {j}"
+            if kind == "K1":
+                _compare_k1(fn(*args), plain(*args), label)
+            else:
+                _compare_k2(fn(*args), plain(*args), label, args[10] > args[11])
+            ms, _ = _time_ms(lambda fn=fn, args=args: fn(*args), 10, 3)
+            n_live, ops, nbytes = _brute_work(kind, args)
+            n = args[10].shape[0]
+            bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e6
+            per[kind] += ms * 1e3
+            print(f"phase 20: {label}: {kind} on {n} lanes, live {n_live / n:.4f}, "
+                  f"{ms * 1e3:.2f} us by CUDA graph replay, bound {bound:.2f} us "
+                  f"({ops / 1e9:.4f} Gop, {nbytes / 1e6:.2f} MB) on {card}")
+        torch.cuda.synchronize()
+        print(f"phase 20: cbox 512x512 {integrator}, one sample: {len(batches)} batches, each "
+              f"equal to the plain version bit for bit; K1 {per['K1']:.1f} us + K2 "
+              f"{per['K2']:.1f} us = {per['K1'] + per['K2']:.1f} us per sample on {card}")
+    return sums
+
+
+def _ptxas_resources(log):
+    """{kernel entry (mangled): (registers, spill store bytes)} from the
+    compilers' -Xptxas -v output."""
+    import re
+
+    out, entry, spill = {}, None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)), spill)
+    return out
+
+
 def main():
     import torch
 
@@ -955,15 +1091,25 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"phase 1: card {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    libs = native_build.build_all(
-        ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
-         "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        libs = native_build.build_all(
+            ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
+             "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
+    print(log.getvalue(), end="")
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
+    resources = _ptxas_resources(log.getvalue())
 
     rows = _brute_phases(card)
     k3_rows, ctx = _bvh_phases(card)
     rows += k3_rows + _gradpath_phases(card, ctx)
+    sums = _batch_phase(card)
+    for row, kind, entry in ((rows[0], "K1", "intersect_brute_kernel"),
+                             (rows[1], "K2", "occluded_brute_kernel")):
+        regs = [v for k, v in resources.items() if entry in k]
+        row["registers"], row["spill_bytes"] = regs[0] if regs else (None, None)
+        row["us_per_sample"] = {r: v[kind] for r, v in sums.items()}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -86,33 +86,44 @@ __device__ __forceinline__ void stage_soups(Soups& s, const float* __restrict__ 
   }
 }
 
-// The block's live lanes (tfar > tnear) in lane order into list[];
-// returns their count, the same in every thread. dead: this thread's
-// lane exists and is dead. warp_n holds BLOCK / 32 + 1 ints.
-template <int BLOCK>
+#define BLOCK 256
+
+// The live lanes (tfar > tnear) of the block's L * BLOCK consecutive
+// lanes, in lane order, into list[]; returns their count, the same in
+// every thread. Thread x reads lanes x, x + BLOCK, ... of the tile and
+// sets bit j of dead for each of them that exists and is dead. warp_n
+// holds L * BLOCK / 32 ints.
+template <int L>
 __device__ __forceinline__ int live_lanes(const float* __restrict__ tfar, int n, float tnear,
-                                          bool& dead, int* list, int* warp_n) {
-  const int i = blockIdx.x * BLOCK + threadIdx.x;
-  const bool live = i < n && tfar[i] > tnear;
-  dead = i < n && !live;
-  const unsigned m = __ballot_sync(0xffffffffu, live);
+                                          unsigned& dead, int* list, int* warp_n) {
+  const int base = blockIdx.x * (L * BLOCK) + threadIdx.x;
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  if (l == 0) warp_n[w] = __popc(m);
-  __syncthreads();
-  if (w == 0) {
-    const int c = l < BLOCK / 32 ? warp_n[l] : 0;
-    int incl = c;
+  float tf[L];
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (l >= o) incl += y;
-    }
-    if (l < BLOCK / 32) warp_n[l] = incl - c;
-    if (l == 31) warp_n[BLOCK / 32] = incl;
+  for (int j = 0; j < L; ++j) tf[j] = base + j * BLOCK < n ? tfar[base + j * BLOCK] : 0.0f;
+  unsigned m[L];
+  dead = 0u;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int i = base + j * BLOCK;
+    const bool live = i < n && tf[j] > tnear;
+    if (i < n && !live) dead |= 1u << j;
+    m[j] = __ballot_sync(0xffffffffu, live);
+    if (l == 0) warp_n[j * (BLOCK / 32) + w] = __popc(m[j]);
   }
   __syncthreads();
-  if (live) list[warp_n[w] + __popc(m & ((1u << l) - 1u))] = i;
-  return warp_n[BLOCK / 32];
+  int total = 0, before[L];
+#pragma unroll
+  for (int c = 0; c < L * (BLOCK / 32); ++c) {
+    if (c % (BLOCK / 32) == w) before[c / (BLOCK / 32)] = total;
+    total += warp_n[c];
+  }
+  if (total) {
+#pragma unroll
+    for (int j = 0; j < L; ++j)
+      if (m[j] >> l & 1u) list[before[j] + __popc(m[j] & ((1u << l) - 1u))] = base + j * BLOCK;
+  }
+  return total;
 }
 
 // Moeller-Trumbore, in the reference's operation order: whether the ray
@@ -201,12 +212,13 @@ struct RayIn {
 };
 
 // K1 for one live lane i.
-template <bool PRE>
+template <bool PRE, int U>
 __device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, const RayIn& in,
                                         int i, float tnear, const HitOut& out) {
   const Ray r = in.load(i);
   float best = in.tfar[i], bu = 0.0f, bv = 0.0f;
   int bp = -1;
+#pragma unroll U
   for (int k = 0; k < n_tris; ++k) {
     float t, u, v;
     if (tri_test<PRE>(s, k, r, tnear, best, t, u, v)) {
@@ -254,12 +266,13 @@ __device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, c
 }
 
 // K2 for one live lane i.
-template <bool PRE>
+template <bool PRE, int U>
 __device__ __forceinline__ float occluded(const Soups& s, int n_tris, int n_sph, const RayIn& in,
                                           int i, float tnear) {
   const Ray r = in.load(i);
   const float t_max = in.tfar[i];
   bool blocked = false;
+#pragma unroll U
   for (int k = 0; k < n_tris && !blocked; ++k) {
     float t, u, v;
     blocked = tri_test<PRE>(s, k, r, tnear, t_max, t, u, v);
@@ -272,91 +285,77 @@ __device__ __forceinline__ float occluded(const Soups& s, int n_tris, int n_sph,
   return blocked ? 1.0f : 0.0f;
 }
 
-template <int BLOCK, int MINB, bool COMPACT, bool PRE>
-__global__ void __launch_bounds__(BLOCK, MINB)
+template <int L, bool PRE, int U>
+__global__ void __launch_bounds__(BLOCK)
 intersect_brute_kernel(const float* __restrict__ tri, int n_tris,
                        const float* __restrict__ sph, int n_sph, RayIn in, int n, float tnear,
                        HitOut out) {
   __shared__ Soups s;
-  __shared__ int list[BLOCK];
-  __shared__ int warp_n[BLOCK / 32 + 1];
-  if (COMPACT) {
-    bool dead;
-    const int n_live = live_lanes<BLOCK>(in.tfar, n, tnear, dead, list, warp_n);
-    if (dead) out.miss(blockIdx.x * BLOCK + threadIdx.x);
-    if (n_live == 0) return;
-    stage_soups(s, tri, n_tris, sph, n_sph);
-    __syncthreads();
-    if (threadIdx.x < n_live) closest<PRE>(s, n_tris, n_sph, in, list[threadIdx.x], tnear, out);
-  } else {
-    stage_soups(s, tri, n_tris, sph, n_sph);
-    __syncthreads();
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i >= n) return;
-    if (in.tfar[i] > tnear)
-      closest<PRE>(s, n_tris, n_sph, in, i, tnear, out);
-    else
-      out.miss(i);
-  }
+  __shared__ int list[L * BLOCK];
+  __shared__ int warp_n[L * BLOCK / 32];
+  unsigned dead;
+  const int n_live = live_lanes<L>(in.tfar, n, tnear, dead, list, warp_n);
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if (dead >> j & 1u) out.miss(blockIdx.x * (L * BLOCK) + j * BLOCK + threadIdx.x);
+  if (n_live == 0) return;
+  stage_soups(s, tri, n_tris, sph, n_sph);
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_live; j += BLOCK)
+    closest<PRE, U>(s, n_tris, n_sph, in, list[j], tnear, out);
 }
 
-template <int BLOCK, int MINB, bool COMPACT, bool PRE>
-__global__ void __launch_bounds__(BLOCK, MINB)
+template <int L, bool PRE, int U>
+__global__ void __launch_bounds__(BLOCK)
 occluded_brute_kernel(const float* __restrict__ tri, int n_tris,
                       const float* __restrict__ sph, int n_sph, RayIn in, int n, float tnear,
                       float* __restrict__ blocked_out) {
   __shared__ Soups s;
-  __shared__ int list[BLOCK];
-  __shared__ int warp_n[BLOCK / 32 + 1];
-  if (COMPACT) {
-    bool dead;
-    const int n_live = live_lanes<BLOCK>(in.tfar, n, tnear, dead, list, warp_n);
-    if (dead) blocked_out[blockIdx.x * BLOCK + threadIdx.x] = 0.0f;
-    if (n_live == 0) return;
-    stage_soups(s, tri, n_tris, sph, n_sph);
-    __syncthreads();
-    if (threadIdx.x < n_live) {
-      const int i = list[threadIdx.x];
-      blocked_out[i] = occluded<PRE>(s, n_tris, n_sph, in, i, tnear);
-    }
-  } else {
-    stage_soups(s, tri, n_tris, sph, n_sph);
-    __syncthreads();
-    const int i = blockIdx.x * BLOCK + threadIdx.x;
-    if (i >= n) return;
-    blocked_out[i] = in.tfar[i] > tnear ? occluded<PRE>(s, n_tris, n_sph, in, i, tnear) : 0.0f;
+  __shared__ int list[L * BLOCK];
+  __shared__ int warp_n[L * BLOCK / 32];
+  unsigned dead;
+  const int n_live = live_lanes<L>(in.tfar, n, tnear, dead, list, warp_n);
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if (dead >> j & 1u) blocked_out[blockIdx.x * (L * BLOCK) + j * BLOCK + threadIdx.x] = 0.0f;
+  if (n_live == 0) return;
+  stage_soups(s, tri, n_tris, sph, n_sph);
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_live; j += BLOCK) {
+    const int i = list[j];
+    blocked_out[i] = occluded<PRE, U>(s, n_tris, n_sph, in, i, tnear);
   }
 }
 
-template <int BLOCK, int MINB, bool COMPACT, bool PRE>
+template <int L, bool PRE, int U>
 int launch_intersect(const float* tri, int n_tris, const float* sph, int n_sph,
                      const float* ox, const float* oy, const float* oz,
                      const float* dx, const float* dy, const float* dz, const float* tfar,
                      int n, float tnear, float* t, int* prim, float* u, float* v,
                      float* gx, float* gy, float* gz, void* stream) {
   if (n > 0) {
-    intersect_brute_kernel<BLOCK, MINB, COMPACT, PRE>
-        <<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
+    intersect_brute_kernel<L, PRE, U>
+        <<<(n + L * BLOCK - 1) / (L * BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
             tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear,
             HitOut{t, prim, u, v, gx, gy, gz});
   }
   return (int)cudaGetLastError();
 }
 
-template <int BLOCK, int MINB, bool COMPACT, bool PRE>
+template <int L, bool PRE, int U>
 int launch_occluded(const float* tri, int n_tris, const float* sph, int n_sph,
                     const float* ox, const float* oy, const float* oz,
                     const float* dx, const float* dy, const float* dz, const float* tfar,
                     int n, float tnear, float* blocked, void* stream) {
   if (n > 0) {
-    occluded_brute_kernel<BLOCK, MINB, COMPACT, PRE>
-        <<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(
+    occluded_brute_kernel<L, PRE, U>
+        <<<(n + L * BLOCK - 1) / (L * BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
             tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear, blocked);
   }
   return (int)cudaGetLastError();
 }
 
-#define SHIP 256, 8, true, false
+#define SHIP 2, false, 1
 
 extern "C" {
 

@@ -34,14 +34,15 @@ from gdpt_tpu_torch.accel import native_build
 ROOT = Path(__file__).resolve().parents[2]
 OUT = ROOT / "build" / "brute_ab"
 
-# name: template arguments <BLOCK, MINB, COMPACT, PRE>
+# name: template arguments <L lanes per thread, PRE u pre-test, U unroll>
 DESIGNS = {
-    "skip256": "256, 8, false, false",
-    "compact256": "256, 8, true, false",
-    "compact1024": "1024, 2, true, false",
-    "compact256_pre": "256, 8, true, true",
-    "compact1024_pre": "1024, 2, true, true",
-    "compact256_free": "256, 1, true, false",
+    "tile1": "1, false, 1",
+    "tile2": "2, false, 1",
+    "tile4": "4, false, 1",
+    "tile2_pre": "2, true, 1",
+    "tile4_pre": "4, true, 1",
+    "tile2_unroll2": "2, false, 2",
+    "tile2_pre_unroll2": "2, true, 2",
 }
 
 K1_ARGS = ("const float* tri, int n_tris, const float* sph, int n_sph, const float* ox, "
@@ -178,35 +179,6 @@ def _same(kind, got, ref):
     return int(bad.sum())
 
 
-def work(kind, args):
-    """(live lanes, operations, bytes) of a batch: 52 per ray-triangle
-    pair and 40 per ray-sphere pair that the live rays test (K2 up to its
-    first blocker), tfar of every lane, the rays of the live ones and
-    every output."""
-    from chip_smoke import OPS_PER_SPH_PAIR, OPS_PER_TRI_PAIR
-
-    tri, sph, n_tris, n_sph, *rays, tfar, tnear = args
-    n = tfar.shape[0]
-    tn = float(torch.tensor(tnear, dtype=torch.float32))
-    live = tfar > tn
-    n_live = int(live.sum())
-    if kind == "K1":
-        ops = n_live * (n_tris * OPS_PER_TRI_PAIR + n_sph * OPS_PER_SPH_PAIR)
-        out_b = 28
-    else:
-        ops = 0.0
-        blk = torch.zeros(n, dtype=torch.bool, device=tfar.device)
-        if n_tris:
-            hit = bk._tri_test_rows(tri, n_tris, tuple(rays[:3]), tuple(rays[3:]), tn, tfar)[3]
-            blk = hit.any(dim=0)
-            tested = torch.where(blk, hit.int().argmax(dim=0) + 1, n_tris)
-            ops += float(tested[live].sum()) * OPS_PER_TRI_PAIR
-        if n_sph:
-            ops += float((live & ~blk).sum()) * n_sph * OPS_PER_SPH_PAIR
-        out_b = 4
-    return n_live, ops, 4 * n + 24 * n_live + out_b * n
-
-
 def main(argv):
     cpu = "--cpu" in argv
     args = [a for a in argv if a != "--cpu"]
@@ -256,7 +228,7 @@ def main(argv):
         bad = {k: _same(kind, fns[k][which](*a), ref) for k in designs}
         if kind == "K2" and "parent" in fns:
             bad["parent"] = _same(kind, fns["parent"][which](*a), ref)
-        n_live, ops, nbytes = work(kind, a)
+        n_live, ops, nbytes = cs._brute_work(kind, a)
         n_lanes = a[4].shape[0]
         times = {k: [] for k in names}
         if not cpu:
