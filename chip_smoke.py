@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. print the card and its power limit; build the native sources of
      gdpt_tpu_torch/csrc (four CUDA files, one C++ file; one compiler
-     process each, started together; timed);
+     process each, started together; timed); read K1's and K2's
+     registers and local memory from the built library;
   2. hold K1 (closest hit) and K2 (any hit) against their plain PyTorch
      versions at the 512x512 cbox's ray count, bit for bit (0 rays may
      differ in the bits of t, u, v, the normal or blocked, or in prim):
@@ -77,13 +78,13 @@ Phases, each fatal on failure:
      it by CUDA graph replay beside its bound, print its live share, and
      sum K1 + K2 per sample of each render.
 
-Prints one "kernels" JSON line, then the card's name and power limit, and
+Prints one "kernels" JSON line (K1's and K2's rows also carry their
+registers, local bytes and phase 20's time per sample of each render),
+then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
 """
 
-import contextlib
-import io
 import json
 import subprocess
 import sys
@@ -1059,23 +1060,24 @@ def _batch_phase(card):
     return sums
 
 
-def _ptxas_resources(log):
-    """{kernel entry (mangled): (registers, spill store bytes)} from the
-    compilers' -Xptxas -v output."""
+def _resource_usage(lib):
+    """{kernel entry (mangled): (registers, local memory bytes a thread)}
+    of a built library, from the toolkit's cuobjdump; {} where there is
+    none."""
     import re
+    import shutil
+    from pathlib import Path
 
-    out, entry, spill = {}, None, 0
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            entry, spill = m.group(1), 0
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry:
-            out[entry] = (int(m.group(1)), spill)
-    return out
+    from gdpt_tpu_torch.accel import native_build
+
+    tool = shutil.which("cuobjdump") or str(Path(native_build.nvcc()).parent / "cuobjdump")
+    try:
+        out = subprocess.run([tool, "-res-usage", str(lib)], capture_output=True, text=True,
+                             timeout=60).stdout
+    except OSError:
+        return {}
+    found = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)", out)
+    return {name: (int(reg), int(stack) + int(local)) for name, reg, stack, local in found}
 
 
 def main():
@@ -1091,25 +1093,23 @@ def main():
     kind = torch.cuda.get_device_name(0)
     print(f"phase 1: card {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        libs = native_build.build_all(
-            ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
-             "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
-    print(log.getvalue(), end="")
+    libs = native_build.build_all(
+        ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
+         "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    resources = _ptxas_resources(log.getvalue())
+    resources = _resource_usage(libs[0])
+    print(f"phase 1: K1 and K2 (registers, local bytes a thread): {resources or 'not measured'}")
 
     rows = _brute_phases(card)
     k3_rows, ctx = _bvh_phases(card)
     rows += k3_rows + _gradpath_phases(card, ctx)
     sums = _batch_phase(card)
-    for row, kind, entry in ((rows[0], "K1", "intersect_brute_kernel"),
+    for row, name, entry in ((rows[0], "K1", "intersect_brute_kernel"),
                              (rows[1], "K2", "occluded_brute_kernel")):
-        regs = [v for k, v in resources.items() if entry in k]
-        row["registers"], row["spill_bytes"] = regs[0] if regs else (None, None)
-        row["us_per_sample"] = {r: v[kind] for r, v in sums.items()}
+        use = [v for k, v in resources.items() if entry in k]
+        row["registers"], row["local_bytes"] = use[0] if use else (None, None)
+        row["us_per_sample"] = {r: v[name] for r, v in sums.items()}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -25,21 +25,32 @@
 // 52 per ray-triangle pair (46 f32 add/sub/mul/div of Moeller-Trumbore
 // plus 6 compares) x 32 x N = 0.44 G -> 6.5 us. So K1 is bound by
 // arithmetic where rays are live, and by the miss records it writes where
-// they are dead. K2 does the same 52 per pair, but only up to the first
-// blocking triangle.
+// they are dead (tfar in, 28 B out a lane). K2 does the same 52 per pair,
+// but only up to the first blocking triangle. Without fused multiply-adds
+// every operation takes its own issue slot, so the bit-exact ceiling is
+// about twice the operations bound.
 //
 // Design:
-// - Live rays only. A block takes BLOCK consecutive lanes. Each thread
-//   reads its lane's tfar; dead lanes write their miss record (K1) or 0
-//   (K2) at once, coalesced. A ballot per warp and a prefix over the
-//   block's warps list the live lanes in shared memory, in lane order; a
-//   block with none is done. Thread j then casts the j-th live lane, so
-//   full warps work on live rays and a warp whose lanes all ran out
-//   exits.
-// - Primitives off the load path. The block stages the soups into shared
-//   memory as rows of float4 (a triangle in 2 x 16 B + 4 B, a sphere in
-//   16 B), read by every lane at the same step: a broadcast, 3 loads per
-//   triangle instead of 9.
+// - Live rays only. A block of 256 threads takes a tile of 512
+//   consecutive lanes, two per thread (x and x + 256, so loads and stores
+//   coalesce). Each thread reads its lanes' tfar; dead lanes write their
+//   miss record (K1) or 0 (K2) at once. A ballot per warp, one barrier
+//   and a sum over the tile's warp counts list the live lanes in shared
+//   memory, in lane order; a tile with none is done. The threads then
+//   cast the list in turn (thread x its entries x and x + 256), so full
+//   warps work on live rays, neighbouring in the image, and a warp whose
+//   entries ran out exits. K2's lanes leave the primitive loop at their
+//   first blocker; a warp leaves when all of its lanes have.
+// - Launch shape. 39 (K1) and 37 (K2) registers, no spill: six blocks
+//   per SM, so the 512 tiles of a 262,144-lane batch run in one wave of
+//   the 132 SMs with two rays a thread when all are live. A tile of one
+//   lane per thread needs two waves at these registers; capping them at
+//   32 for one wave of 256-lane tiles spills, and four lanes per thread
+//   lose where most lanes are live (PERF.md).
+// - Primitives off the load path. A tile with live lanes stages the
+//   soups into shared memory as rows of float4 (a triangle in 2 x 16 B +
+//   4 B, a sphere in 16 B), read by every lane at the same step: a
+//   broadcast, 3 loads per triangle instead of 9.
 // - Less work per closer hit: the loop keeps the winning index, t, u and
 //   v; the normal is computed once after the loop, from the winning
 //   index, with the same operations.
@@ -87,24 +98,24 @@ __device__ __forceinline__ void stage_soups(Soups& s, const float* __restrict__ 
 }
 
 #define BLOCK 256
+#define LANES 2  // lanes per thread in a block's tile
 
-// The live lanes (tfar > tnear) of the block's L * BLOCK consecutive
-// lanes, in lane order, into list[]; returns their count, the same in
-// every thread. Thread x reads lanes x, x + BLOCK, ... of the tile and
-// sets bit j of dead for each of them that exists and is dead. warp_n
-// holds L * BLOCK / 32 ints.
-template <int L>
+// The live lanes (tfar > tnear) of the block's tile of LANES * BLOCK
+// consecutive lanes, in lane order, into list[]; returns their count,
+// the same in every thread. Thread x reads lanes x and x + BLOCK of the
+// tile and sets bit j of dead where lane x + j * BLOCK exists and is
+// dead. warp_n holds LANES * BLOCK / 32 ints.
 __device__ __forceinline__ int live_lanes(const float* __restrict__ tfar, int n, float tnear,
                                           unsigned& dead, int* list, int* warp_n) {
-  const int base = blockIdx.x * (L * BLOCK) + threadIdx.x;
+  const int base = blockIdx.x * (LANES * BLOCK) + threadIdx.x;
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  float tf[L];
+  float tf[LANES];
 #pragma unroll
-  for (int j = 0; j < L; ++j) tf[j] = base + j * BLOCK < n ? tfar[base + j * BLOCK] : 0.0f;
-  unsigned m[L];
+  for (int j = 0; j < LANES; ++j) tf[j] = base + j * BLOCK < n ? tfar[base + j * BLOCK] : 0.0f;
+  unsigned m[LANES];
   dead = 0u;
 #pragma unroll
-  for (int j = 0; j < L; ++j) {
+  for (int j = 0; j < LANES; ++j) {
     const int i = base + j * BLOCK;
     const bool live = i < n && tf[j] > tnear;
     if (i < n && !live) dead |= 1u << j;
@@ -112,26 +123,24 @@ __device__ __forceinline__ int live_lanes(const float* __restrict__ tfar, int n,
     if (l == 0) warp_n[j * (BLOCK / 32) + w] = __popc(m[j]);
   }
   __syncthreads();
-  int total = 0, before[L];
+  // Every thread sums the tile's warp counts itself: a tile with no live
+  // lane is done after one barrier.
+  int total = 0, before[LANES];
 #pragma unroll
-  for (int c = 0; c < L * (BLOCK / 32); ++c) {
+  for (int c = 0; c < LANES * (BLOCK / 32); ++c) {
     if (c % (BLOCK / 32) == w) before[c / (BLOCK / 32)] = total;
     total += warp_n[c];
   }
   if (total) {
 #pragma unroll
-    for (int j = 0; j < L; ++j)
+    for (int j = 0; j < LANES; ++j)
       if (m[j] >> l & 1u) list[before[j] + __popc(m[j] & ((1u << l) - 1u))] = base + j * BLOCK;
   }
   return total;
 }
 
 // Moeller-Trumbore, in the reference's operation order: whether the ray
-// hits triangle k within [tnear, tmax). With PRE, a pair whose u lies
-// outside [0, 1] stops before q, v and t: the full test rejects it (u <
-// 0 or NaN fails u >= 0; u > 1 and v >= 0 give u + v > 1), and a warp
-// whose lanes all stop skips the rest.
-template <bool PRE>
+// hits triangle k within [tnear, tmax).
 __device__ __forceinline__ bool tri_test(const Soups& s, int k, const Ray& r, float tnear,
                                          float tmax, float& t_out, float& u_out, float& v_out) {
   const float4 a = s.tri[3 * k], b = s.tri[3 * k + 1];
@@ -147,7 +156,6 @@ __device__ __forceinline__ bool tri_test(const Soups& s, int k, const Ray& r, fl
   const float ty = r.oy - v0y;
   const float tz = r.oz - v0z;
   const float u = (tx * px + ty * py + tz * pz) * inv;
-  if (PRE && !(u >= 0.0f && u <= 1.0f)) return false;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
@@ -212,16 +220,14 @@ struct RayIn {
 };
 
 // K1 for one live lane i.
-template <bool PRE, int U>
 __device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, const RayIn& in,
                                         int i, float tnear, const HitOut& out) {
   const Ray r = in.load(i);
   float best = in.tfar[i], bu = 0.0f, bv = 0.0f;
   int bp = -1;
-#pragma unroll U
   for (int k = 0; k < n_tris; ++k) {
     float t, u, v;
-    if (tri_test<PRE>(s, k, r, tnear, best, t, u, v)) {
+    if (tri_test(s, k, r, tnear, best, t, u, v)) {
       best = t;
       bp = k;
       bu = u;
@@ -266,16 +272,14 @@ __device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, c
 }
 
 // K2 for one live lane i.
-template <bool PRE, int U>
 __device__ __forceinline__ float occluded(const Soups& s, int n_tris, int n_sph, const RayIn& in,
                                           int i, float tnear) {
   const Ray r = in.load(i);
   const float t_max = in.tfar[i];
   bool blocked = false;
-#pragma unroll U
   for (int k = 0; k < n_tris && !blocked; ++k) {
     float t, u, v;
-    blocked = tri_test<PRE>(s, k, r, tnear, t_max, t, u, v);
+    blocked = tri_test(s, k, r, tnear, t_max, t, u, v);
   }
   for (int k = 0; k < n_sph && !blocked; ++k) {
     float t0, t1;
@@ -285,77 +289,44 @@ __device__ __forceinline__ float occluded(const Soups& s, int n_tris, int n_sph,
   return blocked ? 1.0f : 0.0f;
 }
 
-template <int L, bool PRE, int U>
 __global__ void __launch_bounds__(BLOCK)
 intersect_brute_kernel(const float* __restrict__ tri, int n_tris,
                        const float* __restrict__ sph, int n_sph, RayIn in, int n, float tnear,
                        HitOut out) {
   __shared__ Soups s;
-  __shared__ int list[L * BLOCK];
-  __shared__ int warp_n[L * BLOCK / 32];
+  __shared__ int list[LANES * BLOCK];
+  __shared__ int warp_n[LANES * BLOCK / 32];
   unsigned dead;
-  const int n_live = live_lanes<L>(in.tfar, n, tnear, dead, list, warp_n);
+  const int n_live = live_lanes(in.tfar, n, tnear, dead, list, warp_n);
 #pragma unroll
-  for (int j = 0; j < L; ++j)
-    if (dead >> j & 1u) out.miss(blockIdx.x * (L * BLOCK) + j * BLOCK + threadIdx.x);
+  for (int j = 0; j < LANES; ++j)
+    if (dead >> j & 1u) out.miss(blockIdx.x * (LANES * BLOCK) + j * BLOCK + threadIdx.x);
   if (n_live == 0) return;
   stage_soups(s, tri, n_tris, sph, n_sph);
   __syncthreads();
-  for (int j = threadIdx.x; j < n_live; j += BLOCK)
-    closest<PRE, U>(s, n_tris, n_sph, in, list[j], tnear, out);
+  for (int j = threadIdx.x; j < n_live; j += BLOCK) closest(s, n_tris, n_sph, in, list[j], tnear, out);
 }
 
-template <int L, bool PRE, int U>
 __global__ void __launch_bounds__(BLOCK)
 occluded_brute_kernel(const float* __restrict__ tri, int n_tris,
                       const float* __restrict__ sph, int n_sph, RayIn in, int n, float tnear,
                       float* __restrict__ blocked_out) {
   __shared__ Soups s;
-  __shared__ int list[L * BLOCK];
-  __shared__ int warp_n[L * BLOCK / 32];
+  __shared__ int list[LANES * BLOCK];
+  __shared__ int warp_n[LANES * BLOCK / 32];
   unsigned dead;
-  const int n_live = live_lanes<L>(in.tfar, n, tnear, dead, list, warp_n);
+  const int n_live = live_lanes(in.tfar, n, tnear, dead, list, warp_n);
 #pragma unroll
-  for (int j = 0; j < L; ++j)
-    if (dead >> j & 1u) blocked_out[blockIdx.x * (L * BLOCK) + j * BLOCK + threadIdx.x] = 0.0f;
+  for (int j = 0; j < LANES; ++j)
+    if (dead >> j & 1u) blocked_out[blockIdx.x * (LANES * BLOCK) + j * BLOCK + threadIdx.x] = 0.0f;
   if (n_live == 0) return;
   stage_soups(s, tri, n_tris, sph, n_sph);
   __syncthreads();
   for (int j = threadIdx.x; j < n_live; j += BLOCK) {
     const int i = list[j];
-    blocked_out[i] = occluded<PRE, U>(s, n_tris, n_sph, in, i, tnear);
+    blocked_out[i] = occluded(s, n_tris, n_sph, in, i, tnear);
   }
 }
-
-template <int L, bool PRE, int U>
-int launch_intersect(const float* tri, int n_tris, const float* sph, int n_sph,
-                     const float* ox, const float* oy, const float* oz,
-                     const float* dx, const float* dy, const float* dz, const float* tfar,
-                     int n, float tnear, float* t, int* prim, float* u, float* v,
-                     float* gx, float* gy, float* gz, void* stream) {
-  if (n > 0) {
-    intersect_brute_kernel<L, PRE, U>
-        <<<(n + L * BLOCK - 1) / (L * BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-            tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear,
-            HitOut{t, prim, u, v, gx, gy, gz});
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int L, bool PRE, int U>
-int launch_occluded(const float* tri, int n_tris, const float* sph, int n_sph,
-                    const float* ox, const float* oy, const float* oz,
-                    const float* dx, const float* dy, const float* dz, const float* tfar,
-                    int n, float tnear, float* blocked, void* stream) {
-  if (n > 0) {
-    occluded_brute_kernel<L, PRE, U>
-        <<<(n + L * BLOCK - 1) / (L * BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-            tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear, blocked);
-  }
-  return (int)cudaGetLastError();
-}
-
-#define SHIP 2, false, 1
 
 extern "C" {
 
@@ -367,8 +338,13 @@ int gdpt_intersect_brute(const float* tri, int n_tris, const float* sph, int n_s
                          int n, float tnear,
                          float* t, int* prim, float* u, float* v,
                          float* gx, float* gy, float* gz, void* stream) {
-  return launch_intersect<SHIP>(tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear,
-                                t, prim, u, v, gx, gy, gz, stream);
+  if (n > 0) {
+    intersect_brute_kernel<<<(n + LANES * BLOCK - 1) / (LANES * BLOCK), BLOCK, 0,
+                             (cudaStream_t)stream>>>(
+        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear,
+        HitOut{t, prim, u, v, gx, gy, gz});
+  }
+  return (int)cudaGetLastError();
 }
 
 int gdpt_occluded_brute(const float* tri, int n_tris, const float* sph, int n_sph,
@@ -376,8 +352,12 @@ int gdpt_occluded_brute(const float* tri, int n_tris, const float* sph, int n_sp
                         const float* dx, const float* dy, const float* dz,
                         const float* tfar, int n, float tnear,
                         float* blocked, void* stream) {
-  return launch_occluded<SHIP>(tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear,
-                               blocked, stream);
+  if (n > 0) {
+    occluded_brute_kernel<<<(n + LANES * BLOCK - 1) / (LANES * BLOCK), BLOCK, 0,
+                            (cudaStream_t)stream>>>(
+        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear, blocked);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

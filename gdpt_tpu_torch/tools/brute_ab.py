@@ -1,21 +1,17 @@
-"""Design comparison of the brute-force casts K1 and K2 on the card.
+"""K1 and K2 against an older checkout's kernels on the card.
 
-    python -m gdpt_tpu_torch.tools.brute_ab [PARENT_DIR]
+    python -m gdpt_tpu_torch.tools.brute_ab PARENT_DIR
 
-Builds csrc/brute_intersect.cu's kernel template in each design below
-(one library, one extern "C" pair per design) and, where PARENT_DIR holds
-an older checkout's gdpt_tpu_torch/, that checkout's brute_intersect.cu
-(K1 without tfar) beside it; prints what `-Xptxas -v` says of each. Then
-on the ray sets of chip_smoke.py phase 5 (262,144 bounce rays, all live;
-the shadow rays) and on every K1 / K2 batch of one 512x512 cbox `path`
-sample and one 512x512 cbox `gradpath` sample (recorded through the
-module attributes), each design is held against the plain version bit
-for bit and timed by CUDA graph replay in two turns (parent, designs,
-designs reversed, parent); the batches' times are summed per sample.
-Results go to chiprun_out/brute_ab.json.
-
-With --cpu it runs the same path at 48x48 on the CPU with every design
-replaced by the plain version and no timing: a rehearsal.
+Builds PARENT_DIR/gdpt_tpu_torch/csrc/brute_intersect.cu (K1 without a
+per-ray tfar: every lane cast) beside this package's kernels, prints what
+`-Xptxas -v` says of it, then times both on the ray sets of chip_smoke.py
+phase 5 (262,144 bounce rays, all live; the shadow rays) and on every K1 /
+K2 batch of one 512x512 cbox `path` sample and one 512x512 cbox
+`gradpath` sample (recorded through the module attributes) by CUDA graph
+replay, in the order parent, change, change, parent; the batches' times
+are summed per sample. This package's kernels are held against their
+plain versions bit for bit on every set, the parent's K2 too. Results go
+to chiprun_out/brute_ab.json.
 """
 
 import ctypes
@@ -34,37 +30,6 @@ from gdpt_tpu_torch.accel import native_build
 ROOT = Path(__file__).resolve().parents[2]
 OUT = ROOT / "build" / "brute_ab"
 
-# name: template arguments <L lanes per thread, PRE u pre-test, U unroll>
-DESIGNS = {
-    "tile1": "1, false, 1",
-    "tile2": "2, false, 1",
-    "tile4": "4, false, 1",
-    "tile2_pre": "2, true, 1",
-    "tile4_pre": "4, true, 1",
-    "tile2_unroll2": "2, false, 2",
-    "tile2_pre_unroll2": "2, true, 2",
-}
-
-K1_ARGS = ("const float* tri, int n_tris, const float* sph, int n_sph, const float* ox, "
-           "const float* oy, const float* oz, const float* dx, const float* dy, "
-           "const float* dz, const float* tfar, int n, float tnear, float* t, int* prim, "
-           "float* u, float* v, float* gx, float* gy, float* gz, void* stream")
-K1_NAMES = "tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear, t, prim, u, v, gx, gy, gz, stream"
-K2_ARGS = ("const float* tri, int n_tris, const float* sph, int n_sph, const float* ox, "
-           "const float* oy, const float* oz, const float* dx, const float* dy, "
-           "const float* dz, const float* tfar, int n, float tnear, float* blocked, void* stream")
-K2_NAMES = "tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear, blocked, stream"
-
-
-def _source():
-    lines = [f'#include "{native_build.CSRC / "brute_intersect.cu"}"', 'extern "C" {']
-    for name, targs in DESIGNS.items():
-        lines.append(f"int k1_{name}({K1_ARGS}) {{ return launch_intersect<{targs}>({K1_NAMES}); }}")
-        lines.append(f"int k2_{name}({K2_ARGS}) {{ return launch_occluded<{targs}>({K2_NAMES}); }}")
-    lines.append("}")
-    return "\n".join(lines) + "\n"
-
-
 def _nvcc(src, out):
     cmd = [native_build.nvcc(), *native_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
            str(src)]
@@ -75,54 +40,37 @@ def _nvcc(src, out):
 
 
 def build(parent_dir):
-    """{design: (k1, k2)} callables' C functions, and the parent's."""
+    """The parent's (k1, k2), called as this package's wrappers are."""
     OUT.mkdir(parents=True, exist_ok=True)
-    src = OUT / "brute_ab.cu"
-    src.write_text(_source())
-    jobs = [(src, OUT / "libbrute_ab.so")]
-    parent_src = parent_dir and Path(parent_dir) / "gdpt_tpu_torch" / "csrc" / "brute_intersect.cu"
-    if parent_src:
-        jobs.append((parent_src, OUT / "libbrute_parent.so"))
+    src = Path(parent_dir) / "gdpt_tpu_torch" / "csrc" / "brute_intersect.cu"
+    lib_path = OUT / "libbrute_parent.so"
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        logs = list(pool.map(lambda j: _nvcc(*j), jobs))
-    print(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
-    for (s, _), log in zip(jobs, logs):
-        print(f"-- ptxas {s.name}:")
-        for line in log.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
-                print("  " + line.strip())
+    log = _nvcc(src, lib_path)
+    print(f"built the parent's {src.name} in {time.perf_counter() - t0:.1f} s")
+    for line in log.splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print("  " + line.strip())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    k1_types = [p, i, p, i, p, p, p, p, p, p, p, i, f, p, p, p, p, p, p, p, p]
-    k2_types = [p, i, p, i, p, p, p, p, p, p, p, i, f, p, p]
-    lib = ctypes.CDLL(str(jobs[0][1]))
-    fns = {}
-    for name in DESIGNS:
-        k1, k2 = getattr(lib, f"k1_{name}"), getattr(lib, f"k2_{name}")
-        k1.argtypes, k2.argtypes = k1_types, k2_types
-        fns[name] = (_k1(k1, True), _k2(k2))
-    if parent_src:
-        plib = ctypes.CDLL(str(jobs[1][1]))
-        k1, k2 = plib.gdpt_intersect_brute, plib.gdpt_occluded_brute
-        k1.argtypes = k1_types[:10] + k1_types[11:]  # no tfar
-        k2.argtypes = k2_types
-        fns = {"parent": (_k1(k1, False), _k2(k2)), **fns}
-    return fns
+    lib = ctypes.CDLL(str(lib_path))
+    k1, k2 = lib.gdpt_intersect_brute, lib.gdpt_occluded_brute
+    k1.argtypes = [p, i, p, i, p, p, p, p, p, p, i, f, p, p, p, p, p, p, p, p]
+    k2.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, f, p, p]
+    k1.restype = k2.restype = i
+    return _k1(k1), _k2(k2)
 
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _k1(fn, takes_tfar):
+def _k1(fn):
     def run(tri, sph, n_tris, n_sph, *rays_tfar_tnear):
         *rays, tfar, tnear = rays_tfar_tnear
         n, dev = rays[0].shape[0], rays[0].device
         outs = [torch.empty(n, dtype=torch.float32, device=dev) for _ in range(6)]
         prim = torch.empty(n, dtype=torch.int32, device=dev)
         t, u, v, gx, gy, gz = outs
-        ptrs = [_ptr(r) for r in rays] + ([_ptr(tfar)] if takes_tfar else [])
-        err = fn(_ptr(tri), n_tris, _ptr(sph), n_sph, *ptrs, n, float(tnear), _ptr(t),
+        err = fn(_ptr(tri), n_tris, _ptr(sph), n_sph, *map(_ptr, rays), n, float(tnear), _ptr(t),
                  _ptr(prim), _ptr(u), _ptr(v), _ptr(gx), _ptr(gy), _ptr(gz),
                  ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         if err:
@@ -180,33 +128,25 @@ def _same(kind, got, ref):
 
 
 def main(argv):
-    cpu = "--cpu" in argv
-    args = [a for a in argv if a != "--cpu"]
-    parent_dir = args[0] if args else None
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from gdpt_tpu_torch.integrators import path_soa, render
     from gdpt_tpu_torch.scene import presets
     from gdpt_tpu_torch.scene.build import scene_to
 
-    dev = torch.device("cpu" if cpu else "cuda")
-    size = 48 if cpu else 512
-    if cpu:
-        fns = {name: (bk.intersect_brute_plain, bk.occluded_brute_plain) for name in DESIGNS}
-        card = "cpu rehearsal"
-    else:
-        card = cs._card()
-        print(f"card {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
-        fns = build(parent_dir)
+    dev = torch.device("cuda")
+    card = cs._card()
+    print(f"card {card} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    parent = build(argv[0])
+    fns = {"parent": parent, "change": (bk.intersect_brute, bk.occluded_brute)}
 
     # Phase 5's sets.
-    scene = presets.cornell_box(size, size, spp=1)
+    scene = presets.cornell_box(512, 512, spp=1)
     st = scene.static
     g = path_soa.scene_soa_from_aos(scene_to(scene, dev)).geom
     soups = (g.tri_soup, g.sph_soup, st.n_tris, st.n_spheres)
     org, d = cs._camera_rays(scene, dev)
-    n = org.x.shape[0]
-    big = torch.full((n,), bk.BIG, device=dev)
+    big = torch.full((org.x.shape[0],), bk.BIG, device=dev)
     hit = bk.intersect_brute(*soups, *org, *d, big, 0.0)
     pos, rd, dl, tfar, _ = cs._secondary_rays(org, d, hit[0], hit[1], st.shadow_epsilon)
     sets = [("phase 5 bounce rays", "K1", "phase5", (*soups, *pos, *rd, big,
@@ -214,48 +154,44 @@ def main(argv):
             ("phase 5 shadow rays", "K2", "phase5", (*soups, *pos, *dl, tfar,
                                                      st.shadow_epsilon))]
     for integ in ("path", "gradpath"):
-        for j, (kind, a) in enumerate(record_batches(render, presets, size, integ, dev)):
+        for j, (kind, a) in enumerate(record_batches(render, presets, 512, integ, dev)):
             sets.append((f"{integ} batch {j}", kind, integ, a))
 
-    names = list(fns)
-    designs = [k for k in names if k != "parent"]
-    order = names + names[::-1]
+    order = ("parent", "change", "change", "parent")
     rows, sums = [], {}
     for label, kind, group, a in sets:
+        which = 0 if kind == "K1" else 1
         plain = bk.intersect_brute_plain if kind == "K1" else bk.occluded_brute_plain
         ref = plain(*a)
-        which = 0 if kind == "K1" else 1
-        bad = {k: _same(kind, fns[k][which](*a), ref) for k in designs}
-        if kind == "K2" and "parent" in fns:
+        bad = {"change": _same(kind, fns["change"][which](*a), ref)}
+        if kind == "K2":
             bad["parent"] = _same(kind, fns["parent"][which](*a), ref)
+        times = {"parent": [], "change": []}
+        for k in order:
+            fn = fns[k][which]
+            times[k].append(cs._time_ms(lambda fn=fn: fn(*a), 10, 3)[0] * 1e3)
         n_live, ops, nbytes = cs._brute_work(kind, a)
         n_lanes = a[4].shape[0]
-        times = {k: [] for k in names}
-        if not cpu:
-            for k in order:
-                fn = fns[k][which]
-                times[k].append(cs._time_ms(lambda fn=fn: fn(*a), 5, 2)[0] * 1e3)
-        mean = {k: sum(v) / len(v) if v else 0.0 for k, v in times.items()}
         bound = max(nbytes / cs.PEAK_BYTES_PER_S, ops / cs.PEAK_F32_PER_S) * 1e6
-        row = dict(label=label, kind=kind, group=group, lanes=n_lanes, live=n_live,
-                   ops=ops, bytes=nbytes, bound_us=bound, times_us=times, bad=bad)
-        rows.append(row)
-        for k in names:
-            key = f"{group} {kind}"
-            sums.setdefault(key, dict.fromkeys(names, 0.0))[k] += mean[k]
+        rows.append(dict(label=label, kind=kind, group=group, lanes=n_lanes, live=n_live,
+                         ops=ops, bytes=nbytes, bound_us=bound, times_us=times, bad=bad))
+        per = sums.setdefault(f"{group} {kind}", {"parent": [0.0, 0.0], "change": [0.0, 0.0]})
+        for k, v in times.items():
+            per[k][0] += v[0]
+            per[k][1] += v[1]
         print(f"{label} {kind}: {n_lanes} lanes, live {n_live / max(n_lanes, 1):.4f}, bound "
-              f"{bound:.2f} us; " + ", ".join(f"{k} {mean[k]:.2f}" for k in names)
-              + f" us; rays differing from plain {bad}")
-        if any(bad[k] for k in designs):
-            print(f"  MISMATCH on {label}")
-    print(f"sums per sample (us) on {card}:")
+              f"{bound:.2f} us; parent / change / change / parent "
+              f"{times['parent'][0]:.2f} / {times['change'][0]:.2f} / {times['change'][1]:.2f} / "
+              f"{times['parent'][1]:.2f} us; rays differing from plain {bad}")
+    print(f"sums per sample (us; parent / change / change / parent) on {card}:")
     for key, v in sums.items():
-        print(f"  {key}: " + ", ".join(f"{k} {t:.1f}" for k, t in v.items()))
+        print(f"  {key}: {v['parent'][0]:.1f} / {v['change'][0]:.1f} / {v['change'][1]:.1f} / "
+              f"{v['parent'][1]:.1f}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "brute_ab.json").write_text(json.dumps(dict(card=card, rows=rows, sums=sums)))
-    if any(any(r["bad"][k] for k in designs) for r in rows):
-        print("some design differs from the plain version")
+    if any(r["bad"]["change"] for r in rows):
+        print("the change differs from its plain version")
         return 1
     return 0
 
