@@ -280,7 +280,6 @@ def _brute_phases(card):
     import torch
 
     from gdpt_tpu_torch.accel import brute_kernels as bk
-    from gdpt_tpu_torch.core import soa
     from gdpt_tpu_torch.integrators import path_soa, render
     from gdpt_tpu_torch.scene import presets
     from gdpt_tpu_torch.scene.build import scene_to

@@ -41,7 +41,7 @@
 //   warps work on live rays, neighbouring in the image, and a warp whose
 //   entries ran out exits. K2's lanes leave the primitive loop at their
 //   first blocker; a warp leaves when all of its lanes have.
-// - Launch shape. 39 (K1) and 37 (K2) registers, no spill: six blocks
+// - Launch shape. 40 (K1) and 37 (K2) registers, no spill: six blocks
 //   per SM, so the 512 tiles of a 262,144-lane batch run in one wave of
 //   the 132 SMs with two rays a thread when all are live. A tile of one
 //   lane per thread needs two waves at these registers; capping them at
