@@ -4,6 +4,144 @@
 
 #include "../csrc/brute_intersect.cu"
 
+// tri_test with the reciprocal taken unconditionally and selected away
+// where det == 0 (no branch around it). __frcp_rn is the IEEE
+// round-to-nearest reciprocal, the value 1.0f / det rounds to.
+__device__ __forceinline__ bool tri_test_rcp(const Soups& s, int k, const Ray& r, float tnear,
+                                             float tmax, float& t_out, float& u_out,
+                                             float& v_out) {
+  const float4 a = s.tri[3 * k], b = s.tri[3 * k + 1];
+  const float v0x = a.x, v0y = a.y, v0z = a.z;
+  const float e1x = a.w, e1y = b.x, e1z = b.y;
+  const float e2x = b.z, e2y = b.w, e2z = s.tri[3 * k + 2].x;
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float rcp = __frcp_rn(det);
+  const float inv = det != 0.0f ? rcp : 0.0f;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  const float u = (tx * px + ty * py + tz * pz) * inv;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  t_out = t;
+  u_out = u;
+  v_out = v;
+  return det != 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tnear && t < tmax;
+}
+
+__device__ __forceinline__ void closest_rcp(const Soups& s, int n_tris, int n_sph,
+                                            const RayIn& in, int i, float tnear,
+                                            const HitOut& out) {
+  const Ray r = in.load(i);
+  float best = in.tfar[i], bu = 0.0f, bv = 0.0f;
+  int bp = -1;
+  for (int k = 0; k < n_tris; ++k) {
+    float t, u, v;
+    if (tri_test_rcp(s, k, r, tnear, best, t, u, v)) {
+      best = t;
+      bp = k;
+      bu = u;
+      bv = v;
+    }
+  }
+  for (int k = 0; k < n_sph; ++k) {
+    float t0, t1;
+    const bool ok = sph_roots(s, k, r, t0, t1);
+    const bool use_lo = t0 >= tnear && t0 < best;
+    const bool use_hi = t1 >= tnear && t1 < best;
+    if (ok && (use_lo || use_hi)) {
+      best = use_lo ? t0 : t1;
+      bp = n_tris + k;
+    }
+  }
+  if (bp < 0) {
+    out.miss(i);
+    return;
+  }
+  float gx, gy, gz;
+  if (bp < n_tris) {
+    const float4 a = s.tri[3 * bp], b = s.tri[3 * bp + 1];
+    const float e1x = a.w, e1y = b.x, e1z = b.y;
+    const float e2x = b.z, e2y = b.w, e2z = s.tri[3 * bp + 2].x;
+    gx = e1y * e2z - e1z * e2y;
+    gy = e1z * e2x - e1x * e2z;
+    gz = e1x * e2y - e1y * e2x;
+  } else {
+    const float4 c = s.sph[bp - n_tris];
+    gx = r.ox + best * r.dx - c.x;
+    gy = r.oy + best * r.dy - c.y;
+    gz = r.oz + best * r.dz - c.z;
+  }
+  out.t[i] = best;
+  out.prim[i] = bp;
+  out.u[i] = bu;
+  out.v[i] = bv;
+  out.gx[i] = gx;
+  out.gy[i] = gy;
+  out.gz[i] = gz;
+}
+
+__device__ __forceinline__ float occluded_rcp(const Soups& s, int n_tris, int n_sph,
+                                              const RayIn& in, int i, float tnear) {
+  const Ray r = in.load(i);
+  const float t_max = in.tfar[i];
+  bool blocked = false;
+  for (int k = 0; k < n_tris && !blocked; ++k) {
+    float t, u, v;
+    blocked = tri_test_rcp(s, k, r, tnear, t_max, t, u, v);
+  }
+  for (int k = 0; k < n_sph && !blocked; ++k) {
+    float t0, t1;
+    const bool ok = sph_roots(s, k, r, t0, t1);
+    blocked = ok && ((t0 >= tnear && t0 < t_max) || (t1 >= tnear && t1 < t_max));
+  }
+  return blocked ? 1.0f : 0.0f;
+}
+
+__global__ void __launch_bounds__(BLOCK)
+k1_rcp(const float* __restrict__ tri, int n_tris, const float* __restrict__ sph, int n_sph,
+       RayIn in, int n, float tnear, HitOut out) {
+  __shared__ Soups s;
+  __shared__ int list[LANES * BLOCK];
+  __shared__ int warp_n[LANES * BLOCK / 32];
+  unsigned dead;
+  const int n_live = live_lanes(in.tfar, n, tnear, dead, list, warp_n);
+#pragma unroll
+  for (int j = 0; j < LANES; ++j)
+    if (dead >> j & 1u) out.miss(blockIdx.x * (LANES * BLOCK) + j * BLOCK + threadIdx.x);
+  if (n_live == 0) return;
+  stage_soups(s, tri, n_tris, sph, n_sph);
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_live; j += BLOCK)
+    closest_rcp(s, n_tris, n_sph, in, list[j], tnear, out);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+k2_rcp(const float* __restrict__ tri, int n_tris, const float* __restrict__ sph, int n_sph,
+       RayIn in, int n, float tnear, float* __restrict__ blocked_out) {
+  __shared__ Soups s;
+  __shared__ int list[LANES * BLOCK];
+  __shared__ int warp_n[LANES * BLOCK / 32];
+  unsigned dead;
+  const int n_live = live_lanes(in.tfar, n, tnear, dead, list, warp_n);
+#pragma unroll
+  for (int j = 0; j < LANES; ++j)
+    if (dead >> j & 1u) blocked_out[blockIdx.x * (LANES * BLOCK) + j * BLOCK + threadIdx.x] = 0.0f;
+  if (n_live == 0) return;
+  stage_soups(s, tri, n_tris, sph, n_sph);
+  __syncthreads();
+  for (int j = threadIdx.x; j < n_live; j += BLOCK) {
+    const int i = list[j];
+    blocked_out[i] = occluded_rcp(s, n_tris, n_sph, in, i, tnear);
+  }
+}
+
 // live_lanes with L lanes a thread; with EARLY the dead lanes' results are
 // written before the barrier, not after it.
 template <int L, bool EARLY, class Miss>
@@ -192,6 +330,19 @@ int launch_k2(const float* tri, int n_tris, const float* sph, int n_sph, const f
 #define K2_NAMES tri, n_tris, sph, n_sph, ox, oy, oz, dx, dy, dz, tfar, n, tnear, blocked, stream
 
 extern "C" {
+int k1_rcp_select(K1_ARGS) {
+  if (n > 0)
+    k1_rcp<<<(n + LANES * BLOCK - 1) / (LANES * BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear,
+        HitOut{t, prim, u, v, gx, gy, gz});
+  return (int)cudaGetLastError();
+}
+int k2_rcp_select(K2_ARGS) {
+  if (n > 0)
+    k2_rcp<<<(n + LANES * BLOCK - 1) / (LANES * BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear, blocked);
+  return (int)cudaGetLastError();
+}
 int k1_early(K1_ARGS) { return launch_k1<2, true, false>(K1_NAMES); }
 int k1_uv_after(K1_ARGS) { return launch_k1<2, false, true>(K1_NAMES); }
 int k1_early_uv_after(K1_ARGS) { return launch_k1<2, true, true>(K1_NAMES); }

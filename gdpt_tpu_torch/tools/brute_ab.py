@@ -39,8 +39,8 @@ def _nvcc(src, out):
     return proc.stderr
 
 
-K1_DESIGNS = ("early", "uv_after", "early_uv_after", "tile4_early_uv_after")
-K2_DESIGNS = ("early", "tile4_early")
+K1_DESIGNS = ("rcp_select", "early", "uv_after")
+K2_DESIGNS = ("rcp_select", "early")
 
 
 def build():
