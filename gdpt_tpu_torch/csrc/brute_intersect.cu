@@ -27,8 +27,8 @@
 // arithmetic where rays are live, and by the miss records it writes where
 // they are dead (tfar in, 28 B out a lane). K2 does the same 52 per pair,
 // but only up to the first blocking triangle. Without fused multiply-adds
-// every operation takes its own issue slot, so the bit-exact ceiling is
-// about twice the operations bound.
+// every operation takes its own instruction slot, so the bit-exact
+// ceiling is about twice the operations bound.
 //
 // Design:
 // - Live rays only. A block of 256 threads takes a tile of 512
