@@ -6,8 +6,8 @@
 Phases, each fatal on failure:
   1. print the card and its power limit; build the native sources of
      gdpt_tpu_torch/csrc (four CUDA files, one C++ file; one compiler
-     process each, started together; timed); read K1's and K2's
-     registers and local memory from the built library;
+     process each, started together; timed); read every timed kernel's
+     registers and local memory from the built libraries;
   2. hold K1 (closest hit) and K2 (any hit) against their plain PyTorch
      versions at the 512x512 cbox's ray count, bit for bit (0 rays may
      differ in the bits of t, u, v, the normal or blocked, or in prim):
@@ -49,10 +49,12 @@ Phases, each fatal on failure:
      against its plain version and against K3 on it: camera, bounce and
      shadow rays, 262,144 and 262,143 rays, closest and any hit;
  14. hold K5 (the visit microbenchmark) against its plain version in every
-     mode on 65,536 rays with 256 visits; then run the tool's entry point
-     at 262,144 rays with 2,048 visits on the 32- and the 16-wide table
-     (counters zeroed just before, read just after, one per mode): ns per
-     visit per ray and mode, beside K3's time per visit in the walk;
+     mode on 65,536 rays with 256 visits, bit for bit; then run the tool's
+     entry point at 262,144 rays with 2,048 visits on the 32- and the
+     16-wide table (counters zeroed just before, read just after, one per
+     mode): ns per visit per ray and mode, beside K3's time per visit in
+     the walk; and hold K5's super32 and leaf24 at that size against the
+     plain version, whose time is taken there, bit for bit;
  15. the gradient-domain main path: render.render of the scene with
      integrator "gradpath", 4 spp, default table (5-path lockstep in the
      wavefront lane pool -> K3 -> screened-Poisson solve), counters zeroed
@@ -78,8 +80,9 @@ Phases, each fatal on failure:
      it by CUDA graph replay beside its bound, print its live share, and
      sum K1 + K2 per sample of each render.
 
-Prints one "kernels" JSON line (K1's and K2's rows also carry their
-registers, local bytes and phase 20's time per sample of each render),
+Prints one "kernels" JSON line (every row also carries its kernel's
+registers and local bytes, K1's and K2's phase 20's time per sample of
+each render),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -99,6 +102,16 @@ SPP_MAIN = 4                # brute-force main path
 SPP_BVH = 4                 # BVH main path
 SPP_GRAD = 4                # gradient-domain main path
 N_BRUTE_SAMPLE = 16384      # rays held against brute force over all triangles
+# The kernel behind each row of the kernels line, in its order: a part of
+# its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
+# 4, leaf24 = mode 9).
+KERNEL_ENTRIES = (
+    ("K1", "intersect_brute_kernel"), ("K2", "occluded_brute_kernel"),
+    ("K3 closest", "packet_trace_kernelILi32ELb0ELb0E"),
+    ("K3 any hit", "packet_trace_kernelILi32ELb1ELb0E"),
+    ("K4 closest", "packet_trace_dual_kernelILb0ELb0E"),
+    ("K4 any hit", "packet_trace_dual_kernelILb1ELb0E"),
+    ("K5 super32", "visit_microbench_kernelILi4E"), ("K5 leaf24", "visit_microbench_kernelILi9E"))
 
 
 def _card():
@@ -746,6 +759,15 @@ def _compare_k4(pk, tab, rays, any_hit, label):
     return float((got[0] - ref[0]).abs().max())
 
 
+def _k5_differ(got, ref):
+    """Rays whose K5 result differs from the plain version's in any bit
+    of t, prim or the mask word."""
+    import torch
+
+    torch.cuda.synchronize()
+    return [int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(got, ref)]
+
+
 def _gradpath_phases(card, ctx):
     """Phases 13-19: the gradient-domain path (5-path lockstep, Poisson
     solve) on the icosphere box, the dual walk K4 on its 16-wide table
@@ -803,8 +825,7 @@ def _gradpath_phases(card, ctx):
         for mode in vm.MODES:
             got = vm.visit_microbench(tab, *small, 256, mode)
             ref = vm.visit_microbench_plain(tab, *small, 256, mode)
-            torch.cuda.synchronize()
-            bad = [int((a != b).sum()) for a, b in zip(got, ref)]
+            bad = _k5_differ(got, ref)
             err5[mode] = max(err5[mode], float((got[0] - ref[0]).abs().max()))
             print(f"  K5 {mode} on the {tab.width}-wide table: 65536 rays x 256 visits: t differs "
                   f"on {bad[0]}, prim on {bad[1]}, mask word on {bad[2]}; hits "
@@ -824,13 +845,20 @@ def _gradpath_phases(card, ctx):
     ns3 = ctx["k3_ns_per_visit"]
     print(f"phase 14: K5 on {card}: launches by mode {k5_launches}; K3 (a lane group per ray) "
           f"spends {ns3[0]:.4f} (closest) and {ns3[1]:.4f} (any hit) ns per visit per ray on "
-          f"the 32-wide table; K5's one-thread-per-ray bodies (the reference's) cost "
+          f"the 32-wide table; K5's visits of one row shared by every ray cost "
           f"{timed[32]['super32'][1]:.5f} (super32) and {timed[32]['leaf24'][1]:.5f} (leaf24) ns "
           f"coherent, the bare loop {timed[32]['empty'][1]:.5f}")
     k5_rows = []
     rays_t = vm.random_rays(tab32, n_rays)
     for mode in ("super32", "leaf24"):  # the 32-wide table's own two visits
-        ms_plain = _events_ms(lambda: vm.visit_microbench_plain(tab32, *rays_t, n_visits, mode), 1)
+        ref = []
+        ms_plain = _events_ms(
+            lambda: ref.append(vm.visit_microbench_plain(tab32, *rays_t, n_visits, mode)), 1)
+        bad = _k5_differ(vm.visit_microbench(tab32, *rays_t, n_visits, mode), ref[0])
+        print(f"  K5 {mode} on the 32-wide table: {n_rays} rays x {n_visits} visits: t differs "
+              f"on {bad[0]}, prim on {bad[1]}, mask word on {bad[2]}")
+        if sum(bad):
+            raise AssertionError(f"K5 disagrees with its plain version in mode {mode} at full size")
         ops, distinct = vm.visit_work(tab32, n_visits, mode)
         k5_rows.append(_kernel_row(
             f"visit_microbench {mode} (K5)", "gdpt_tpu_torch/csrc/visit_microbench.cu",
@@ -1097,17 +1125,23 @@ def main():
          "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    resources = _resource_usage(libs[0])
-    print(f"phase 1: K1 and K2 (registers, local bytes a thread): {resources or 'not measured'}")
+    resources = {}
+    for lib in libs[:4]:
+        resources.update(_resource_usage(lib))
+    use = {entry: [v for k, v in resources.items() if entry in k] for _, entry in KERNEL_ENTRIES}
+    use = {entry: v[0] if v else (None, None) for entry, v in use.items()}
+    print(f"phase 1: registers, local bytes a thread: "
+          + ", ".join(f"{name} {use[entry]}" for name, entry in KERNEL_ENTRIES))
 
     rows = _brute_phases(card)
     k3_rows, ctx = _bvh_phases(card)
     rows += k3_rows + _gradpath_phases(card, ctx)
     sums = _batch_phase(card)
-    for row, name, entry in ((rows[0], "K1", "intersect_brute_kernel"),
-                             (rows[1], "K2", "occluded_brute_kernel")):
-        use = [v for k, v in resources.items() if entry in k]
-        row["registers"], row["local_bytes"] = use[0] if use else (None, None)
+    if len(rows) != len(KERNEL_ENTRIES):
+        raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
+    for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
+        row["registers"], row["local_bytes"] = use[entry]
+    for row, name in zip(rows, ("K1", "K2")):
         row["us_per_sample"] = {r: v[name] for r, v in sums.items()}
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -11,8 +11,8 @@
 // prim) as a sequential strict t < best scan over the slots would. The
 // tests are the reference's, operation for operation
 // (gdpt_tpu/accel/packet_trace.py `super_mask`, `visit_leaf`), in the
-// order of packet_visit.cuh's test_boxes2 and test_prims4; every source
-// that includes this file is built with --fmad=false. packet_trace.cu's
+// order of visit_microbench.cu's slab and tri (K5); every source that
+// includes this file is built with --fmad=false. packet_trace.cu's
 // top comment describes the walk and its stack.
 
 #pragma once
@@ -42,7 +42,7 @@ struct Lanes {
   }
 };
 
-// One box of test_boxes2 (packet_visit.cuh) in its operation order; the
+// One box of the slab test in the reference's operation order; the
 // box is (min.x, min.y), (min.z, max.x), (max.y, max.z).
 __device__ __forceinline__ bool box_hit(float2 a, float2 b, float2 c, const Ray& r,
                                         float best) {
@@ -56,7 +56,7 @@ __device__ __forceinline__ bool box_hit(float2 a, float2 b, float2 c, const Ray&
   return t_in <= t_o;
 }
 
-// One slot of test_prims4 (packet_visit.cuh) in its operation order: a
+// One slot of the primitive test in the reference's operation order: a
 // hit within [tnear, best), its distance in tt.
 __device__ __forceinline__ bool prim_hit(const float* g, int pid, const Ray& r, int n_tris,
                                          float best, float& tt) {

@@ -75,9 +75,9 @@
 // rays, about 10 us either way. The kernel is bound instead by the chain
 // of each visit (the row loads, the tests, a ballot, the pop and its
 // shuffle) over the 40 warps an SM holds: its time per visit stays the
-// same when the rows hit L1, so coherent rays, which the
-// one-thread-per-ray bodies of packet_visit.cuh (the microbenchmark K5)
-// run at a fraction of the cost, gain nothing here (PERF.md).
+// same when the rows hit L1, so coherent rays, whose shared rows the
+// microbenchmark K5 (visit_microbench.cu) visits at a fraction of the
+// cost, gain nothing here (PERF.md).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
 // -shared -Xcompiler -fPIC. --fmad=false keeps every multiply and add
@@ -87,8 +87,7 @@
 
 // packet_group.cuh holds the walk (walk_group, walk_ray), which K4
 // shares, with its lane group, tests, pop order and leaf reduction; it
-// takes packet_visit.cuh's ray set-up and table constants, whose
-// one-thread-per-ray visit bodies only the microbenchmark K5 runs.
+// takes packet_visit.cuh's ray set-up and table constants.
 #include "packet_group.cuh"
 
 // A warp's two consecutive rays: K = W / 16 per group of W lanes.

@@ -187,19 +187,37 @@ def test_timed_run_needs_a_card():
         vm.run(tab, 128, 8)
 
 
+def _cuda_cases():
+    """(table, n_rays, n_visits) on the card: both widths with a ray count
+    that is no multiple of a block's rays and more iterations than the
+    ring has stages; ray counts around one and four rays a thread and a
+    block's 512; tables of one and two rows, where the ring stages the
+    same row again and again; zero, one and three visits (odd for the
+    pair modes)."""
+    tabs = {}
+    for wide in (16, 32):
+        args, kw = _table_case("triangles", wide)
+        tabs[wide] = tpt.packet_table_to(tpt.build_packet_table(*args, **kw), "cuda")
+    cut = lambda wide, rows: tabs[wide]._replace(  # noqa: E731
+        table=tabs[wide].table[:rows].contiguous())
+    return ([(tabs[w], 65_536 + 77, 128) for w in (16, 32)]
+            + [(tabs[16], n, 37) for n in (0, 1, 3, 5, 511, 513)]
+            + [(cut(w, r), 1000, 40) for w, r in ((16, 1), (16, 2), (32, 2))]
+            + [(tabs[32], 700, v) for v in (0, 1, 3)])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", vm.MODES)
 def test_cuda_kernel_matches_plain(mode):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for wide in (16, 32):
-        args, kw = _table_case("triangles", wide)
-        tab = tpt.packet_table_to(tpt.build_packet_table(*args, **kw), "cuda")
-        rays = vm.random_rays(tab, 65_536 + 77, seed=3)
+    for tab, n, n_visits in _cuda_cases():
+        rays = vm.random_rays(tab, n, seed=3)
         before = vm.LAUNCHES[mode]
-        got = vm.visit_microbench(tab, *rays, 128, mode)
-        assert vm.LAUNCHES[mode] == before + 1
-        ref = vm.visit_microbench_plain(tab, *rays, 128, mode)
+        got = vm.visit_microbench(tab, *rays, n_visits, mode)
+        assert vm.LAUNCHES[mode] == before + (n > 0)
+        ref = vm.visit_microbench_plain(tab, *rays, n_visits, mode)
         torch.cuda.synchronize()
         for a, b in zip(got, ref):  # t, prim and the mask word, bit for bit
-            assert torch.equal(a, b)
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), (
+                tab.table.shape[0], n, n_visits)
