@@ -7,9 +7,11 @@ the 32-wide table has them, and with scalar loads — in isolation over the real
 with no walk around them, so a walk's time per visit splits into the
 visit bodies and everything else (divergence, scattered rows, the
 dependent child-ref loads). The hand-written Hopper kernel lives in
-csrc/visit_microbench.cu over the one-thread-per-ray visit bodies of
-csrc/packet_visit.cuh (the walks K3 and K4 visit a row with a group of
-lanes, csrc/packet_group.cuh). `visit_microbench` takes its plain PyTorch
+csrc/visit_microbench.cu: a block stages each iteration's rows once in
+shared memory by bulk asynchronous copies, ahead of use, and each thread
+runs four rays against every row word it reads (the walks K3 and K4
+visit a row with a group of lanes, csrc/packet_group.cuh); it returns
+the plain version's bits. `visit_microbench` takes its plain PyTorch
 version only for tensors on the CPU; for CUDA tensors it launches the
 kernel or raises. LAUNCHES counts kernel launches, by mode.
 
