@@ -78,7 +78,25 @@ Phases, each fatal on failure:
      one 512x512 cbox `gradpath` sample as the banded loops hand them to
      the wrappers; hold each against its plain version bit for bit, time
      it by CUDA graph replay beside its bound, print its live share, and
-     sum K1 + K2 per sample of each render.
+     sum K1 + K2 per sample of each render;
+ 21. the material box (scene/presets.material_box: every material kind,
+     a 1024x1024 image on the back wall, a 1024x1024 roughness map on the
+     floor, a 512x1024 image envmap; depth cut to 8) at 512x512, 4 spp,
+     brute force: `path` and `gradpath` on cuda through K1 and K2 (counts
+     zeroed just before each render, read just after); finite images, and
+     gradpath's reconstruction keeps its primal's mean;
+ 22. the 32x32 material box, `path` and `gradpath`, brute force and BVH
+     (two small icosphere balls), on cuda and on the CPU, held together;
+ 23. the BVH material box (the icosphere balls of phase 7 added, the
+     large one a Disney BSDF and the small one a rough dielectric; the
+     spheres in the packet table) at 512x512: `path` and `gradpath` at 4
+     spp through K3 on the 32-wide table, `gradpath` at 1 spp on the
+     16-wide table solo (K3) and dual (K4), whose images must be equal;
+     K3 held against its plain version, and timed, on a batch of bounce
+     rays that start inside the refracting balls (recorded from the
+     render's own casts), and K1 on such a batch of the brute-force box;
+     4 `path` and 2 `gradpath` wavefront iterations under the profiler:
+     launches per iteration, the device's busy share, K3's share.
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
@@ -102,6 +120,12 @@ SPP_MAIN = 4                # brute-force main path
 SPP_BVH = 4                 # BVH main path
 SPP_GRAD = 4                # gradient-domain main path
 N_BRUTE_SAMPLE = 16384      # rays held against brute force over all triangles
+MAT_SPP = 4                 # material box renders
+MAT_DEPTH = 8               # the material box's path depth, cut from unbounded
+MAT_IMAGES = dict(image_px=1024, env_px=512)   # 1024x1024 wall and floor maps, 512x1024 envmap
+# The 32x32 box of phase 22: small images, depth 3, two small balls for BVH.
+MAT_SMALL = dict(image_px=64, env_px=32, max_depth=3)
+MAT_SMALL_BALLS = [(3, (368.0, 100.0, 351.0), 100.0), (2, (186.0, 60.0, 169.0), 60.0)]
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -241,9 +265,10 @@ def _brute_work(kind, args):
     return n_live, ops, 4 * n + 24 * n_live + 4 * n
 
 
-def _report_profile(prof, wall_us, phase, what, ours, ours_label, card):
-    """Device time by kernel name, kernel launches, and the device's busy
-    share of the profiled wall time; `ours` picks this repo's kernels."""
+def _report_profile(prof, wall_us, phase, what, ours, ours_label, card, iters=None):
+    """Device time by kernel name, kernel launches (per iteration, given
+    `iters`), and the device's busy share of the profiled wall time;
+    `ours` picks this repo's kernels."""
     import torch
 
     kernels = [e for e in prof.key_averages()
@@ -255,9 +280,10 @@ def _report_profile(prof, wall_us, phase, what, ours, ours_label, card):
         return
     count = sum(e.count for e in kernels)
     mine = sum(t for k, t in dev_us.items() if ours in k)
+    per_iter = f" ({count / iters:.1f} per iteration)" if iters else ""
     print(f"phase {phase}: {what} under torch.profiler on {card}: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {total / 1e3:.1f} ms ({total / wall_us:.3f} of wall), "
-          f"{count} kernel launches, {ours_label} {mine / 1e3:.2f} ms "
+          f"{count} kernel launches{per_iter}, {ours_label} {mine / 1e3:.2f} ms "
           f"({mine / total:.3f} of device time)")
     for key, t in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {t / 1e3:8.2f} ms  {key[:90]}")
@@ -442,16 +468,16 @@ def _cuda_vs_cpu(render, scene, phase, label):
     _gate_cuda_vs_cpu(a, b, float(b.mean()), phase, label)
 
 
-def _gradpath_cuda_vs_cpu(render, scene, label):
+def _gradpath_cuda_vs_cpu(render, scene, label, phase=17):
     """Reconstruction and gradients of a gradpath render, cuda against
     cpu; the gradients' means (differences near zero) are held to 0.1% of
     the primal's mean."""
     a, aux_a = render.render(scene, seed=3, device="cuda", return_aux=True)
     b, aux_b = render.render(scene, seed=3, device="cpu", return_aux=True)
     scale = float(aux_b["primal"].mean())
-    _gate_cuda_vs_cpu(a, b, scale, 17, f"gradpath {label}, recon")
+    _gate_cuda_vs_cpu(a, b, scale, phase, f"gradpath {label}, recon")
     for name in ("gx", "gy"):
-        _gate_cuda_vs_cpu(aux_a[name], aux_b[name], scale, 17, f"gradpath {label}, {name}")
+        _gate_cuda_vs_cpu(aux_a[name], aux_b[name], scale, phase, f"gradpath {label}, {name}")
 
 
 def _compare_k3(pk, tab, rays, n_tris, any_hit, label):
@@ -1030,9 +1056,10 @@ def _gradpath_phases(card, ctx):
     return rows + k5_rows
 
 
-def _record_brute_batches(render, presets, bk, integrator):
-    """Every K1 / K2 call of one 512x512 cbox sample as (kind, args),
-    recorded through the wrappers' module attributes, in order."""
+def _record_brute_batches(render, bk, scene):
+    """Every K1 / K2 call of one render of a brute-force scene on cuda as
+    (kind, args), recorded through the wrappers' module attributes, in
+    order."""
     seen = []
     wrappers = {"K1": bk.intersect_brute, "K2": bk.occluded_brute}
 
@@ -1044,8 +1071,7 @@ def _record_brute_batches(render, presets, bk, integrator):
 
     bk.intersect_brute, bk.occluded_brute = recording("K1"), recording("K2")
     try:
-        render.render(presets.cornell_box(512, 512, spp=1, integrator=integrator), seed=0,
-                      device="cuda")
+        render.render(scene, seed=0, device="cuda")
     finally:
         bk.intersect_brute, bk.occluded_brute = wrappers["K1"], wrappers["K2"]
     return seen
@@ -1062,7 +1088,8 @@ def _batch_phase(card):
 
     sums = {}
     for integrator in ("path", "gradpath"):
-        batches = _record_brute_batches(render, presets, bk, integrator)
+        batches = _record_brute_batches(
+            render, bk, presets.cornell_box(512, 512, spp=1, integrator=integrator))
         per = sums.setdefault(integrator, {"K1": 0.0, "K2": 0.0})
         for j, (kind, args) in enumerate(batches):
             fn, plain = ((bk.intersect_brute, bk.intersect_brute_plain) if kind == "K1"
@@ -1085,6 +1112,271 @@ def _batch_phase(card):
               f"equal to the plain version bit for bit; K1 {per['K1']:.1f} us + K2 "
               f"{per['K2']:.1f} us = {per['K1'] + per['K2']:.1f} us per sample on {card}")
     return sums
+
+
+def _with_integrator(scene, integrator):
+    import dataclasses
+
+    st = scene.static
+    return scene._replace(static=dataclasses.replace(
+        st, options=dataclasses.replace(st.options, integrator=integrator)))
+
+
+def _refracting(presets, bvh):
+    """(center, radius) of the material box's refracting bodies: the
+    rough dielectric, Disney glass and Disney BSDF spheres, and with bvh
+    the two icosphere balls."""
+    spheres = [presets.MATERIAL_SPHERES[i][:2] for i in (0, 3, 6)]
+    return spheres + ([(c, r) for _, c, r in presets.ICOSPHERE_BALLS] if bvh else [])
+
+
+def _inside(org, d, live, bodies):
+    """Lanes whose ray starts on or just inside a refracting body and
+    runs into it: a ray that the casts see from inside the geometry."""
+    import torch
+
+    from gdpt_tpu_torch.core import soa
+
+    sel = torch.zeros_like(live)
+    for center, radius in bodies:
+        rel = org - soa.V3(*(float(c) for c in center))
+        dist = soa.length(rel)
+        sel |= (dist > 0.98 * radius) & (dist < 1.0001 * radius) & (soa.dot(d, rel) < 0)
+    return sel & live
+
+
+def _material_render(render, scene, phase, label, card, counters, spp=MAT_SPP, **walk):
+    """One render of the material box on cuda, counters zeroed just
+    before and read just after. Returns (image, aux or None, rays,
+    launches, wall)."""
+    import numpy as np
+
+    grad = scene.static.options.integrator == "gradpath"
+    for k in counters:
+        counters[k] = 0
+    t0 = time.perf_counter()
+    out = render.render(scene, spp=spp, seed=0, device="cuda", return_stats=True,
+                        return_aux=grad, **walk)
+    wall = time.perf_counter() - t0
+    launches = dict(counters)
+    img, aux, rays = (out[0], out[1], out[2]) if grad else (out[0], None, out[1])
+    means = (f"mean recon {float(img.mean()):.6f}, mean primal {float(aux['primal'].mean()):.6f}"
+             if grad else f"mean radiance {float(img.mean()):.6f}")
+    print(f"phase {phase}: material box {label} 512x512 spp {spp}: {means}, wall {wall:.3f} s, "
+          f"rays {rays:.0f}, {rays / wall / 1e6:.2f} Mrays/s, launches {launches} on {card}")
+    if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not float(img.mean()) > 0:
+        raise AssertionError(f"material box {label}: image not finite, not 512x512x3 or black")
+    if grad:
+        if not all(np.isfinite(a).all() for a in aux.values()):
+            raise AssertionError(f"material box {label}: auxiliary buffers not finite")
+        m_recon, m_primal = float(img.mean()), float(aux["primal"].mean())
+        if abs(m_recon - m_primal) > 0.02 * m_primal:
+            raise AssertionError(f"material box {label}: the reconstruction lost the primal's mean")
+    return img, aux, rays, launches, wall
+
+
+def _material_phases(card):
+    """Phases 21-23: the material box (every material kind, image
+    textures, an image envmap) brute force and BVH, path and gradpath."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import traverse_soa as trs
+    from gdpt_tpu_torch.core import soa
+    from gdpt_tpu_torch.integrators import gdpt_soa, path_soa, render
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    dev = torch.device("cuda")
+
+    # ---- phase 21: the brute-force material box, path and gradpath ----
+    t_phase = t0 = time.perf_counter()
+    box = presets.material_box(512, 512, MAT_SPP, max_depth=MAT_DEPTH, **MAT_IMAGES)
+    path_soa.scene_soa_from_aos(scene_to(box, dev))
+    st = box.static
+    print(f"phase 21: material box: {st.n_tris} triangles, {st.n_spheres} spheres, material kinds "
+          f"{st.used_material_kinds}, image envmap {st.envmap_is_image}, scene and tables "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not st.use_brute_force or len(st.used_material_kinds) != 9 or not st.envmap_is_image:
+        raise AssertionError("the brute-force material box is not the one asked for")
+    for integrator in ("path", "gradpath"):
+        _, _, _, launches, _ = _material_render(
+            render, _with_integrator(box, integrator), 21, f"brute force {integrator}", card,
+            bk.LAUNCHES)
+        print(f"phase 21: K1 {launches['intersect'] / MAT_SPP:.1f} and K2 "
+              f"{launches['occluded'] / MAT_SPP:.1f} launches per sample ({integrator})")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"a kernel of the material box was never launched: {launches}")
+    t_phase = _phase_done(21, t_phase)
+
+    # ---- phase 22: cuda vs cpu at 32x32, brute force and BVH ----
+    for bvh in (False, True):
+        where = "BVH" if bvh else "brute force"
+        small = presets.material_box(32, 32, 2, bvh=bvh,
+                                     balls=MAT_SMALL_BALLS if bvh else None, **MAT_SMALL)
+        if small.static.use_brute_force == bvh:
+            raise AssertionError(f"the 32x32 {where} material box took the other regime")
+        _cuda_vs_cpu(render, small, 22, f"material box path, {where}")
+        _gradpath_cuda_vs_cpu(render, _with_integrator(small, "gradpath"),
+                              f"material box, {where}", phase=22)
+    t_phase = _phase_done(22, t_phase)
+
+    # ---- phase 23: the BVH material box at full width ----
+    t0 = time.perf_counter()
+    bvh_box = presets.material_box(512, 512, MAT_SPP, bvh=True, max_depth=MAT_DEPTH,
+                                   **MAT_IMAGES)
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene_dev = scene_to(bvh_box, dev)
+    sc = path_soa.scene_soa_from_aos(scene_dev)
+    torch.cuda.synchronize()
+    t_table = time.perf_counter() - t0
+    st = bvh_box.static
+    tab = sc.geom.packet
+    n_tris = trs._table_n_tris(st)
+    print(f"phase 23: BVH material box: {st.n_tris} triangles and {st.n_spheres} in-table "
+          f"spheres by the {bvh_box.bvh_builder} builder, scene build {t_scene:.2f} s, packet "
+          f"table {tab.table.shape[0]} rows, width {tab.width}, tables {t_table:.2f} s")
+    if st.use_brute_force or st.n_tris < 400_000 or n_tris is None:
+        raise AssertionError("the BVH material box is not the full-size one with in-table spheres")
+    _, _, _, launches, _ = _material_render(render, bvh_box, 23, "BVH path", card, pk.LAUNCHES)
+    print(f"phase 23: K3 launches per path sample: {launches['packet_intersect'] / MAT_SPP:.1f} "
+          f"closest, {launches['packet_occluded'] / MAT_SPP:.1f} any hit; "
+          f"{path_soa.render_soa_wavefront.last_iters} wavefront iterations, mean occupancy "
+          f"{path_soa.render_soa_wavefront.last_occupancy:.3f}")
+    if min(launches["packet_intersect"], launches["packet_occluded"]) == 0:
+        raise AssertionError(f"a K3 mode of the BVH material box was never launched: {launches}")
+    grad = _with_integrator(bvh_box, "gradpath")
+    if path_soa.scene_soa_from_aos(scene_to(grad, "cuda")).geom.packet is not tab:
+        raise AssertionError("the BVH material box's tables were not kept for the render")
+    _, _, _, launches, _ = _material_render(render, grad, 23, "BVH gradpath", card, pk.LAUNCHES)
+    iters = gdpt_soa._gdpt_wavefront_accum.last_iters
+    print(f"phase 23: K3 launches per gradpath sample: {launches['packet_intersect'] / MAT_SPP:.1f} "
+          f"closest, {launches['packet_occluded'] / MAT_SPP:.1f} any hit; {iters} wavefront "
+          f"iterations, mean occupancy {gdpt_soa._gdpt_wavefront_accum.last_occupancy:.3f}")
+    if min(launches["packet_intersect"], launches["packet_occluded"]) == 0 or \
+            launches["packet_dual_intersect"] + launches["packet_dual_occluded"]:
+        raise AssertionError(f"the BVH material box's gradpath did not go through K3: {launches}")
+    t0 = time.perf_counter()
+    tab16 = path_soa.scene_soa_from_aos(scene_dev, wide=16).geom.packet
+    torch.cuda.synchronize()
+    print(f"phase 23: 16-wide packet table {tab16.table.shape[0]} rows, tables "
+          f"{time.perf_counter() - t0:.2f} s")
+    outs = {}
+    for dual in (False, True):
+        outs[dual] = _material_render(render, grad, 23,
+                                      f"BVH gradpath, 16-wide table, {'K4' if dual else 'K3'}",
+                                      card, pk.LAUNCHES, spp=1, packet_wide=16, packet_dual=dual)
+    (a, aux_a, ra, _, _), (b, aux_b, rb, launches, _) = outs[False], outs[True]
+    if not (np.array_equal(a, b) and ra == rb
+            and all(np.array_equal(aux_a[k], aux_b[k]) for k in aux_a)):
+        raise AssertionError("the material box's K4 render differs from its K3 render")
+    if min(launches["packet_dual_intersect"], launches["packet_dual_occluded"]) == 0 \
+            or launches["packet_intersect"] + launches["packet_occluded"]:
+        raise AssertionError(f"the dual render did not go through K4 alone: {launches}")
+    print("phase 23: the material box's K4 render equals its K3 render on the 16-wide table")
+
+    # Bounce rays that start inside the refracting balls, from the
+    # render's own casts (a few wavefront iterations past the first).
+    n_pix = st.width * st.height
+    total = n_pix * MAT_SPP
+    cam_arrays = scene_dev.device.camera
+    state = path_soa._wavefront_state(n_pix, path_soa._pool_width(total), total, 1, dev)
+    seen = []
+    walk = pk.trace_packets
+
+    def recording(table, *rays, **kw):
+        if not kw.get("any_hit"):
+            seen.append((rays, kw))
+        return walk(table, *rays, **kw)
+
+    pk.trace_packets = recording
+    try:
+        for _ in range(6):
+            state = path_soa._wavefront_body(st, cam_arrays, sc, state)
+    finally:
+        pk.trace_packets = walk
+    parts = []
+    for rays, kw in seen[1:]:
+        sel = _inside(soa.V3(*rays[:3]), soa.V3(*rays[3:6]), rays[7] >= rays[6],
+                      _refracting(presets, True))
+        parts.append(tuple(c[sel] for c in rays))
+    inside = tuple(torch.cat(cs).contiguous() for cs in zip(*parts))
+    n_in = inside[0].shape[0]
+    if n_in < 1000:
+        raise AssertionError(f"only {n_in} recorded rays start inside a refracting ball")
+    _compare_k3(pk, tab, inside, n_tris, False, f"{n_in} bounce rays inside the refracting balls")
+    ms, _ = _time_ms(lambda: pk.trace_packets(tab, *inside, n_tris=n_tris), 10, 3)
+    ops, nbytes, n_read, visits = _walk_work(pk, tab, inside, False)
+    print(f"phase 23: K3 closest on the {n_in} rays inside the refracting balls: "
+          f"{ms * 1e3:.1f} us/launch by CUDA graph replay, bound "
+          f"{max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e6:.2f} us ({ops / 1e9:.3f} "
+          f"Gop, {nbytes / 1e6:.1f} MB, {n_read} rows read), {visits / n_in:.2f} visits per ray "
+          f"on {card}")
+
+    batches = _record_brute_batches(
+        render, bk, presets.material_box(512, 512, 1, max_depth=MAT_DEPTH, **MAT_IMAGES))
+    parts = []
+    for kind, args in batches:
+        if kind != "K1":
+            continue
+        org, d, tfar = soa.V3(*args[4:7]), soa.V3(*args[7:10]), args[10]
+        sel = _inside(org, d, tfar > float(torch.tensor(args[11], dtype=torch.float32)),
+                      _refracting(presets, False))
+        parts.append((args, sel))
+    args0 = parts[0][0]
+    cut = tuple(torch.cat([a[i][sel] for a, sel in parts]).contiguous() for i in range(4, 11))
+    n_in = cut[0].shape[0]
+    if n_in < 1000:
+        raise AssertionError(f"only {n_in} recorded K1 rays start inside a refracting sphere")
+    k1_args = (*args0[:4], *cut, args0[11])
+    _compare_k1(bk.intersect_brute(*k1_args), bk.intersect_brute_plain(*k1_args),
+                f"{n_in} bounce rays inside the refracting spheres")
+    ms, _ = _time_ms(lambda: bk.intersect_brute(*k1_args), 10, 3)
+    _, ops, nbytes = _brute_work("K1", k1_args)
+    print(f"phase 23: K1 on the {n_in} rays inside the refracting spheres: {ms * 1e3:.2f} us/launch "
+          f"by CUDA graph replay, bound {max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e6:.2f}"
+          f" us ({ops / 1e9:.4f} Gop, {nbytes / 1e6:.2f} MB) on {card}")
+
+    # Path and gradpath wavefront iterations under the profiler: 4 and 2,
+    # not a whole chunk each: the trace's read-back grows with every launch
+    # recorded, and a gradpath chunk of this box is some 300,000 launches.
+    for _ in range(2):  # steady state first
+        state = path_soa._wavefront_body(st, cam_arrays, sc, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            state = path_soa._wavefront_body(st, cam_arrays, sc, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(prof, wall_us, 23, "4 path wavefront iterations of the BVH material box",
+                    "packet_trace_kernel", "K3", card, iters=4)
+    gst = grad.static
+    used = gst.used_material_kinds
+    gstate = gdpt_soa._gdpt_wavefront_state(gst, cam_arrays, sc, total, 1,
+                                            path_soa._pool_width(total, 1 << 17))
+    for _ in range(6):
+        gstate = gdpt_soa._gdpt_wavefront_body(gst, cam_arrays, sc, used, gstate)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            gstate = gdpt_soa._gdpt_wavefront_body(gst, cam_arrays, sc, used, gstate)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(prof, wall_us, 23, "2 gradpath wavefront iterations of the BVH material box",
+                    "packet_trace_kernel", "K3", card, iters=2)
+    _phase_done(23, t_phase)
+
+
+def _phase_done(phase, since):
+    now = time.perf_counter()
+    print(f"phase {phase}: done in {now - since:.1f} s")
+    return now
 
 
 def _resource_usage(lib):
@@ -1137,6 +1429,7 @@ def main():
     k3_rows, ctx = _bvh_phases(card)
     rows += k3_rows + _gradpath_phases(card, ctx)
     sums = _batch_phase(card)
+    _material_phases(card)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):

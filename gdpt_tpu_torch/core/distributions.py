@@ -1,8 +1,9 @@
 """Tabulated sampling distributions, built on the host in numpy.
 
 Counterpart of gdpt_tpu/core/distributions.py (reference:
-src/table_dist.h/.cpp). Only the table constructors are ported: the brute-force
-path samples its light CDF with torch.searchsorted directly.
+src/table_dist.h/.cpp): the table constructors, and the alias table with
+its sampler (envmap NEE). The light CDF is sampled with torch.searchsorted
+directly.
 """
 
 from typing import NamedTuple
@@ -111,3 +112,21 @@ def build_alias_table(weights):
         cut[i] = 1.0
         alias[i] = i
     return asarray(cut, REAL), asarray(alias, INT)
+
+
+def sample_alias(cut, alias, u):
+    """Categorical index and a re-uniformized leftover in [0, 1): keep
+    k = floor(u * N) where the coin's fraction is below cut[k], else take
+    alias[k]; the leftover re-stretches the coin to a uniform, so callers
+    reuse it as in-cell jitter."""
+    n = cut.shape[0]
+    un = u * n
+    k = torch.clamp(un.to(INT), 0, n - 1)
+    f = un - k.to(un.dtype)
+    c = cut[k.long()]
+    a = alias[k.long()]
+    keep = f < c
+    idx = torch.where(keep, k, a)
+    left = torch.where(keep, f / torch.clamp_min(c, 1e-12),
+                       (f - c) / torch.clamp_min(1.0 - c, 1e-12))
+    return idx, torch.clamp(left, 0.0, 0.999999)

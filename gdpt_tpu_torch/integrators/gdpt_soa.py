@@ -61,12 +61,9 @@ class GdptSampleSoA(NamedTuple):
 
 
 def supports_soa_gdpt(scene: Scene) -> bool:
-    """Same material/texture envelope as the path fast path: what
-    ops/materials_soa.py shades today (Lambertian materials with constant
-    or checkerboard slots, no envmap)."""
-    st = scene.static
-    return (set(st.used_material_kinds) <= {M.MAT_LAMBERTIAN} and not st.has_envmap
-            and not any(st.spec_image_slots) and 2 not in st.float_tex_slots)
+    """Same material/texture envelope as the path fast path, which is
+    all of it (reference: gdpt_tpu/integrators/gdpt_soa.py:52-54)."""
+    return msoa.supports_soa_materials(scene)
 
 
 def _is_lambertian(sc, static, material_id):

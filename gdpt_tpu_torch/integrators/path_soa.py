@@ -7,10 +7,11 @@ that at low spp the port is held against the reference pixel by pixel.
 
 Ported: the banded loop (``trace_paths_soa``) and the wavefront
 renderer (``render_soa_wavefront``, the default for BVH scenes) behind
-``render_soa``, with Lambertian materials, constant/checkerboard
-textures, mesh and sphere area lights; integrators/gdpt_soa.py builds
-the gradient-domain render on the same pieces. Not yet: envmaps, image
-textures, the other BSDFs, the pool-sorted wavefront, sharding and
+``render_soa``, with every material kind and texture slot of
+ops/materials_soa.py (image textures mip-filtered by the ray
+differentials' footprint), mesh and sphere area lights and constant or
+image envmaps; integrators/gdpt_soa.py builds the gradient-domain render
+on the same pieces. Not yet: the pool-sorted wavefront, sharding and
 resume (see ROADMAP.md).
 
 Every tensor is made on the device the scene lives on.
@@ -29,7 +30,10 @@ from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL, asarray
 from gdpt_tpu_torch.core.soa import V3
 from gdpt_tpu_torch.ops import materials_soa as msoa
-from gdpt_tpu_torch.scene.build import SHAPE_MESH, SHAPE_SPHERE, Scene, SceneMemo
+from gdpt_tpu_torch.ops import textures_soa as tsoa
+from gdpt_tpu_torch.scene import textures as tex
+from gdpt_tpu_torch.scene.build import (LIGHT_ENVMAP, SHAPE_MESH, SHAPE_SPHERE, Scene,
+                                        SceneMemo)
 
 HARD_BOUNCE_CAP = 64
 
@@ -81,8 +85,7 @@ class SceneSoA(NamedTuple):
     light_tri_first: torch.Tensor
     light_pmf: torch.Tensor
     light_cdf: torch.Tensor
-    # envmap tables: the reference's dummies (envmap scenes are not
-    # ported and raise in scene_soa_from_aos)
+    # envmap tables (the build's dummies when the scene has none)
     env_value: V3
     env_to_world: torch.Tensor
     env_to_local: torch.Tensor
@@ -94,6 +97,8 @@ class SceneSoA(NamedTuple):
     env_pdf_marginals: torch.Tensor
     env_alias_cut: torch.Tensor
     env_alias_idx: torch.Tensor
+    # Dense (h*w, 3) level-0 copy of the env image ((1, 3) zeros when
+    # the envmap is constant or absent): textures_soa.EnvmapSoA.img3.
     env_img3: torch.Tensor
 
 
@@ -169,8 +174,6 @@ def scene_soa_from_aos(scene: Scene, wide=32, dual=False) -> SceneSoA:
     wide: the packet table's supernode width, 16 or 32; dual: walk it
     with the dual kernel K4 (16-wide only) instead of K3. The dual view
     is the 16-wide view with its static flag set: the same tables."""
-    if scene.static.has_envmap:
-        raise NotImplementedError("envmap lights are not ported yet; see ROADMAP.md")
     if dual and wide != 16:
         raise ValueError(f"packet_dual=True needs packet_wide=16, got {wide!r}")
     sc = _SOA_MEMO.get(scene.device, wide, lambda: _scene_soa_from_aos(scene, wide))
@@ -194,6 +197,13 @@ def _scene_soa_from_aos(scene: Scene, wide) -> SceneSoA:
     tri_mat = dev.shape_material_id[t_shape].to(INT)
     tri_lgt = dev.shape_light_id[t_shape].to(INT)
     env_rgb = dev.envmap.tex.value[0]
+    if scene.static.envmap_is_image:
+        eid = int(dev.envmap.tex.img_id[0])
+        p3 = dev.pool3
+        eoff, ew, eh = (int(a[eid, 0]) for a in (p3.level_offset, p3.level_w, p3.level_h))
+        env_img3 = p3.data[eoff:eoff + eh * ew].contiguous()
+    else:
+        env_img3 = torch.zeros((1, 3), dtype=REAL, device=device)
     return SceneSoA(
         geom=trs.geom_soa_from_aos(dev.geom, wide=wide),
         tri_n0=soa.from_rows(put(n0)),
@@ -236,7 +246,22 @@ def _scene_soa_from_aos(scene: Scene, wide) -> SceneSoA:
         env_pdf_marginals=dev.envmap.dist.pdf_marginals,
         env_alias_cut=env_alias_cut.to(device),
         env_alias_idx=env_alias_idx.to(device),
-        env_img3=torch.zeros((1, 3), dtype=REAL, device=device),
+        env_img3=env_img3,
+    )
+
+
+def _env_view(static, sc: SceneSoA) -> tsoa.EnvmapSoA:
+    """The envmap's EnvmapSoA, its kind, width and height as Python ints."""
+    h = sc.env_pdf_marginals.shape[0]
+    w = sc.env_pdf_rows.shape[1]
+    return tsoa.EnvmapSoA(
+        sc.env_to_world, sc.env_to_local, sc.env_scale,
+        tex.TEX_IMAGE if static.envmap_is_image else tex.TEX_CONST,
+        sc.env_value, sc.env_img_id,
+        sc.env_cdf_rows, sc.env_pdf_rows,
+        sc.env_cdf_marginals, sc.env_pdf_marginals,
+        sc.env_alias_cut, sc.env_alias_idx, w, h,
+        img3=sc.env_img3 if static.envmap_is_image else None,
     )
 
 
@@ -381,7 +406,8 @@ def _searchsorted_cdf(cdf_row, u):
 
 def sample_light_point(static, sc: SceneSoA, ref: V3, u0, u1, uw, us):
     """Power-weighted light pick + point sample; returns
-    (light_id, pos, normal, pdf_area)."""
+    (light_id, pos, normal, pdf_area, is_env). For an envmap pick, pos is
+    0, normal the negated sampled direction and pdf in solid angle."""
     light_id = torch.clamp(
         torch.searchsorted(sc.light_cdf, uw, right=True) - 1,
         0, sc.light_pmf.shape[0] - 1,
@@ -460,7 +486,21 @@ def sample_light_point(static, sc: SceneSoA, ref: V3, u0, u1, uw, us):
         pos = soa.where(is_sph, p_s, pos)
         nrm = soa.where(is_sph, n_s, nrm)
         pdf = torch.where(is_sph, pdf_s, pdf)
-    return light_id, pos, nrm, pdf
+    is_env = torch.zeros_like(u0, dtype=torch.bool)
+    if static.has_envmap:
+        # Importance sampling by the envmap's table (uniform for constant
+        # envmaps; reference: src/lights/envmap.inl:22-42).
+        wdir, pdf_env = tsoa.envmap_sample_dir(_env_view(static, sc), u0, u1)
+        is_env = soa.take(sc.light_kind, light_id) == LIGHT_ENVMAP
+        pos = soa.where(is_env, V3(zero, zero, zero), pos)
+        nrm = soa.where(is_env, -1.0 * wdir, nrm)
+        pdf = torch.where(is_env, pdf_env, pdf)
+    return light_id, pos, nrm, pdf, is_env
+
+
+def envmap_pdf_for_dir(static, sc: SceneSoA, d: V3):
+    """pdf of the envmap NEE sampler for direction d."""
+    return tsoa.envmap_pdf_dir(_env_view(static, sc), d)
 
 
 def primary_rays_soa(static, camera, xs, ys, u0, u1):
@@ -504,27 +544,34 @@ def nee_soa(static, sc: SceneSoA, v: VertexSoA, params, dir_view: V3,
     zero = torch.zeros_like(lu0)
     zero3 = V3(zero, zero, zero)
     eps_shadow = static.shadow_epsilon
-    light_id, p_l, n_l, pdf_pt = sample_light_point(
+    light_id, p_l, n_l, pdf_pt, is_env = sample_light_point(
         static, sc, v.position, lu0, lu1, lw, lsw
     )
     to_l = p_l - v.position
     dist = soa.length(to_l)
-    dl = to_l * (1.0 / torch.clamp_min(dist, 1e-20))
-    g_geo = torch.clamp_min(-soa.dot(dl, n_l), 0.0) / torch.clamp_min(dist * dist, 1e-20)
+    dir_area = to_l * (1.0 / torch.clamp_min(dist, 1e-20))
+    dl = soa.where(is_env, -1.0 * n_l, dir_area)
+    g_area = torch.clamp_min(-soa.dot(dl, n_l), 0.0) / torch.clamp_min(dist * dist, 1e-20)
+    g_geo = torch.where(is_env, 1.0, g_area)
     p1 = soa.take(sc.light_pmf, light_id) * pdf_pt
     f_nee = msoa.eval_bsdf_soa(params, dir_view, dl, v.gn, v.frame, used)
     p2_raw = msoa.pdf_bsdf_soa(params, dir_view, dl, v.gn, v.frame, used)
+    # Envmap taps at footprint 0 (a level-0 lookup), as the reference's.
+    env_nee = (tsoa.envmap_emission_soa(_env_view(static, sc), sc.mat_tables.pool3, dl)
+               if static.has_envmap else zero3)
     l_emit = soa.where(
-        soa.dot(n_l, -1.0 * dl) > 0,
-        soa.gather(sc.light_intensity, light_id),
-        zero3,
+        is_env,
+        env_nee,
+        soa.where(soa.dot(n_l, -1.0 * dl) > 0, soa.gather(sc.light_intensity, light_id),
+                  zero3),
     )
     # Shadow rays only where the contribution can be nonzero; the other
     # lanes become dead rays (tfar < tnear). Estimator-identical: every
     # skipped lane's contribution is selected to exactly zero below.
     need = (active & (g_geo > 0) & (p1 > 0)
             & (soa.vmax(f_nee) > 0) & (soa.vmax(l_emit) > 0))
-    tfar = torch.where(need, (1.0 - eps_shadow) * dist, -1.0)
+    tfar = torch.where(is_env, BIG, (1.0 - eps_shadow) * dist)
+    tfar = torch.where(need, tfar, -1.0)
     unoccluded = 1.0 - trs.occluded_soa(
         static, sc.geom, v.position, dl, eps_shadow, tfar)
     g = g_geo * unoccluded
@@ -591,6 +638,10 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
     rays = torch.ones(n, dtype=REAL, device=xs.device)
     zero3 = V3(zero, zero, zero)
     radiance = soa.where(vertex.valid > 0, emission(sc, vertex, -d), zero3)
+    if static.has_envmap:
+        env_primary = tsoa.envmap_emission_soa(_env_view(static, sc), sc.mat_tables.pool3, d,
+                                               spread=spread)
+        radiance = soa.where(vertex.valid > 0, radiance, env_primary)
     if n_iters == 0:
         return radiance, rays
 
@@ -608,7 +659,7 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
         dir_view = -d
         params = msoa.gather_params_soa(
             sc.mat_tables, used, v.material_id, v.uv_u, v.uv_v,
-            static.spec_image_slots, float_tex_slots=static.float_tex_slots,
+            static.spec_image_slots, float_tex_slots=static.float_tex_slots, fp=v.fp,
         )
 
         # ---- NEE (reference: src/path_tracing.h:115-227) ----
@@ -664,6 +715,17 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
             scale = g2 * w2 / torch.clamp_min(p2a, 1e-30)
             contrib = throughput * f_b * l_emit * scale
             radiance = radiance + soa.where(hit_light, contrib, zero3)
+        if static.has_envmap:
+            # A bounce that leaves the scene sees the envmap, MIS-weighted
+            # against its NEE sampler.
+            miss = active & ~nxt_ok
+            env_hit, env_pdf = tsoa.envmap_emission_pdf_soa(
+                _env_view(static, sc), sc.mat_tables.pool3, d_out)
+            p1e = sc.light_pmf[static.envmap_light_id] * env_pdf
+            w2e = p2a * p2a / torch.clamp_min(p1e * p1e + p2a * p2a, 1e-30)
+            scale = g2 * w2e / torch.clamp_min(p2a, 1e-30)
+            contrib = throughput * f_b * env_hit * scale
+            radiance = radiance + soa.where(miss, contrib, zero3)
 
         active = active & nxt_ok
 
@@ -697,7 +759,7 @@ LANE_QUANTUM = 1024
 def _wavefront_body(static, camera, sc, st):
     """One wavefront iteration: regenerate dead lanes with the next
     (pixel, sample) work items, trace pending rays, collect emitter
-    radiance with carried-pdf MIS, NEE, sample the next bounce, RR.
+    or envmap radiance with carried-pdf MIS, NEE, sample the next bounce, RR.
 
     Estimator-identical to trace_paths_soa (same RNG streams/counters per
     (pixel, sample), same MIS/RR math) but runs a fixed-size lane pool at
@@ -765,6 +827,7 @@ def _wavefront_body(static, camera, sc, st):
                   ray_radius=radius, ray_spread=spread)
     rays = st["rays"] + alive.to(REAL).sum()
     v_ok = (v.valid > 0) & alive
+    miss = alive & (v.valid <= 0)
     is_primary = pdf_prev <= 0
 
     # --- radiance carried into this hit (reference:
@@ -781,6 +844,13 @@ def _wavefront_body(static, camera, sc, st):
         w2 = p2a * p2a / torch.clamp_min(p1h * p1h + p2a * p2a, 1e-30)
         wgt = torch.where(is_primary, 1.0, w2)
         contrib = contrib + soa.where(hit_is_light, tp_emit * l_emit * wgt, zero3)
+    if static.has_envmap:
+        env, env_pdf = tsoa.envmap_emission_pdf_soa(
+            _env_view(static, sc), sc.mat_tables.pool3, d)
+        p1e = sc.light_pmf[static.envmap_light_id] * env_pdf
+        w2e = pdf_prev * pdf_prev / torch.clamp_min(p1e * p1e + pdf_prev * pdf_prev, 1e-30)
+        wgt = torch.where(is_primary, 1.0, w2e)
+        contrib = contrib + soa.where(miss, tp_emit * env * wgt, zero3)
 
     # --- NEE + next bounce at the hit vertex ---
     b = bounce + 1
@@ -791,7 +861,7 @@ def _wavefront_body(static, camera, sc, st):
     ext = v_ok & cont & (bounce < n_iters)
     params = msoa.gather_params_soa(
         sc.mat_tables, used, v.material_id, v.uv_u, v.uv_v,
-        static.spec_image_slots, float_tex_slots=static.float_tex_slots)
+        static.spec_image_slots, float_tex_slots=static.float_tex_slots, fp=v.fp)
     dir_view = -d
     if static.n_lights > 0:
         lu0, lu1 = soa.uniform2(seed, pixel, ctr(_CTR_LIGHT_UV), sample)

@@ -4,7 +4,10 @@ Counterpart of gdpt_tpu/integrators/render.py. The scene (built on the
 host) is carried to `device` — the CUDA card unless the caller passes
 device="cpu" — and rendered there. Ported integrators: "path" and
 "gradpath" (gradient-domain path tracing with the screened-Poisson
-reconstruction). Brute-force scenes go through the banded loops, BVH
+reconstruction), over every material kind, texture slot and light type
+of the SoA stack (ops/materials_soa.py, ops/textures_soa.py), as the
+reference's SoA dispatch takes every scene of these integrators.
+Brute-force scenes go through the banded loops, BVH
 scenes (above 128 primitives) through the packet table and the wavefront
 renderers; packet_wide and packet_dual choose the table's width and the
 walk: the solo kernel K3, or on a 16-wide table the dual kernel K4.
@@ -34,10 +37,6 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     if integrator == "gradpath":
         from gdpt_tpu_torch.integrators import gdpt_soa
 
-        if not gdpt_soa.supports_soa_gdpt(scene):
-            raise NotImplementedError(
-                "gradpath: this scene is outside the SoA material envelope and the "
-                "per-ray gradient-domain integrator is not ported; see ROADMAP.md")
         return gdpt_soa.render_gradpath_soa(scene_to(scene, device), spp=spp, seed=seed,
                                             return_aux=return_aux,
                                             return_stats=return_stats, **walk)

@@ -9,6 +9,11 @@ converted through the same CIE pipeline.
 `icosphere_box` is the port's own large scene, built in code: the same
 box with its blocks replaced by finely subdivided icospheres, so the
 BVH path can be driven at a real size without a scene file.
+
+`material_box` is the port's shading test scene: the Cornell walls,
+light and camera with every material kind, spectrum and float image
+textures and an image envmap. `furnace_sphere` is the reference's
+furnace test under a constant envmap.
 """
 
 import numpy as np
@@ -198,3 +203,148 @@ def icosphere_box(width, height, spp, balls=None, spheres=(), max_depth=-1,
     opts = M.RenderOptions(integrator=integrator, samples_per_pixel=spp,
                            max_depth=max_depth)
     return build.build_scene(cam, materials, shapes, lights, options=opts)
+
+
+def furnace_sphere(albedo=1.0, emission=1.0, width=64, height=64, spp=16,
+                   max_depth=-1):
+    """Furnace test: a Lambertian sphere under a constant environment map.
+
+    Analytic solution: pixels on the (convex) sphere converge to
+    albedo * emission; pixels that miss it see the envmap directly.
+    Exercises NEE + BSDF MIS against the envmap in one scene.
+    """
+    materials = [M.Lambertian(np.full(3, albedo))]
+    inner = M.Sphere(center=np.zeros(3), radius=1.0, material_id=0)
+    lights = [M.Envmap(texture=np.full(3, emission))]
+    cam = M.Camera(
+        cam_to_world=xf.look_at([0, 0, -5], [0, 0, 0], [0, 1, 0]),
+        fov=45.0,
+        width=width,
+        height=height,
+    )
+    opts = M.RenderOptions(integrator="path", samples_per_pixel=spp, max_depth=max_depth)
+    return build.build_scene(cam, materials, [inner], lights, options=opts)
+
+
+def material_box_images(image_px, env_px, seed):
+    """The material box's images, made with numpy from `seed`: the back
+    wall's (image_px, image_px, 3) colour image, the floor's
+    (image_px, image_px) roughness map and the (env_px, 2 env_px, 3)
+    envmap, which has a bright patch and black rows (zero-pdf runs)."""
+    rng = np.random.default_rng(seed)
+    t = (np.arange(image_px) + 0.5) / image_px
+    wave = 0.5 + 0.5 * np.sin(2 * np.pi * 3 * t)[:, None] * np.cos(2 * np.pi * 2 * t)[None]
+    wall = (0.15 + 0.6 * wave[..., None] * rng.uniform(0.5, 1.0, 3)
+            + 0.1 * rng.random((image_px, image_px, 3)))
+    rough = 0.05 + 0.6 * wave.T * rng.uniform(0.7, 1.0) + 0.1 * rng.random((image_px, image_px))
+    ey = (np.arange(env_px) + 0.5) / env_px
+    ex = (np.arange(2 * env_px) + 0.5) / (2 * env_px)
+    sky = (0.3 + 0.7 * (1.0 - ey))[:, None, None] * np.array([0.5, 0.7, 1.0])
+    env = np.broadcast_to(sky, (env_px, 2 * env_px, 3)) * (
+        0.8 + 0.4 * rng.random((env_px, 2 * env_px, 1)))
+    sun = np.exp(-(((ey - 0.3)[:, None] / 0.06) ** 2 + ((ex - 0.6)[None] / 0.04) ** 2))
+    env = env + 20.0 * sun[..., None] * np.array([1.0, 0.9, 0.7])
+    env[int(env_px * 0.8):] = 0.0  # black below the horizon band
+    return (wall.astype(np.float32), rough.astype(np.float32), env.astype(np.float32))
+
+
+# Analytic spheres of the material box: (center, radius, material id).
+# One per remaining material kind (ids 6-12), then one with the wall's
+# image (id 0) and one with the floor's roughness map (id 5): nine, so
+# that on the BVH path they ride in the packet table (more than
+# traverse_soa.SPH_BRUTE_MAX).
+MATERIAL_SPHERES = [((90.0, 45.0, 420.0), 45.0, 6), ((470.0, 45.0, 130.0), 45.0, 7),
+                    ((100.0, 250.0, 300.0), 45.0, 8), ((460.0, 300.0, 150.0), 50.0, 9),
+                    ((278.0, 330.0, 450.0), 45.0, 10), ((200.0, 420.0, 250.0), 45.0, 11),
+                    ((330.0, 300.0, 300.0), 60.0, 12), ((440.0, 470.0, 420.0), 40.0, 0),
+                    ((150.0, 120.0, 60.0), 35.0, 5)]
+
+
+def build_material_box(M, build, xf, width, height, spp, bvh=False, integrator="path",
+                       image_px=64, env_px=32, seed=0, max_depth=-1, balls=None):
+    """material_box with the model, build and transform modules given:
+    a package's own, so that a test builds the same box with either
+    package."""
+    wall_img, rough_img, env_img = material_box_images(image_px, env_px, seed)
+
+    def uv_quad(p0, p1, p2, p3, **kw):
+        pos, idx = _quad(p0, p1, p2, p3)
+        uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64)
+        return M.TriangleMesh(positions=pos, indices=idx, uvs=uvs, **kw)
+
+    def plain_quad(p0, p1, p2, p3, **kw):
+        pos, idx = _quad(p0, p1, p2, p3)
+        return M.TriangleMesh(positions=pos, indices=idx, **kw)
+
+    materials = [
+        M.Lambertian(M.ImageTexture(wall_img, name="wall", uscale=2.0, vscale=2.0)),
+        M.Lambertian(RED),
+        M.Lambertian(GREEN),
+        M.Lambertian(np.array([0.78, 0.78, 0.78])),
+        M.Lambertian(WHITE),
+        M.RoughPlastic(diffuse_reflectance=WHITE, specular_reflectance=0.9,
+                       roughness=M.ImageTexture(rough_img, name="floor_roughness"), eta=1.5),
+        M.RoughDielectric(specular_reflectance=1.0, specular_transmittance=0.95,
+                          roughness=0.15, eta=1.5),
+        M.DisneyDiffuse(base_color=np.array([0.8, 0.5, 0.3]), roughness=0.6, subsurface=0.4),
+        M.DisneyMetal(base_color=np.array([0.9, 0.7, 0.4]), roughness=0.3, anisotropic=0.5),
+        M.DisneyGlass(base_color=np.array([0.85, 0.95, 0.9]), roughness=0.2,
+                      anisotropic=0.3, eta=1.45),
+        M.DisneyClearcoat(clearcoat_gloss=0.7),
+        M.DisneySheen(base_color=np.array([0.3, 0.4, 0.8]), sheen_tint=0.6),
+        M.DisneyBSDF(base_color=np.array([0.6, 0.3, 0.5]), specular_transmission=0.4,
+                     metallic=0.3, subsurface=0.2, specular=0.5, roughness=0.35,
+                     specular_tint=0.3, anisotropic=0.2, sheen=0.5, sheen_tint=0.4,
+                     clearcoat=0.6, clearcoat_gloss=0.8, eta=1.5),
+    ]
+    shapes = [
+        uv_quad((552.8, 0, 0), (0, 0, 0), (0, 0, 559.2), (549.6, 0, 559.2), material_id=5),
+        plain_quad((556, 548.8, 0), (556, 548.8, 559.2), (0, 548.8, 559.2), (0, 548.8, 0),
+                   material_id=4),
+        uv_quad((549.6, 0, 559.2), (0, 0, 559.2), (0, 548.8, 559.2), (556, 548.8, 559.2),
+                material_id=0),
+        plain_quad((0, 0, 559.2), (0, 0, 0), (0, 548.8, 0), (0, 548.8, 559.2), material_id=2),
+        plain_quad((552.8, 0, 0), (549.6, 0, 559.2), (556, 548.8, 559.2), (556, 548.8, 0),
+                   material_id=1),
+    ]
+    for center, radius, mid in MATERIAL_SPHERES:
+        shapes.append(M.Sphere(center=np.asarray(center, np.float64), radius=radius,
+                               material_id=mid))
+    if bvh:
+        # The large ball a Disney BSDF, the small one a rough dielectric.
+        for (level, center, radius), mid in zip(ICOSPHERE_BALLS if balls is None else balls,
+                                                (12, 6)):
+            pos, idx = icosphere(level, center, radius)
+            shapes.append(M.TriangleMesh(positions=pos, indices=idx, material_id=mid))
+    shapes.append(plain_quad((343, 548.7, 227), (343, 548.7, 332), (213, 548.7, 332),
+                             (213, 548.7, 227), material_id=3, area_light_id=0))
+    lights = [M.DiffuseAreaLight(shape_id=len(shapes) - 1, intensity=LIGHT_RGB),
+              M.Envmap(texture=M.ImageTexture(env_img, name="envmap"), scale=1.0)]
+    cam = M.Camera(cam_to_world=xf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
+                   fov=45.0, width=width, height=height,
+                   filter_kind=FILTER_GAUSSIAN, filter_param=0.5)
+    opts = M.RenderOptions(integrator=integrator, samples_per_pixel=spp,
+                           max_depth=max_depth)
+    return build.build_scene(cam, materials, shapes, lights, options=opts, force_bvh=bvh)
+
+
+def material_box(width, height, spp, bvh=False, integrator="path", image_px=64,
+                 env_px=32, seed=0, max_depth=-1, balls=None):
+    """The Cornell walls, ceiling light and camera (fov 45, so the
+    envmap shows around the box) around one analytic sphere of each
+    material kind beyond Lambertian: rough dielectric, Disney diffuse,
+    metal, glass, clearcoat, sheen, and a Disney BSDF with metallic,
+    clearcoat and specular transmission all nonzero. The back wall is a
+    Lambertian with an (image_px, image_px) image texture, the floor a
+    rough plastic whose roughness is a 1-channel image; two more spheres
+    carry these two materials. An (env_px, 2 env_px) image envmap lights
+    the box through its open front. Images from numpy's generator at
+    `seed`.
+
+    bvh=False: 21 primitives, the brute-force casts. bvh=True adds the
+    icosphere balls of `balls` (ICOSPHERE_BALLS, 409,612 triangles, when
+    None), the large one a Disney BSDF and the small one a rough
+    dielectric, and takes the BVH path whatever their size, the nine
+    spheres in the packet table."""
+    return build_material_box(M, build, xf, width, height, spp, bvh, integrator, image_px,
+                              env_px, seed, max_depth, balls)

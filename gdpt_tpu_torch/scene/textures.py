@@ -3,8 +3,10 @@
 Counterpart of the host half of gdpt_tpu/scene/textures.py: every mip
 level of every image is flattened into one pixel array, with
 (image, level) -> (offset, width, height) tables (reference:
-src/texture.h:13-78, src/mipmap.h:25-48). Image lookups are not ported
-yet (see ROADMAP.md); build_scene needs only these functions.
+src/texture.h:13-78, src/mipmap.h:25-48). The renders' image lookups are
+the batched ones of ops/textures_soa.py; the per-ray lookups of the
+reference's device half (eval_texture, lookup_trilinear) serve only its
+per-ray code and are not ported (see ROADMAP.md).
 
 Texture kinds (reference: src/texture.h:80-115): 0 constant, 1 image,
 2 checkerboard.

@@ -227,6 +227,9 @@ def test_what_is_not_ported_raises(what):
 
 
 def test_supports_soa_gdpt():
+    """Every scene takes the SoA gradient-domain render, as the
+    reference's: a kind that no material of the scene has is evaluated
+    and never selected, so the image is the same."""
     from gdpt_tpu_torch.scene import model as tmodel
 
     scene = _box(tpresets, False)
@@ -235,6 +238,6 @@ def test_supports_soa_gdpt():
 
     other = scene._replace(static=dataclasses.replace(
         scene.static, used_material_kinds=(tmodel.MAT_LAMBERTIAN, 3)))
-    assert not tgdpt.supports_soa_gdpt(other)
-    with pytest.raises(NotImplementedError, match="envelope"):
-        trender.render(other, device="cpu")
+    assert tgdpt.supports_soa_gdpt(other)
+    np.testing.assert_array_equal(trender.render(other, seed=SEED, device="cpu"),
+                                  _port("brute")[0]["recon"])

@@ -52,7 +52,8 @@ def test_slice_modules_are_covered():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for module in ("accel/bvh.py", "accel/native_build.py", "accel/packet_trace.py",
                    "accel/packet_kernels.py", "accel/traverse_soa.py", "convert.py",
-                   "ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
+                   "ops/poisson.py", "ops/materials_soa.py", "ops/textures_soa.py",
+                   "integrators/gdpt_soa.py", "integrators/render.py",
                    "tools/visit_microbench.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
