@@ -96,11 +96,39 @@ Phases, each fatal on failure:
      rays that start inside the refracting balls (recorded from the
      render's own casts), and K1 on such a batch of the brute-force box;
      4 `path` and 2 `gradpath` wavefront iterations under the profiler:
+     launches per iteration, the device's busy share, K3's share;
+ 24. the brute-force volumetric main path, the stand-in for bench.py's
+     volpath_test6: render.render(volpath_scene(version=6, 512, 512,
+     spp=8, hetero, diffuse sphere, HG g = 0.6)) with a seeded, varying,
+     chromatic 64^3 density grid (max several times its mean, so delta
+     tracking takes null collisions) and a 64^3 albedo grid, unbounded
+     depth, through the banded loop and K1; counts zeroed just before and
+     read just after: K1 launched, K2 not; image finite and not black;
+     wall, rays, Mrays/s, K1 launches and host reads of loop conditions
+     per sample; one main-cast batch and one shadow batch (rays from
+     scatter points) recorded;
+ 25. volpath 32x32 on cuda and on the CPU: the brute-force grid scene, its
+     force_bvh twin (three spheres, no triangle: an empty packet table)
+     and a null-boundary scene (the grid medium inside a sphere of
+     material -1, the camera outside); images at the gate, ray counts
+     equal;
+ 26. the BVH medium box (scene/presets.medium_box: the icosphere box's
+     balls, walls and light, 409,624 triangles, its room filled by a heterogeneous 64^3 medium
+     inside a 12-triangle box of material -1, the camera outside in
+     vacuum) at 512x512 through the wavefront pool and K3 on the 32-wide
+     table; counts zeroed just before and read just after; a main-cast
+     batch and two shadow batches (from scatter points; from boundary
+     crossings) recorded; K3 held against its plain version on them bit
+     for bit in t, prim and visit counts, and phase 24's K1 batches
+     likewise; each timed by CUDA graph replay beside its bound;
+     iterations and mean occupancy;
+ 27. two wavefront iterations of phase 26's render under the profiler:
      launches per iteration, the device's busy share, K3's share.
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
-each render),
+each render, K1's and K3 closest's launches per volpath sample of phases
+24 and 26),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -126,6 +154,9 @@ MAT_IMAGES = dict(image_px=1024, env_px=512)   # 1024x1024 wall and floor maps, 
 # The 32x32 box of phase 22: small images, depth 3, two small balls for BVH.
 MAT_SMALL = dict(image_px=64, env_px=32, max_depth=3)
 MAT_SMALL_BALLS = [(3, (368.0, 100.0, 351.0), 100.0), (2, (186.0, 60.0, 169.0), 60.0)]
+VOL_SPP = 8                 # brute-force volpath main path, cut from volpath_test6's 16 spp
+VOL_BOX_SPP = 4             # the BVH medium box
+VOL_GRID = 64               # the media's grid resolution
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -1373,6 +1404,225 @@ def _material_phases(card):
     _phase_done(23, t_phase)
 
 
+def _record_casts(trs, kernel_mod, kernel_name, want):
+    """Context for a render: wraps traverse_soa.intersect_soa_gn to tag
+    each cast "main" (tnear 0) or "shadow" with its index among the
+    shadow casts since the last main cast, and the kernel wrapper
+    `kernel_name` of `kernel_mod` to keep the arguments of the calls whose
+    (tag, index, main casts so far) is in `want`: {key: args}."""
+    import contextlib
+
+    kept, state = {}, {"main": 0, "shadow": 0}
+    cast, kernel = trs.intersect_soa_gn, getattr(kernel_mod, kernel_name)
+
+    def tagging(static, g, org, d, tnear, *a, **kw):
+        if tnear == 0.0:
+            state["main"] += 1
+            state["tag"] = ("main", 0, state["main"])
+            state["shadow"] = 0
+        else:
+            state["tag"] = ("shadow", state["shadow"], state["main"])
+            state["shadow"] += 1
+        return cast(static, g, org, d, tnear, *a, **kw)
+
+    def keeping(*args, **kw):
+        if not kw.get("any_hit") and state.get("tag") in want:
+            kept.setdefault(want[state["tag"]], (args, kw))
+        return kernel(*args, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        trs.intersect_soa_gn = tagging
+        setattr(kernel_mod, kernel_name, keeping)
+        try:
+            yield kept
+        finally:
+            trs.intersect_soa_gn = cast
+            setattr(kernel_mod, kernel_name, kernel)
+
+    return ctx()
+
+
+def _volpath_render(render, scene, phase, label, card, counters, vol, **kw):
+    """One volpath render on cuda, counts and host reads zeroed just
+    before and read just after. Returns (image, rays, launches, reads,
+    wall)."""
+    import numpy as np
+
+    for d in (counters, vol.HOST_READS):
+        for k in d:
+            d[k] = 0
+    t0 = time.perf_counter()
+    img, rays = render.render(scene, seed=0, device="cuda", return_stats=True, **kw)
+    wall = time.perf_counter() - t0
+    launches, reads = dict(counters), dict(vol.HOST_READS)
+    spp = scene.static.options.samples_per_pixel
+    print(f"phase {phase}: {label} 512x512 spp {spp}: mean radiance {float(img.mean()):.6f}, "
+          f"wall {wall:.3f} s, rays {rays:.0f}, {rays / wall / 1e6:.3f} Mrays/s, launches "
+          f"{launches}, host reads of loop conditions per sample "
+          f"{ {k: v / spp for k, v in reads.items()} } on {card}")
+    if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not float(img.mean()) > 0:
+        raise AssertionError(f"{label}: image not finite, not 512x512x3 or black")
+    return img, rays, launches, reads, wall
+
+
+def _small_volpath(presets, **kw):
+    """The 32x32, 2 spp, depth-6 grid scene of phase 25 (the grid
+    scene of tests/test_torch_volpath.py)."""
+    args = dict(version=6, width=32, height=32, spp=2, max_depth=6, g=0.6,
+                with_diffuse_sphere=True, density=presets.medium_grid(16, 3, 0.8),
+                albedo=presets.albedo_grid(16, 4))
+    args.update(kw)
+    return presets.volpath_scene(**args)
+
+
+def _volpath_phases(card):
+    """Phases 24-27: the volumetric integrator, brute force (K1) and BVH
+    (K3). Returns the volpath launches per sample of K1 and K3."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import traverse_soa as trs
+    from gdpt_tpu_torch.integrators import path_soa, render, volpath_soa
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    dev = torch.device("cuda")
+
+    # ---- phase 24: the brute-force volumetric main path ----
+    t_phase = time.perf_counter()
+    scene = presets.volpath_scene(
+        version=6, width=512, height=512, spp=VOL_SPP, g=0.6, with_diffuse_sphere=True,
+        density=presets.medium_grid(VOL_GRID, 3, 0.8), albedo=presets.albedo_grid(VOL_GRID, 4))
+    st = scene.static
+    if not st.use_brute_force or st.media_grid_res != (((VOL_GRID,) * 3,) * 2,):
+        raise AssertionError("the phase 24 scene is not the brute-force 64^3 grid scene")
+    path_soa.scene_soa_from_aos(scene_to(scene, dev))
+    with _record_casts(trs, bk, "intersect_brute",
+                       {("main", 0, 3): "main", ("shadow", 0, 3): "shadow"}) as k1_batches:
+        _, _, launches, reads, _ = _volpath_render(
+            render, scene, 24, "brute-force volpath (grid medium)", card, bk.LAUNCHES,
+            volpath_soa)
+    k1_per_sample = launches["intersect"] / VOL_SPP
+    print(f"phase 24: K1 {k1_per_sample:.1f} launches per sample, K2 "
+          f"{launches['occluded']}; host reads per sample {sum(reads.values()) / VOL_SPP:.1f}")
+    if not launches["intersect"] or launches["occluded"]:
+        raise AssertionError(f"the volpath render did not go through K1 alone: {launches}")
+    if set(k1_batches) != {"main", "shadow"}:
+        raise AssertionError(f"phase 24 recorded {sorted(k1_batches)} of its K1 batches")
+    t_phase = _phase_done(24, t_phase)
+
+    # ---- phase 25: cuda vs cpu at 32x32 ----
+    for label, small in (("grid, brute force", _small_volpath(presets)),
+                         ("grid, force_bvh (no triangle)", _small_volpath(presets, force_bvh=True)),
+                         ("null boundary", _small_volpath(
+                             presets, density=presets.medium_grid(16, 3, 1.5),
+                             albedo=np.array([0.9, 0.7, 0.8]), g=-0.4, null_boundary=True))):
+        sst = small.static
+        if "bvh" in label and (sst.use_brute_force or sst.n_tris):
+            raise AssertionError("the force_bvh volpath scene is not the one without triangles")
+        launches_before = dict(pk.LAUNCHES)
+        a, ra = render.render(small, seed=3, device="cuda", return_stats=True)
+        if "bvh" in label and pk.LAUNCHES["packet_intersect"] == launches_before["packet_intersect"]:
+            raise AssertionError("the force_bvh volpath render did not launch K3")
+        b, rb = render.render(small, seed=3, device="cpu", return_stats=True)
+        _gate_cuda_vs_cpu(a, b, float(b.mean()), 25, f"volpath {label}")
+        print(f"phase 25: rays cuda {ra:.0f}, cpu {rb:.0f}")
+        if ra != rb:
+            raise AssertionError(f"volpath {label}: cuda and cpu ray counts differ")
+    t_phase = _phase_done(25, t_phase)
+
+    # ---- phase 26: the BVH medium box at full width ----
+    t0 = time.perf_counter()
+    box = presets.medium_box(512, 512, VOL_BOX_SPP, grid_res=VOL_GRID)
+    t_scene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scene_dev = scene_to(box, dev)
+    sc = path_soa.scene_soa_from_aos(scene_dev)
+    torch.cuda.synchronize()
+    st = box.static
+    tab = sc.geom.packet
+    n_tris = trs._table_n_tris(st)
+    print(f"phase 26: medium box: {st.n_tris} triangles by the {box.bvh_builder} builder, scene "
+          f"build {t_scene:.2f} s, packet table {tab.table.shape[0]} rows, width {tab.width}, "
+          f"tables {time.perf_counter() - t0:.2f} s")
+    if st.use_brute_force or st.n_tris < 400_000 or tab.width != 32:
+        raise AssertionError("the medium box is not the full-size BVH scene")
+    want = {("main", 0, 12): "main", ("shadow", 0, 12): "scatter", ("shadow", 1, 12): "crossing"}
+    with _record_casts(trs, pk, "trace_packets", want) as k3_batches:
+        _, _, launches, _, _ = _volpath_render(render, box, 26, "BVH medium box", card,
+                                               pk.LAUNCHES, volpath_soa)
+    acc = volpath_soa._vol_wavefront_accum
+    k3_per_sample = launches["packet_intersect"] / VOL_BOX_SPP
+    print(f"phase 26: K3 {k3_per_sample:.1f} closest launches per sample, any hit "
+          f"{launches['packet_occluded']}; {acc.last_iters} wavefront iterations, mean "
+          f"occupancy {acc.last_occupancy:.3f}")
+    if not launches["packet_intersect"] or launches["packet_occluded"] or \
+            launches["packet_dual_intersect"] + launches["packet_dual_occluded"]:
+        raise AssertionError(f"the medium box did not go through K3 closest alone: {launches}")
+    if set(k3_batches) != set(want.values()):
+        raise AssertionError(f"phase 26 recorded {sorted(k3_batches)} of its K3 batches")
+    lo = torch.tensor(presets.MEDIUM_BOX_MIN, device=dev)[:, None]
+    hi = torch.tensor(presets.MEDIUM_BOX_MAX, device=dev)[:, None]
+    for key in ("main", "scatter", "crossing"):
+        (tab_b, *rays), kw = k3_batches[key]
+        live = rays[7] >= rays[6]
+        org = torch.stack(rays[:3])[:, live]
+        inside = ((org > lo + 0.01) & (org < hi - 0.01)).all(dim=0).float().mean()
+        on_face = (((org - lo).abs() < 0.01) | ((org - hi).abs() < 0.01)).any(dim=0)
+        on_face = on_face.float().mean()
+        print(f"phase 26: K3 {key} batch: {live.numel()} lanes, live {float(live.float().mean()):.4f}; "
+              f"live origins strictly inside the medium box {float(inside):.4f}, on its faces "
+              f"{float(on_face):.4f}")
+        if key == "crossing" and not float(on_face) > 0.9:
+            raise AssertionError("the recorded boundary-crossing batch does not start on the boundary")
+        if key == "scatter" and not float(inside) > 0.5:
+            raise AssertionError("the recorded scatter batch does not start inside the medium")
+        _compare_k3(pk, tab_b, tuple(rays), kw.get("n_tris"), False, f"volpath {key} batch")
+        ms, _ = _time_ms(lambda: pk.trace_packets(tab_b, *rays, n_tris=kw.get("n_tris")), 10, 3)
+        ops, nbytes, n_read, visits = _walk_work(pk, tab_b, tuple(rays), False)
+        n = rays[0].shape[0]
+        print(f"phase 26: K3 closest on the volpath {key} batch: {ms * 1e3:.1f} us/launch by CUDA "
+              f"graph replay, bound {max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e6:.2f}"
+              f" us ({ops / 1e9:.3f} Gop, {nbytes / 1e6:.1f} MB, {n_read} rows read), "
+              f"{visits / n:.2f} visits per ray on {card}")
+    for key in ("main", "shadow"):
+        args, _ = k1_batches[key]
+        _compare_k1(bk.intersect_brute(*args), bk.intersect_brute_plain(*args),
+                    f"volpath {key} batch")
+        ms, _ = _time_ms(lambda: bk.intersect_brute(*args), 10, 3)
+        n_live, ops, nbytes = _brute_work("K1", args)
+        n = args[10].shape[0]
+        print(f"phase 26: K1 on phase 24's {key} batch ({n} lanes, live {n_live / n:.4f}, tnear "
+              f"{args[11]:g}): {ms * 1e3:.2f} us/launch by CUDA graph replay, bound "
+              f"{max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e6:.2f} us "
+              f"({ops / 1e9:.4f} Gop, {nbytes / 1e6:.2f} MB) on {card}")
+    t_phase = _phase_done(26, t_phase)
+
+    # ---- phase 27: two wavefront iterations under the profiler ----
+    n_pix = st.width * st.height
+    total = n_pix * VOL_BOX_SPP
+    media = volpath_soa.meds.media_soa(scene_dev.device.media)
+    cam = scene_dev.device.camera
+    state = volpath_soa._vol_wavefront_state(st, cam, total, 1, path_soa._pool_width(total, 1 << 17))
+    for _ in range(6):  # steady state first
+        state = volpath_soa._vol_wavefront_body(st, cam, sc, media, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            state = volpath_soa._vol_wavefront_body(st, cam, sc, media, state)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    _report_profile(prof, wall_us, 27, "2 volpath wavefront iterations of the medium box",
+                    "packet_trace_kernel", "K3", card, iters=2)
+    _phase_done(27, t_phase)
+    return k1_per_sample, k3_per_sample
+
+
 def _phase_done(phase, since):
     now = time.perf_counter()
     print(f"phase {phase}: done in {now - since:.1f} s")
@@ -1430,12 +1680,15 @@ def main():
     rows += k3_rows + _gradpath_phases(card, ctx)
     sums = _batch_phase(card)
     _material_phases(card)
+    k1_vol, k3_vol = _volpath_phases(card)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
         row["registers"], row["local_bytes"] = use[entry]
     for row, name in zip(rows, ("K1", "K2")):
         row["us_per_sample"] = {r: v[name] for r, v in sums.items()}
+    rows[0]["volpath_launches_per_sample"] = k1_vol
+    rows[2]["volpath_launches_per_sample"] = k3_vol
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -58,6 +58,16 @@ def from_rows(arr):
               arr[:, 2].contiguous())
 
 
+def stack(v: V3):
+    """V3 -> one (3, N) tensor of rows x, y, z."""
+    return torch.stack([v.x, v.y, v.z])
+
+
+def unstack(rows) -> V3:
+    """(3, N) tensor -> V3 of its rows (views)."""
+    return V3(*rows.unbind(0))
+
+
 def take(arr, idx):
     """Gather along axis 0 with clipped indices (jnp.take mode='clip')."""
     return arr[idx.clamp(0, arr.shape[0] - 1).long()]
@@ -198,13 +208,18 @@ def threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
+def _lcg(v):
+    return (v * 1664525 + 1013904223) & _M32
+
+
 def pcg3d(v0, v1, v2):
     """PCG3D hash (Jarzynski & Olano, JCGT 2020) on int64 tensors holding
     uint32 values. Returns two mixed outputs."""
-    m, a = 1664525, 1013904223
-    x = (v0 * m + a) & _M32
-    y = (v1 * m + a) & _M32
-    z = (v2 * m + a) & _M32
+    return _pcg3d_rounds(_lcg(v0), _lcg(v1), _lcg(v2))
+
+
+def _pcg3d_rounds(x, y, z):
+    """pcg3d after its first LCG step of each word."""
     x = (x + y * z) & _M32
     y = (y + z * x) & _M32
     z = (z + x * y) & _M32
@@ -222,27 +237,48 @@ _RNG_IMPL = "pcg3d"  # set GDPT_RNG=threefry for the heavyweight streams
 _SCALE = float(torch.tensor(1.0 / 4294967808.0, dtype=REAL))
 
 
+class Streams:
+    """uniform2 at fixed (seed, stream, sample) for any counter: the
+    words of the hash that do not depend on the counter are computed
+    once, so a loop that draws at many counters pays the counter's part
+    only. Bit-identical to uniform2."""
+
+    def __init__(self, seed, stream, sample=0):
+        s = stream.to(torch.int64) & _M32
+        sd = _u32(seed, s)
+        smp = _u32(sample, s)
+        self.like = s
+        self.threefry = os.environ.get("GDPT_RNG", _RNG_IMPL) == "threefry"
+        if self.threefry:
+            self.words = (sd, s, smp)
+        else:
+            # murmur3-finalizer premix of the stream id (see the reference).
+            t = (s * 0x9E3779B9) & _M32
+            t = t ^ (t >> 16)
+            t = (t * 0x85EBCA6B) & _M32
+            t = t ^ (t >> 13)
+            self.words = (_lcg(t), _lcg((sd + smp * 0x9E3779B9) & _M32))
+
+    def __call__(self, counter):
+        """Two uniforms in [0, 1) per lane at `counter` (scalar or (N,))."""
+        c = _u32(counter, self.like)
+        if self.threefry:
+            sd, s, smp = self.words
+            r0, r1 = threefry2x32(sd, s, c, smp)
+        else:
+            x, z = self.words
+            r0, r1 = _pcg3d_rounds(x, _lcg(c), z)
+        return r0.to(REAL) * _SCALE, r1.to(REAL) * _SCALE
+
+
 def uniform2(seed, stream, counter, sample=0):
     """Two uniforms in [0, 1) per lane, bit-identical to
     gdpt_tpu.core.soa.uniform2.
 
     seed: scalar uint32; stream: (N,) integer lane stream ids; counter:
-    scalar or (N,) use-site counter; sample: scalar sample index.
+    scalar or (N,) use-site counter; sample: scalar or (N,) sample index.
     """
-    s = stream.to(torch.int64) & _M32
-    c = _u32(counter, s)
-    sd = _u32(seed, s)
-    smp = _u32(sample, s)
-    if os.environ.get("GDPT_RNG", _RNG_IMPL) == "threefry":
-        r0, r1 = threefry2x32(sd, s, c, smp)
-    else:
-        # murmur3-finalizer premix of the stream id (see the reference).
-        t = (s * 0x9E3779B9) & _M32
-        t = t ^ (t >> 16)
-        t = (t * 0x85EBCA6B) & _M32
-        t = t ^ (t >> 13)
-        r0, r1 = pcg3d(t, c, (sd + smp * 0x9E3779B9) & _M32)
-    return r0.to(REAL) * _SCALE, r1.to(REAL) * _SCALE
+    return Streams(seed, stream, sample)(counter)
 
 
 def uniform1(seed, stream, counter, sample=0):

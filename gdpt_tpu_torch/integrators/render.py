@@ -2,9 +2,10 @@
 
 Counterpart of gdpt_tpu/integrators/render.py. The scene (built on the
 host) is carried to `device` — the CUDA card unless the caller passes
-device="cpu" — and rendered there. Ported integrators: "path" and
+device="cpu" — and rendered there. Ported integrators: "path",
 "gradpath" (gradient-domain path tracing with the screened-Poisson
-reconstruction), over every material kind, texture slot and light type
+reconstruction) and "volpath" at its production rung (versions 6 and 0;
+ops/media_soa.py), over every material kind, texture slot and light type
 of the SoA stack (ops/materials_soa.py, ops/textures_soa.py), as the
 reference's SoA dispatch takes every scene of these integrators.
 Brute-force scenes go through the banded loops, BVH
@@ -40,5 +41,14 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
         return gdpt_soa.render_gradpath_soa(scene_to(scene, device), spp=spp, seed=seed,
                                             return_aux=return_aux,
                                             return_stats=return_stats, **walk)
+    if integrator == "volpath":
+        from gdpt_tpu_torch.integrators import volpath_soa
+
+        if not volpath_soa.supports_soa_volpath(scene):
+            raise NotImplementedError(
+                f"volpath version {scene.static.options.vol_path_version} (a per-ray rung) "
+                "is not ported yet; see ROADMAP.md")
+        return volpath_soa.render_volpath_soa(scene_to(scene, device), spp=spp, seed=seed,
+                                              return_stats=return_stats, **walk)
     raise NotImplementedError(
         f"integrator {integrator!r} is not ported yet; see ROADMAP.md")

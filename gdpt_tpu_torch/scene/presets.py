@@ -14,6 +14,12 @@ BVH path can be driven at a real size without a scene file.
 light and camera with every material kind, spectrum and float image
 textures and an image envmap. `furnace_sphere` is the reference's
 furnace test under a constant envmap.
+
+`volpath_scene` is the reference's volumetric test family;
+`build_volpath_scene` builds it with either package's modules, with a
+density grid of the caller's (`medium_grid`) and a null-material
+boundary as options. `medium_box` is the icosphere box with its room
+filled by a heterogeneous medium inside a null-material box.
 """
 
 import numpy as np
@@ -203,6 +209,190 @@ def icosphere_box(width, height, spp, balls=None, spheres=(), max_depth=-1,
     opts = M.RenderOptions(integrator=integrator, samples_per_pixel=spp,
                            max_depth=max_depth)
     return build.build_scene(cam, materials, shapes, lights, options=opts)
+
+
+def medium_grid(res, seed, mean=1.0, floor=0.2, tint=True):
+    """A (res, res, res, 3) grid made with numpy from `seed`: a value per
+    cell, floor + (1 - floor) * u^3 for a uniform u (so the max is several
+    times the mean, and delta tracking takes null collisions), each
+    channel scaled by its own tint when `tint`, the whole scaled to
+    `mean`."""
+    rng = np.random.default_rng(seed)
+    grid = floor + (1.0 - floor) * rng.random((res, res, res, 1)) ** 3
+    if tint:
+        grid = grid * rng.uniform(0.4, 1.0, 3) * (1.0 + 0.3 * rng.random((res, res, res, 3)))
+    else:
+        grid = np.repeat(grid, 3, axis=-1)
+    return (grid * (mean / grid.mean())).astype(np.float32)
+
+
+def albedo_grid(res, seed):
+    """A chromatic (res, res, res, 3) albedo grid in [0.3, 0.95] made
+    with numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    return (0.3 + 0.65 * rng.random((res, res, res, 3))).astype(np.float32)
+
+
+def build_volpath_scene(M, build, xf, version=1, width=48, height=48, spp=16, max_depth=-1,
+                        sigma_a=(0.1, 0.1, 0.1), sigma_s=(0.7, 0.7, 0.7), g=0.0,
+                        hetero=False, grid_res=None, with_diffuse_sphere=False,
+                        force_bvh=False, density=None, albedo=None, null_boundary=False):
+    """volpath_scene with the model, build and transform modules given:
+    a package's own, so that a test builds the same scene with either
+    package. density: a (Z, Y, X, 3) grid that takes the place of the
+    constant one (hetero then implied), albedo a grid or an rgb constant
+    beside it. null_boundary: the medium fills a sphere of material -1
+    (radius 1.45, around the first light); the camera, the second light
+    and the diffuse sphere are outside it, in vacuum, and the grid's
+    bbox is the sphere's."""
+    if g == 0.0:
+        phase = M.IsotropicPhase()
+    else:
+        phase = M.HenyeyGreenstein(g=g)
+    half = 1.5 if null_boundary else 50.0
+    if hetero or density is not None:
+        res = grid_res or 1
+        sa, ss = np.asarray(sigma_a), np.asarray(sigma_s)
+        if density is None:
+            density = np.full((res, res, res, 3), sa + ss, np.float32)
+        if albedo is None:
+            albedo = np.full((res, res, res, 3), ss / (sa + ss), np.float32)
+        box = dict(p_min=np.full(3, -half), p_max=np.full(3, half))
+        medium = M.HeterogeneousMedium(
+            albedo=(M.GridVolume(albedo, **box) if np.ndim(albedo) == 4
+                    else np.asarray(albedo, np.float64)),
+            density=M.GridVolume(density, **box),
+            phase=phase,
+        )
+    else:
+        medium = M.HomogeneousMedium(
+            sigma_a=np.asarray(sigma_a), sigma_s=np.asarray(sigma_s), phase=phase
+        )
+
+    outer = -1 if null_boundary else 0
+    materials = [M.Lambertian(np.zeros(3)), M.Lambertian(np.full(3, 0.6))]
+    shapes = [
+        M.Sphere(center=np.array([0.0, 0.0, 0.0]), radius=1.0,
+                 material_id=0, area_light_id=0, exterior_medium_id=0),
+        M.Sphere(center=np.array([-3.0, 0.0, -1.5]), radius=1.0,
+                 material_id=0, area_light_id=1, exterior_medium_id=outer),
+    ]
+    lights = [
+        M.DiffuseAreaLight(0, np.array([0.4, 2.32, 3.2])),
+        M.DiffuseAreaLight(1, np.array([24.0, 10.0, 24.0])),
+    ]
+    if with_diffuse_sphere:
+        shapes.append(
+            M.Sphere(center=np.array([2.5, 0.0, 0.5]), radius=1.0,
+                     material_id=1, exterior_medium_id=outer)
+        )
+    if null_boundary:
+        shapes.append(M.Sphere(center=np.zeros(3), radius=1.45, material_id=-1,
+                               interior_medium_id=0, exterior_medium_id=-1))
+    cam = M.Camera(
+        cam_to_world=xf.look_at([0, 0, -3], [0, 0, 0], [0, 1, 0]),
+        fov=45.0,
+        width=width,
+        height=height,
+        filter_kind=FILTER_GAUSSIAN,
+        filter_param=0.5,
+        medium_id=outer,
+    )
+    opts = M.RenderOptions(
+        integrator="volpath", samples_per_pixel=spp, max_depth=max_depth,
+        vol_path_version=version,
+    )
+    return build.build_scene(cam, materials, shapes, lights, [medium],
+                             options=opts, force_bvh=force_bvh)
+
+
+def volpath_scene(version=1, width=48, height=48, spp=16, max_depth=-1,
+                  sigma_a=(0.1, 0.1, 0.1), sigma_s=(0.7, 0.7, 0.7), g=0.0,
+                  hetero=False, grid_res=None, with_diffuse_sphere=False,
+                  force_bvh=False, **kw):
+    """Volumetric test scene family mirroring scenes/volpath_test/*.xml:
+    emissive spheres inside a global homogeneous (or grid) medium, camera
+    immersed in the medium. Keywords of build_volpath_scene (density,
+    albedo, null_boundary) pass through."""
+    return build_volpath_scene(M, build, xf, version, width, height, spp, max_depth, sigma_a,
+                               sigma_s, g, hetero, grid_res, with_diffuse_sphere, force_bvh,
+                               **kw)
+
+
+# The medium box's null boundary: inside the walls, under the light.
+MEDIUM_BOX_MIN = (1.0, 1.0, 1.0)
+MEDIUM_BOX_MAX = (548.0, 547.0, 558.0)
+
+
+def _box_mesh(M, lo, hi, **kw):
+    """A closed axis-aligned box of 12 triangles, every geometric normal
+    (cross(p1 - p0, p2 - p0)) pointing out: corner k has bit i of k set
+    where its coordinate i is hi's, and the faces -z, +z, -y, +y, -x, +x
+    run counterclockwise seen from outside."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    corners = np.array([[hi[i] if (k >> i) & 1 else lo[i] for i in range(3)]
+                        for k in range(8)])
+    faces = [(0, 2, 3, 1), (4, 5, 7, 6), (0, 1, 5, 4), (2, 6, 7, 3), (0, 4, 6, 2), (1, 3, 7, 5)]
+    idx = np.array([t for a, b, c, d in faces for t in ((a, b, c), (a, c, d))], np.int64)
+    return M.TriangleMesh(positions=corners, indices=idx, **kw)
+
+
+def build_medium_box(M, build, xf, width, height, spp, balls=None, grid_res=64, seed=0,
+                     mean_density=0.004, g=0.5, max_depth=-1, version=6):
+    """The icosphere box of icosphere_box (walls, ceiling light, camera,
+    Lambertian materials) as a volpath scene, with the model, build and
+    transform modules given: the room is filled with a heterogeneous
+    medium (density medium_grid(grid_res, seed, mean_density), a
+    chromatic albedo grid, HG phase g) inside a closed box of material
+    -1 just inside the walls (MEDIUM_BOX_MIN, MEDIUM_BOX_MAX), whose
+    bounds are the grid's. The camera looks in from outside, in vacuum;
+    the balls (ICOSPHERE_BALLS when None) stand in the medium. Always
+    the BVH path."""
+    balls = ICOSPHERE_BALLS if balls is None else balls
+
+    def quads(qs, **kw):
+        pos, idx = zip(*(_quad(*q) for q in qs))
+        idx = [i + 4 * k for k, i in enumerate(idx)]
+        return M.TriangleMesh(positions=np.concatenate(pos), indices=np.concatenate(idx), **kw)
+
+    materials = [M.Lambertian(WHITE), M.Lambertian(RED),
+                 M.Lambertian(GREEN), M.Lambertian(np.array([0.78, 0.78, 0.78]))]
+    shapes = [
+        quads([((552.8, 0, 0), (0, 0, 0), (0, 0, 559.2), (549.6, 0, 559.2))], material_id=0),
+        quads([((556, 548.8, 0), (556, 548.8, 559.2), (0, 548.8, 559.2), (0, 548.8, 0))],
+              material_id=0),
+        quads([((549.6, 0, 559.2), (0, 0, 559.2), (0, 548.8, 559.2), (556, 548.8, 559.2))],
+              material_id=0),
+        quads([((0, 0, 559.2), (0, 0, 0), (0, 548.8, 0), (0, 548.8, 559.2))], material_id=2),
+        quads([((552.8, 0, 0), (549.6, 0, 559.2), (556, 548.8, 559.2), (556, 548.8, 0))],
+              material_id=1),
+        _box_mesh(M, MEDIUM_BOX_MIN, MEDIUM_BOX_MAX, material_id=-1, interior_medium_id=0,
+                  exterior_medium_id=-1),
+    ]
+    for level, center, radius in balls:
+        pos, idx = icosphere(level, center, radius)
+        shapes.append(M.TriangleMesh(positions=pos, indices=idx, material_id=0,
+                                     exterior_medium_id=0))
+    shapes.append(quads([((343, 548.7, 227), (343, 548.7, 332), (213, 548.7, 332),
+                          (213, 548.7, 227))], material_id=3, area_light_id=0))
+    lights = [M.DiffuseAreaLight(shape_id=len(shapes) - 1, intensity=LIGHT_RGB)]
+    box = dict(p_min=np.asarray(MEDIUM_BOX_MIN), p_max=np.asarray(MEDIUM_BOX_MAX))
+    medium = M.HeterogeneousMedium(
+        albedo=M.GridVolume(albedo_grid(grid_res, seed + 1), **box),
+        density=M.GridVolume(medium_grid(grid_res, seed, mean_density), **box),
+        phase=M.HenyeyGreenstein(g=g))
+    cam = M.Camera(cam_to_world=xf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
+                   fov=39.3077, width=width, height=height,
+                   filter_kind=FILTER_GAUSSIAN, filter_param=0.5)
+    opts = M.RenderOptions(integrator="volpath", samples_per_pixel=spp, max_depth=max_depth,
+                           vol_path_version=version)
+    return build.build_scene(cam, materials, shapes, lights, [medium], options=opts,
+                             force_bvh=True)
+
+
+def medium_box(width, height, spp, **kw):
+    """build_medium_box with this package's modules."""
+    return build_medium_box(M, build, xf, width, height, spp, **kw)
 
 
 def furnace_sphere(albedo=1.0, emission=1.0, width=64, height=64, spp=16,

@@ -213,8 +213,8 @@ def test_sphere_light_scene_matches_reference():
 def test_what_is_not_ported_raises(what):
     scene = _box(tpresets, True)
     if what == "integrator":
-        scene = _box(tpresets, False, integrator="volpath")
-        with pytest.raises(NotImplementedError, match="volpath"):
+        scene = _box(tpresets, False, integrator="depth")
+        with pytest.raises(NotImplementedError, match="depth"):
             trender.render(scene, device="cpu")
     elif what == "queue":
         with pytest.raises(ValueError, match="2\\^32"):

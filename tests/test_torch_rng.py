@@ -68,3 +68,19 @@ def test_uniform2_per_lane_counter():
     ta, tb = tsoa.uniform2(9, _t(w[0]), _t(w[1]), 2)
     np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
     np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
+
+
+@pytest.mark.parametrize("impl", ["pcg3d", "threefry"])
+def test_streams_reused_across_counters(monkeypatch, impl):
+    """One Streams object drawn at many counters (per lane, as the
+    volumetric loops draw; per-lane samples too) gives the reference's
+    bits at each."""
+    monkeypatch.setenv("GDPT_RNG", impl)
+    w = _words(5, 4096)
+    streams = tsoa.Streams(11, _t(w[0]), _t(w[2]))
+    for counter in (w[1], 0x60000000 + 2048 * 7 + 3, 2**32 - 1):
+        jc = jnp.asarray(counter) if isinstance(counter, np.ndarray) else counter
+        ja, jb = jsoa.uniform2(jnp.uint32(11), jnp.asarray(w[0]), jc, jnp.asarray(w[2]))
+        ta, tb = streams(_t(counter) if isinstance(counter, np.ndarray) else counter)
+        np.testing.assert_array_equal(np.asarray(ja), ta.numpy())
+        np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
