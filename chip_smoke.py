@@ -123,7 +123,34 @@ Phases, each fatal on failure:
      likewise; each timed by CUDA graph replay beside its bound;
      iterations and mean occupancy;
  27. two wavefront iterations of phase 26's render under the profiler:
-     launches per iteration, the device's busy share, K3's share.
+     launches per iteration, the device's busy share, K3's share;
+ 28. the command-line entry point on a scene file: the 512x512 cbox
+     written as XML and binary PLY meshes (scene/xml_writer.py) into a
+     temporary directory; `python -m gdpt_tpu_torch <xml> -o <exr> --spp
+     4` as a subprocess (exit 0; the EXR read back with the port's
+     read_exr: finite, not black), then cli.main on the same file in
+     this process with the K1/K2 counts zeroed just before and read just
+     after (both launched); the parse time, render wall and EXR write time
+     as the command prints them;
+ 29. the icosphere box (409,612 triangles) written as binary PLY with an
+     XML around it, parsed (timed: PLY, BVH) and rendered `gradpath` at 4
+     spp through cli.main, K3 counts zeroed and read; the reconstruction
+     keeps the primal's mean, as phase 15 checks;
+ 30. the five AOV kinds at 512x512 on the cbox file (one K1 launch each)
+     and on the phase 29 scene (one K3 closest launch each), walls
+     printed; mipmap_level on presets.material_box, non-zero somewhere;
+     every kind at 32x32 on cuda against the CPU, brute force and BVH, at
+     phase 4's gate; the cbox_depth golden (64x64 depth) on cuda within
+     its test's bound (RMSE / mean < 0.05);
+ 31. checkpoint and resume on the card: `path` on the phase 29 scene
+     (banded, a sample a pass), `gradpath` on the cbox file and `volpath`
+     on a brute-force XML with phase 24's 64^3 grids written as .vol
+     files: half the samples rendered with an on_chunk that saves under
+     the full render's fingerprint, resumed by render_with_checkpoints,
+     held against the uninterrupted render of the same route (bit for
+     bit where both sum the same passes, else at the gate, the largest
+     difference printed); a 32x32 checkpoint written on cuda resumes on
+     the CPU (equal fingerprints).
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
@@ -134,6 +161,7 @@ last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -157,6 +185,9 @@ MAT_SMALL_BALLS = [(3, (368.0, 100.0, 351.0), 100.0), (2, (186.0, 60.0, 169.0), 
 VOL_SPP = 8                 # brute-force volpath main path, cut from volpath_test6's 16 spp
 VOL_BOX_SPP = 4             # the BVH medium box
 VOL_GRID = 64               # the media's grid resolution
+FILE_SPP = 4                # the scene files' path and gradpath renders
+FILE_RESUME_SPP = 2         # the path and gradpath renders resumed in phase 31
+FILE_VOL_SPP = 2            # the volpath file of phase 31
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -482,15 +513,15 @@ def _secondary_rays(org, d, t, prim, shadow_eps):
     return cont(pos), cont(rd.unbind(0)), cont(dl), tfar, live
 
 
-def _gate_cuda_vs_cpu(a, b, scale, phase, label):
+def _gate_cuda_vs_cpu(a, b, scale, phase, label, what="cuda vs cpu 32x32"):
     import numpy as np
 
     frac = float(np.isclose(a, b, rtol=1e-3, atol=1e-4).mean())
     mean_rel = abs(float(a.mean()) - float(b.mean())) / max(scale, 1e-12)
-    print(f"phase {phase}: cuda vs cpu 32x32 {label}: {frac:.5f} of values within "
+    print(f"phase {phase}: {what} {label}: {frac:.5f} of values within "
           f"rtol 1e-3/atol 1e-4, mean rel diff {mean_rel:.3g}")
     if frac < 0.99 or mean_rel > 1e-3:
-        raise AssertionError(f"cuda and cpu renders of the {label} disagree")
+        raise AssertionError(f"{what}: the images of the {label} disagree")
 
 
 def _cuda_vs_cpu(render, scene, phase, label):
@@ -1623,6 +1654,234 @@ def _volpath_phases(card):
     return k1_per_sample, k3_per_sample
 
 
+def _cli(cli, argv, phase, card):
+    """cli.main(argv) in this process, its report lines printed under the
+    phase's name; returns its [(scene, image)]."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"phase {phase}: cli: {line} ({card})")
+    return out
+
+
+@contextlib.contextmanager
+def _keep_gradpath_sums(gdpt_soa):
+    """Keeps the (6, 3, n) sample sums and spp that the gradient-domain
+    render hands its Poisson solve (gdpt_soa._gdpt_finish)."""
+    kept, finish = {}, gdpt_soa._gdpt_finish
+
+    def keeping(static, acc, spp, *a, **kw):
+        kept["acc"], kept["spp"] = acc.copy(), spp
+        return finish(static, acc, spp, *a, **kw)
+
+    gdpt_soa._gdpt_finish = keeping
+    try:
+        yield kept
+    finally:
+        gdpt_soa._gdpt_finish = finish
+
+
+def _resume_on(renderer, scene, spp, ckpt, checkpoint, device, **kw):
+    """(resumed image, uninterrupted image): the first spp // 2 samples
+    rendered with an on_chunk that saves under the full render's
+    fingerprint (the state a render stopped part way leaves), then
+    resumed to spp by render_with_checkpoints; the uninterrupted render
+    takes the same (banded) route."""
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    fp = checkpoint._fingerprint(scene, spp, 0)
+    kept = {}
+    renderer(scene_to(scene, device), spp=spp // 2, seed=0,
+             on_chunk=lambda acc, done: kept.update(acc=acc.copy(), done=done))
+    checkpoint.save_checkpoint(ckpt, kept["acc"], kept["done"], fp)
+    resumed = checkpoint.render_with_checkpoints(scene, spp=spp, seed=0, every=1, path=ckpt,
+                                                 device=device)
+    return resumed, renderer(scene_to(scene, device), spp=spp, seed=0, wavefront=False, **kw)
+
+
+def _file_phases(card):
+    """Phases 28-31: the command-line entry point: scene files written
+    here and parsed by the port, the AOV integrators, checkpoint and
+    resume."""
+    import functools
+    import os
+    import tempfile
+    import types
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch import cli
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.core import image as gimage
+    from gdpt_tpu_torch.core import transform as xf
+    from gdpt_tpu_torch.integrators import aux, gdpt_soa, path_soa, render, volpath_soa
+    from gdpt_tpu_torch.scene import model as M
+    from gdpt_tpu_torch.scene import parser, presets, xml_writer
+    from gdpt_tpu_torch.scene.build import scene_to
+    from gdpt_tpu_torch.utils import checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- phase 28: the brute-force scene file through the command line ----
+        t_phase = time.perf_counter()
+        cbox_xml = xml_writer.write_scene(os.path.join(tmp, "cbox"), **presets.cornell_box_parts(
+            512, 512, FILE_SPP, "path", -1))
+        sub_exr = os.path.join(tmp, "cbox_sub.exr")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gdpt_tpu_torch", cbox_xml, "-o", sub_exr,
+                               "--spp", str(FILE_SPP), "--device", "cuda"], cwd=root,
+                              capture_output=True, text=True, timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"phase 28: python -m gdpt_tpu_torch: {line}")
+        print(f"phase 28: the command took {time.perf_counter() - t0:.2f} s, exit "
+              f"{proc.returncode} ({card})")
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m gdpt_tpu_torch failed:\n{proc.stderr}")
+        img = gimage.read_exr(sub_exr)
+        if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not img.mean() > 0:
+            raise AssertionError("the command's EXR is not finite, not 512x512x3 or black")
+        for k in bk.LAUNCHES:
+            bk.LAUNCHES[k] = 0
+        [(cbox, cbox_img)] = _cli(cli, [cbox_xml, "-o", os.path.join(tmp, "cbox.exr"),
+                                        "--device", "cuda"], 28, card)
+        launches = dict(bk.LAUNCHES)
+        print(f"phase 28: in process: mean radiance {float(cbox_img.mean()):.6f} (the command's "
+              f"EXR {float(img.mean()):.6f}), launches {launches}")
+        if min(launches.values()) == 0:
+            raise AssertionError(f"the scene file's render did not launch K1 and K2: {launches}")
+        if not np.array_equal(gimage.read_exr(os.path.join(tmp, "cbox.exr")), cbox_img):
+            raise AssertionError("the EXR written does not hold the rendered image")
+        t_phase = _phase_done(28, t_phase)
+
+        # ---- phase 29: the BVH scene file (binary PLY) through the command line ----
+        ico_xml = xml_writer.write_scene(os.path.join(tmp, "ico"), **presets.icosphere_box_parts(
+            512, 512, FILE_SPP, integrator="gradpath"))
+        print(f"phase 29: wrote the icosphere box: "
+              f"{sum(os.path.getsize(os.path.join(tmp, 'ico', f)) for f in os.listdir(os.path.join(tmp, 'ico'))) / 1e6:.1f}"
+              f" MB of XML and binary PLY")
+        for k in pk.LAUNCHES:
+            pk.LAUNCHES[k] = 0
+        with _keep_gradpath_sums(gdpt_soa) as sums:
+            [(ico, recon)] = _cli(cli, [ico_xml, "-o", os.path.join(tmp, "ico.exr"),
+                                        "--device", "cuda"], 29, card)
+        launches = dict(pk.LAUNCHES)
+        st = ico.static
+        m_recon, m_primal = float(recon.mean()), float((sums["acc"][0] / sums["spp"]).mean())
+        print(f"phase 29: {st.n_tris} triangles ({ico.bvh_builder} BVH), gradpath spp "
+              f"{sums['spp']}: mean recon {m_recon:.6f}, mean primal {m_primal:.6f}, "
+              f"launches {launches}, {gdpt_soa._gdpt_wavefront_accum.last_iters} wavefront "
+              f"iterations")
+        if st.use_brute_force or st.n_tris != 409_612 or sums["spp"] != FILE_SPP:
+            raise AssertionError("the parsed file is not the 409,612-triangle BVH scene at its spp")
+        if recon.shape != (512, 512, 3) or not np.isfinite(recon).all() or not m_primal > 0:
+            raise AssertionError("the file's gradpath image is not finite, not 512x512x3 or black")
+        if abs(m_recon - m_primal) > 0.02 * m_primal:
+            raise AssertionError("the reconstruction lost the primal's mean (the DC term)")
+        if min(launches["packet_intersect"], launches["packet_occluded"]) == 0:
+            raise AssertionError(f"the BVH file's render did not launch K3: {launches}")
+        t_phase = _phase_done(29, t_phase)
+
+        # ---- phase 30: the AOV integrators ----
+        for label, scene, counter, key in (("cbox file", cbox, bk.LAUNCHES, "intersect"),
+                                           ("icosphere box file", ico, pk.LAUNCHES,
+                                            "packet_intersect")):
+            for kind in aux.AUX_KINDS:
+                counter[key] = 0
+                t0 = time.perf_counter()
+                img = render.render(_with_integrator(scene, kind), device="cuda")
+                wall = time.perf_counter() - t0
+                print(f"phase 30: {label} {kind} 512x512: wall {wall * 1e3:.1f} ms, mean "
+                      f"{float(img.mean()):.6g}, {key} launches {counter[key]} on {card}")
+                if img.shape != (512, 512, 3) or not np.isfinite(img).all():
+                    raise AssertionError(f"{label} {kind}: not finite or not 512x512x3")
+                if counter[key] != 1:
+                    raise AssertionError(f"{label} {kind}: {counter[key]} {key} launches, not one")
+                if kind in ("depth", "shading_normal", "ray_differential") and \
+                        not np.abs(img).max() > 0:
+                    raise AssertionError(f"{label} {kind} is zero everywhere")
+        mat = presets.material_box(512, 512, 1)
+        t0 = time.perf_counter()
+        img = render.render(_with_integrator(mat, "mipmap_level"), device="cuda")
+        print(f"phase 30: material box mipmap_level 512x512: wall "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, levels {float(img.min()):.3f} to "
+              f"{float(img.max()):.3f}, non-zero share {float((img != 0).mean()):.4f} on {card}")
+        if not np.isfinite(img).all() or not (img != 0).any():
+            raise AssertionError("the material box's mip levels are zero everywhere")
+        for kind in aux.AUX_KINDS:
+            for bvh in (False, True):
+                small = presets.cornell_box(32, 32, integrator=kind, force_bvh=bvh)
+                a = render.render(small, device="cuda")
+                b = render.render(small, device="cpu")
+                _gate_cuda_vs_cpu(a, b, float(np.abs(b).mean()), 30,
+                                  f"{kind}, {'BVH' if bvh else 'brute force'}")
+        golden = gimage.read_exr(os.path.join(root, "tests", "goldens", "cbox_depth.exr"))
+        img = render.render(presets.cornell_box(64, 64, integrator="depth"), device="cuda")
+        rel = float(np.sqrt(((img - golden) ** 2).mean())) / max(float(np.abs(golden).mean()), 1e-3)
+        print(f"phase 30: cbox_depth golden on cuda: RMSE / mean {rel:.3g} (bound 0.05)")
+        if not rel < 0.05:
+            raise AssertionError("the cbox_depth golden fails on the card")
+        t_phase = _phase_done(30, t_phase)
+
+        # ---- phase 31: checkpoint and resume on the card ----
+        vol_xml = presets.build_volpath_scene(
+            M, types.SimpleNamespace(build_scene=functools.partial(
+                xml_writer.write_scene, os.path.join(tmp, "vol"))), xf,
+            version=6, width=512, height=512, spp=FILE_VOL_SPP, g=0.6, with_diffuse_sphere=True,
+            density=presets.medium_grid(VOL_GRID, 3, 0.8), albedo=presets.albedo_grid(VOL_GRID, 4))
+        vol, _ = parser.parse_scene(vol_xml)
+        if vol.static.media_grid_res != (((VOL_GRID,) * 3,) * 2,) or not vol.static.use_brute_force:
+            raise AssertionError("the volpath file is not the brute-force 64^3 grid scene")
+        for label, renderer, scene, spp in (
+                ("path, icosphere box file (banded)", path_soa.render_soa,
+                 _with_integrator(ico, "path"), FILE_RESUME_SPP),
+                ("gradpath, cbox file", gdpt_soa.render_gradpath_soa,
+                 _with_integrator(cbox, "gradpath"), FILE_RESUME_SPP),
+                ("volpath, grid file", volpath_soa.render_volpath_soa, vol, FILE_VOL_SPP)):
+            t0 = time.perf_counter()
+            resumed, straight = _resume_on(renderer, scene, spp, os.path.join(tmp, "r.ckpt.npz"),
+                                           checkpoint, "cuda")
+            diff = float(np.abs(resumed - straight).max())
+            exact = bool(np.array_equal(resumed, straight))
+            print(f"phase 31: {label}, {spp // 2} + {spp - spp // 2} of {spp} spp resumed: "
+                  f"{'equal bit for bit' if exact else 'not bit for bit'} to the uninterrupted "
+                  f"render, largest difference {diff:.3g}, mean {float(straight.mean()):.6f}; "
+                  f"{time.perf_counter() - t0:.1f} s on {card}")
+            if label.startswith("path") and not exact:
+                raise AssertionError("a resume over the same passes is not bit for bit")
+            if not exact:
+                _gate_cuda_vs_cpu(resumed, straight, float(straight.mean()), 31, label,
+                                  "resumed vs uninterrupted 512x512")
+        small, _ = parser.parse_scene(cbox_xml, width=32, height=32, spp=2)
+        ckpt = os.path.join(tmp, "small.ckpt.npz")
+        fp_cuda = checkpoint._fingerprint(scene_to(small, "cuda"), 2, 0)
+        fp_cpu = checkpoint._fingerprint(small, 2, 0)
+        kept = {}
+        path_soa.render_soa(scene_to(small, "cuda"), spp=1, seed=0,
+                            on_chunk=lambda acc, done: kept.update(acc=acc.copy(), done=done))
+        checkpoint.save_checkpoint(ckpt, kept["acc"], kept["done"], fp_cuda)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # a discarded checkpoint warns: fail on it
+            resumed = checkpoint.render_with_checkpoints(small, spp=2, seed=0, path=ckpt,
+                                                         device="cpu")
+        straight = render.render(small, spp=2, seed=0, device="cpu")
+        print(f"phase 31: a 32x32 checkpoint written on cuda resumes on the CPU: fingerprints "
+              f"{'equal' if fp_cuda == fp_cpu else 'differ'}, largest difference "
+              f"{float(np.abs(resumed - straight).max()):.3g}")
+        if fp_cuda != fp_cpu:
+            raise AssertionError("the fingerprint depends on the device")
+        _gate_cuda_vs_cpu(resumed, straight, float(straight.mean()), 31, "cbox path",
+                          "resumed from cuda vs uninterrupted on cpu 32x32")
+        torch.cuda.synchronize()
+        _phase_done(31, t_phase)
+
+
 def _phase_done(phase, since):
     now = time.perf_counter()
     print(f"phase {phase}: done in {now - since:.1f} s")
@@ -1681,6 +1940,7 @@ def main():
     sums = _batch_phase(card)
     _material_phases(card)
     k1_vol, k3_vol = _volpath_phases(card)
+    _file_phases(card)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):

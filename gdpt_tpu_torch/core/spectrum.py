@@ -1,5 +1,7 @@
-"""Host-side color utilities (numpy), copied from gdpt_tpu/core/spectrum.py.
+"""Color utilities, copied from gdpt_tpu/core/spectrum.py.
 
+luminance and avg take numpy arrays or tensors of (..., 3) linear RGB
+(reference: src/spectrum.h:8-32). Host side (numpy): sRGB decoding and
 CIE-1931 integration of tabulated spectra to linear RGB using Wyman et
 al.'s analytic response fits (reference: src/spectrum.h:48-118).
 """
@@ -7,6 +9,15 @@ al.'s analytic response fits (reference: src/spectrum.h:48-118).
 import numpy as np
 
 LUMA = (0.212671, 0.715160, 0.072169)
+
+
+def luminance(s):
+    """Rec.709 luminance (reference: src/spectrum.h:32)."""
+    return s[..., 0] * LUMA[0] + s[..., 1] * LUMA[1] + s[..., 2] * LUMA[2]
+
+
+def avg(s):
+    return s.mean(-1)
 
 
 def _x_fit_1931(w):
@@ -66,3 +77,10 @@ def xyz_to_rgb(xyz):
 
 def spectrum_to_rgb(wavelengths, values):
     return xyz_to_rgb(integrate_xyz(wavelengths, values))
+
+
+def srgb_to_linear(srgb):
+    srgb = np.asarray(srgb, dtype=np.float64)
+    return np.where(
+        srgb <= 0.04045, srgb / 12.92, ((srgb + 0.055) / 1.055) ** 2.4
+    )

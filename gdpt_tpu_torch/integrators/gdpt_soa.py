@@ -16,11 +16,11 @@ component-tensor op. Cost per bounce is about 5x a plain path bounce
 primaries ride one 5n-lane cast and the probe/replay rays one 8n-lane
 cast.
 
-Ported: the banded sample loop (brute-force scenes) and the wavefront
+Ported: the banded sample loop (brute-force scenes, and checkpointed
+renders: ``on_chunk``, ``init_acc``, ``start_sample``) and the wavefront
 lane pool (BVH scenes) behind ``render_gradpath_soa``. Not yet, and
-raising NotImplementedError when asked for: the pool-sorted wavefront,
-sharding (``mesh=``) and checkpointed renders (``on_chunk``,
-``init_acc``, ``start_sample``); see ROADMAP.md. The per-ray oracle
+raising NotImplementedError when asked for: the pool-sorted wavefront
+and sharding (``mesh=``); see ROADMAP.md. The per-ray oracle
 integrators/gdpt.py of the reference is not ported either.
 
 Every tensor is made on the device the scene lives on.
@@ -627,12 +627,16 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
     count and tail compaction. packet_wide (16 or 32) is the width of a
     BVH scene's packet table; packet_dual=True walks a 16-wide table with
     the dual kernel K4 in place of K3 (with width 32 it raises
-    ValueError)."""
-    for name, given in (("mesh (sharding)", mesh is not None),
-                        ("on_chunk / init_acc / start_sample (checkpointed renders)",
-                         on_chunk is not None or init_acc is not None or bool(start_sample))):
-        if given:
-            raise NotImplementedError(f"{name} is not ported yet; see ROADMAP.md")
+    ValueError).
+
+    start_sample/init_acc resume an interrupted accumulation (init_acc is
+    the raw (6, 3, n) float64 sample sums: primal, brute-force primal and
+    the four one-sided gradients, before the Poisson solve);
+    on_chunk(acc, done) fires after every pass. Given any of them, the
+    render takes the banded loop (path_soa.banded_for_resume)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh (sharding) is not ported yet; see ROADMAP.md")
+    wavefront = ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk)
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
@@ -669,9 +673,10 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
         band = -(-n // nb)
         bands = [(lo, min(n, lo + band)) for lo in range(0, n, band)]
 
-    acc = np.zeros((6, 3, n), np.float64)
+    acc = (np.zeros((6, 3, n), np.float64) if init_acc is None
+           else np.asarray(init_acc, np.float64).copy())
     total_rays = 0.0
-    done = 0
+    done = int(start_sample)
     while done < spp:
         k = min(batch, spp - done)
         for lo, hi in bands:
@@ -683,6 +688,8 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
                     acc[i, c, lo:hi] += buf[c].cpu().numpy().astype(np.float64)
             total_rays += float(nrays)
         done += k
+        if on_chunk is not None:
+            on_chunk(acc, done)
     return _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux, return_stats, device)
 
 

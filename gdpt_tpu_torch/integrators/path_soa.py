@@ -11,8 +11,9 @@ renderer (``render_soa_wavefront``, the default for BVH scenes) behind
 ops/materials_soa.py (image textures mip-filtered by the ray
 differentials' footprint), mesh and sphere area lights and constant or
 image envmaps; integrators/gdpt_soa.py builds the gradient-domain render
-on the same pieces. Not yet: the pool-sorted wavefront, sharding and
-resume (see ROADMAP.md).
+on the same pieces; the banded loop resumes a checkpointed render
+(start_sample, init_acc, on_chunk). Not yet: the pool-sorted wavefront
+and sharding (see ROADMAP.md).
 
 Every tensor is made on the device the scene lives on.
 """
@@ -1110,8 +1111,21 @@ def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     return acc, rays
 
 
+def banded_for_resume(wavefront, start_sample, init_acc, on_chunk):
+    """The `wavefront` choice of a renderer given resume arguments: a
+    resumed or checkpointed render sums whole samples, so it takes the
+    banded loop (None resolves to False; True raises ValueError)."""
+    if on_chunk is None and init_acc is None and not start_sample:
+        return wavefront
+    if wavefront:
+        raise ValueError("start_sample / init_acc / on_chunk (checkpointed renders) take "
+                         "the banded loop; wavefront=True cannot resume")
+    return False
+
+
 def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None,
-               packet_wide=32, packet_dual=False):
+               packet_wide=32, packet_dual=False, start_sample=0, init_acc=None,
+               on_chunk=None):
     """SoA render loop for the path integrator on the scene's device.
     Returns an (h, w, 3) float32 numpy image (and the traced ray count).
 
@@ -1122,11 +1136,17 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     packet_wide (16 or 32) is the width of a BVH scene's packet table;
     packet_dual=True walks a 16-wide table with the dual kernel K4 in
     place of K3 (with width 32 it raises ValueError).
+
+    start_sample/init_acc resume an interrupted accumulation (init_acc is
+    the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires
+    after every pass for checkpointing. Given any of them, the render
+    takes the banded loop (banded_for_resume).
     """
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
+    wavefront = banded_for_resume(wavefront, start_sample, init_acc, on_chunk)
     if wavefront is None:
         # BVH scenes: the wavefront pool keeps every dispatch at ~full
         # occupancy (sample regeneration); the banded loop pays
@@ -1147,9 +1167,10 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     # Brute scenes are throughput-bound: big sample batches per pass.
     # BVH scenes take one sample per pass, as the reference does.
     batch = max(1, (1 << 26) // n) if static.use_brute_force else 1
-    acc = np.zeros((3, n), np.float64)
+    acc = (np.zeros((3, n), np.float64) if init_acc is None
+           else np.asarray(init_acc, np.float64).copy())
     total_rays = 0.0
-    done = 0
+    done = int(start_sample)
     while done < spp:
         k = min(batch, spp - done)
         out, nrays = _soa_pass(static, camera, sc, xs_d, ys_d, ray_idx,
@@ -1159,6 +1180,8 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
             acc[c] += out[c].cpu().numpy().astype(np.float64)
         total_rays += float(nrays)
         done += k
+        if on_chunk is not None:
+            on_chunk(acc, done)
     img = (acc / spp).T.reshape(h, w, 3).astype(np.float32)
     img = np.where(np.isfinite(img), img, 0.0)
     if return_stats:

@@ -4,8 +4,9 @@ Counterpart of gdpt_tpu/integrators/render.py. The scene (built on the
 host) is carried to `device` — the CUDA card unless the caller passes
 device="cpu" — and rendered there. Ported integrators: "path",
 "gradpath" (gradient-domain path tracing with the screened-Poisson
-reconstruction) and "volpath" at its production rung (versions 6 and 0;
-ops/media_soa.py), over every material kind, texture slot and light type
+reconstruction), "volpath" at its production rung (versions 6 and 0;
+ops/media_soa.py) and the AOV kinds (integrators/aux.py: one primary
+cast per pixel), over every material kind, texture slot and light type
 of the SoA stack (ops/materials_soa.py, ops/textures_soa.py), as the
 reference's SoA dispatch takes every scene of these integrators.
 Brute-force scenes go through the banded loops, BVH
@@ -15,6 +16,7 @@ walk: the solo kernel K3, or on a 16-wide table the dual kernel K4.
 """
 
 from gdpt_tpu_torch.core.dtypes import resolve_device
+from gdpt_tpu_torch.integrators import aux
 from gdpt_tpu_torch.scene.build import Scene, scene_to
 
 
@@ -30,6 +32,9 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     walk = dict(packet_wide=packet_wide, packet_dual=packet_dual)
     if return_aux and integrator != "gradpath":
         raise ValueError(f"return_aux: integrator {integrator!r} has no auxiliary buffers")
+    if integrator in aux.AUX_KINDS:
+        img = aux.render_aux(scene_to(scene, device), integrator, **walk)
+        return (img, float(scene.static.width * scene.static.height)) if return_stats else img
     if integrator == "path":
         from gdpt_tpu_torch.integrators import path_soa
 

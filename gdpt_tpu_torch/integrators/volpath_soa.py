@@ -18,8 +18,9 @@ Brute-force scenes run the banded loop (`trace_volpath_soa`, all lanes
 of a pass in lockstep), BVH scenes the wavefront lane pool
 (`_vol_wavefront_accum`); both call the one bounce, `_vol_bounce`, whose
 RNG streams depend only on (pixel, sample, bounce, slot), so the two
-drivers give the same estimate. Not ported: the rungs 1-5, the
-pool sort, sharding and resume (see ROADMAP.md).
+drivers give the same estimate; a checkpointed render resumes on the
+banded loop. Not ported: the rungs 1-5, the pool sort and sharding (see
+ROADMAP.md).
 """
 
 import numpy as np
@@ -646,12 +647,15 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
     is the width of a BVH scene's packet table; packet_dual=True walks a
     16-wide table with the dual kernel K4 in place of K3 (with width 32
     it raises ValueError). The banded loop sums passes of samples in f32
-    on the device and accumulates them in float64 on the host."""
-    for name, given in (("mesh (sharding)", mesh is not None),
-                        ("on_chunk / init_acc / start_sample (checkpointed renders)",
-                         on_chunk is not None or init_acc is not None or bool(start_sample))):
-        if given:
-            raise NotImplementedError(f"{name} is not ported yet; see ROADMAP.md")
+    on the device and accumulates them in float64 on the host.
+
+    start_sample/init_acc resume an interrupted accumulation (init_acc is
+    the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires
+    after every pass. Given any of them, the render takes the banded loop
+    (path_soa.banded_for_resume)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh (sharding) is not ported yet; see ROADMAP.md")
+    wavefront = ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk)
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
@@ -673,9 +677,10 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
     else:
         ray_idx = torch.arange(n, dtype=torch.int64, device=device)
         batch = max(1, (1 << 24) // n) if static.use_brute_force else 1
-        acc = np.zeros((3, n), np.float64)
+        acc = (np.zeros((3, n), np.float64) if init_acc is None
+               else np.asarray(init_acc, np.float64).copy())
         total_rays = 0.0
-        done = 0
+        done = int(start_sample)
         while done < spp:
             k = min(batch, spp - done)
             out, nrays = _vol_pass(static, camera, sc, media, ray_idx, seed, done, k)
@@ -684,6 +689,8 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
                 acc[c] += out[c].cpu().numpy().astype(np.float64)
             total_rays += float(nrays)
             done += k
+            if on_chunk is not None:
+                on_chunk(acc, done)
     img = (acc / spp).T.reshape(h, w, 3).astype(np.float32)
     img = np.where(np.isfinite(img), img, 0.0)
     if return_stats:

@@ -70,6 +70,13 @@ def cornell_box(
     max_depth=-1,
     force_bvh=False,
 ):
+    return build.build_scene(**cornell_box_parts(width, height, spp, integrator, max_depth),
+                             force_bvh=force_bvh)
+
+
+def cornell_box_parts(width=512, height=512, spp=4, integrator="path", max_depth=-1):
+    """cornell_box's description: build.build_scene's arguments as a dict
+    (scene/xml_writer.write_scene takes the same)."""
     shapes = []
     # material ids: 0 white, 1 red, 2 green, 3 light-white
     materials = [
@@ -139,8 +146,7 @@ def cornell_box(
     opts = M.RenderOptions(
         integrator=integrator, samples_per_pixel=spp, max_depth=max_depth
     )
-    return build.build_scene(cam, materials, shapes, lights, options=opts,
-                             force_bvh=force_bvh)
+    return dict(camera=cam, materials=materials, shapes=shapes, lights=lights, options=opts)
 
 
 # The tall block's place and the short block's, resting on the floor.
@@ -180,6 +186,13 @@ def icosphere_box(width, height, spp, balls=None, spheres=(), max_depth=-1,
     [(center, radius), ...]. balls=None takes ICOSPHERE_BALLS (409,612
     triangles in all), the port's stand-in for a large mesh scene.
     Lambertian throughout."""
+    return build.build_scene(**icosphere_box_parts(width, height, spp, balls, spheres,
+                                                   max_depth, integrator))
+
+
+def icosphere_box_parts(width, height, spp, balls=None, spheres=(), max_depth=-1,
+                        integrator="path"):
+    """icosphere_box's description, as cornell_box_parts."""
     quads = _mesh_from_quads
     balls = ICOSPHERE_BALLS if balls is None else balls
     materials = [M.Lambertian(WHITE), M.Lambertian(RED),
@@ -208,7 +221,7 @@ def icosphere_box(width, height, spp, balls=None, spheres=(), max_depth=-1,
                    filter_kind=FILTER_GAUSSIAN, filter_param=0.5)
     opts = M.RenderOptions(integrator=integrator, samples_per_pixel=spp,
                            max_depth=max_depth)
-    return build.build_scene(cam, materials, shapes, lights, options=opts)
+    return dict(camera=cam, materials=materials, shapes=shapes, lights=lights, options=opts)
 
 
 def medium_grid(res, seed, mean=1.0, floor=0.2, tint=True):

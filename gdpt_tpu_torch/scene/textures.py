@@ -4,9 +4,10 @@ Counterpart of the host half of gdpt_tpu/scene/textures.py: every mip
 level of every image is flattened into one pixel array, with
 (image, level) -> (offset, width, height) tables (reference:
 src/texture.h:13-78, src/mipmap.h:25-48). The renders' image lookups are
-the batched ones of ops/textures_soa.py; the per-ray lookups of the
-reference's device half (eval_texture, lookup_trilinear) serve only its
-per-ray code and are not ported (see ROADMAP.md).
+the batched ones of ops/textures_soa.py; of the reference's device half
+only gather_desc is here (the AOV pass reads a material's slot with it).
+Its per-ray lookups (eval_texture, eval_tex1/3, lookup_trilinear,
+_bilinear) serve only its per-ray code and come with it (ROADMAP.md A.6).
 
 Texture kinds (reference: src/texture.h:80-115): 0 constant, 1 image,
 2 checkerboard.
@@ -108,6 +109,11 @@ class TexDesc(NamedTuple):
     vscale: torch.Tensor
     uoffset: torch.Tensor
     voffset: torch.Tensor
+
+
+def gather_desc(desc: TexDesc, idx):
+    """The slot descriptors of the materials `idx` (a tensor of ids)."""
+    return TexDesc(*(f[idx] for f in desc))
 
 
 def make_tex_desc(host_descs, channels):

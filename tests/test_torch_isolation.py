@@ -54,7 +54,10 @@ def test_slice_modules_are_covered():
                    "accel/packet_kernels.py", "accel/traverse_soa.py", "convert.py",
                    "ops/poisson.py", "ops/materials_soa.py", "ops/textures_soa.py",
                    "integrators/gdpt_soa.py", "integrators/render.py",
-                   "tools/visit_microbench.py"):
+                   "tools/visit_microbench.py", "cli.py", "__main__.py", "core/image.py",
+                   "core/exr_piz.py", "scene/loaders.py", "scene/parser.py",
+                   "scene/xml_writer.py", "integrators/aux.py", "utils/checkpoint.py",
+                   "utils/profiling.py", "utils/host_parallel.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
@@ -63,7 +66,8 @@ def test_slice_modules_are_covered():
 
 
 NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
-               "tools/visit_microbench.py", "accel/packet_kernels.py", "accel/traverse_soa.py"]
+               "tools/visit_microbench.py", "accel/packet_kernels.py", "accel/traverse_soa.py",
+               "cli.py", "integrators/aux.py", "utils/checkpoint.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -129,20 +133,24 @@ def test_a_nested_header_change_rebuilds_its_users(tmp_path, monkeypatch):
 
 def test_importing_every_module_builds_nothing():
     """Every module imports in a process where running a compiler (or any
-    other program) fails, and pulls in neither jax nor triton."""
+    other program) fails, writes nothing into its build directory (a fresh
+    empty one of its own, so no other process's build can race the
+    check), and pulls in neither jax nor triton."""
     code = (
-        "import subprocess, sys\n"
+        "import pathlib, shutil, subprocess, sys, tempfile\n"
         "def boom(*a, **k): raise AssertionError('a program was run at import')\n"
         "subprocess.run = subprocess.Popen = subprocess.check_output = boom\n"
         "import importlib, pkgutil, gdpt_tpu_torch\n"
         "from gdpt_tpu_torch.accel import native_build\n"
-        "before = sorted(native_build.BUILD_DIR.glob('*')) if native_build.BUILD_DIR.exists() else None\n"
-        "names = [m.name for m in pkgutil.walk_packages(gdpt_tpu_torch.__path__, 'gdpt_tpu_torch.')]\n"
-        "for n in names: importlib.import_module(n)\n"
-        "assert len(names) >= 29, names\n"
-        "after = sorted(native_build.BUILD_DIR.glob('*')) if native_build.BUILD_DIR.exists() else None\n"
-        "assert before == after\n"
-        "assert not {'jax', 'jaxlib', 'triton', 'gdpt_tpu'} & set(sys.modules)\n"
+        "native_build.BUILD_DIR = pathlib.Path(tempfile.mkdtemp())\n"
+        "try:\n"
+        "    names = [m.name for m in pkgutil.walk_packages(gdpt_tpu_torch.__path__, 'gdpt_tpu_torch.')]\n"
+        "    for n in names: importlib.import_module(n)\n"
+        "    assert len(names) >= 45, names\n"
+        "    assert not list(native_build.BUILD_DIR.iterdir())\n"
+        "finally:\n"
+        "    shutil.rmtree(native_build.BUILD_DIR)\n"
+        "assert not {'jax', 'jaxlib', 'triton', 'gdpt_tpu', 'PIL'} & set(sys.modules)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
