@@ -150,12 +150,39 @@ Phases, each fatal on failure:
      held against the uninterrupted render of the same route (bit for
      bit where both sum the same passes, else at the gate, the largest
      difference printed); a 32x32 checkpoint written on cuda resumes on
-     the CPU (equal fingerprints).
+     the CPU (equal fingerprints);
+ 32. the per-ray volpath rungs (integrators/volpath.py through
+     render.render_samples): volpath_scene versions 1-5 at 512x512, 4 spp
+     in one pass of 1,048,576 lanes, unbounded depth (v5 with the diffuse
+     sphere), brute force; counts and host reads zeroed just before each
+     render and read just after: K1 launched by every rung, K2 by v2
+     alone; wall, rays, Mrays/s, K1/K2 launches and host reads of each
+     loop per sample; v2's shadow batch (K2) and a v5 bounce cast and
+     shadow segment (K1) recorded;
+ 33. each rung at 32x32 on cuda and on the CPU, and the medium box cut
+     to two level-1 balls as v5 and v2 (BVH: K3 closest, and any hit for
+     v2): images at phase 4's gate, ray counts equal;
+ 34. K2 and K1 held bit for bit against their plain versions on phase
+     32's batches, and K3 closest on a v5 bounce cast and shadow segment
+     of the full-size medium box (1 spp, depth 4, 32-wide table) and K3
+     any hit on its v2 shadow rays; each timed by CUDA graph replay
+     beside its bound; two v5 bounce iterations of phase 32's render
+     under the profiler: launches per iteration, the device's busy
+     share, the RNG's share of launches (its draws in the window times
+     the launches of one draw, counted alone);
+ 35. the volpath_v5 golden on cuda (32x32, 32 spp, depth 5, seed 42;
+     RMSE / mean < 0.05); a 512x512 v5 scene file (8 spp in two passes,
+     depth 4) rendered by `python -m gdpt_tpu_torch` as a subprocess,
+     then its first pass checkpointed in process (the render stopped
+     after it) and resumed by render_with_checkpoints: equal bit for bit
+     to the command's image.
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
 each render, K1's and K3 closest's launches per volpath sample of phases
-24 and 26),
+24 and 26, and under "rungs" K1's, K2's and K3's launches per sample of
+the rungs (phases 32, 34) and the time and bound of each rung batch of
+phase 34),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -188,6 +215,9 @@ VOL_GRID = 64               # the media's grid resolution
 FILE_SPP = 4                # the scene files' path and gradpath renders
 FILE_RESUME_SPP = 2         # the path and gradpath renders resumed in phase 31
 FILE_VOL_SPP = 2            # the volpath file of phase 31
+RUNG_SPP = 4                # phase 32: the per-ray volpath rungs at 512x512 (one pass)
+RUNG_FILE = dict(spp=8, max_depth=4)  # phase 35's v5 file: two passes of 4 spp
+RUNG_BOX_DEPTH = 4          # phase 34: the v5 medium box render whose K3 batches are kept
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -1881,6 +1911,355 @@ def _file_phases(card):
         torch.cuda.synchronize()
         _phase_done(31, t_phase)
 
+@contextlib.contextmanager
+def _keep_calls(mod, name, pick):
+    """Wraps mod.name; keeps (args, kw) of the first call for each label
+    that pick(args, kw) returns (None: not kept). Yields {label: (args, kw)}."""
+    kept, fn = {}, getattr(mod, name)
+
+    def keeping(*args, **kw):
+        label = pick(args, kw)
+        if label is not None:
+            kept.setdefault(label, (args, kw))
+        return fn(*args, **kw)
+
+    setattr(mod, name, keeping)
+    try:
+        yield kept
+    finally:
+        setattr(mod, name, fn)
+
+
+def _profiled_bounces(vp, prof, first, count, out):
+    """Context: the per-ray rungs' bounce loop runs `prof` from the start
+    of bounce body `first` to the start of body `first + count` (or the
+    loop's end): `count` whole iterations, their nested shadow loops and
+    masked updates included. out gets the window's wall (us) and the
+    number of iterations it held."""
+    loop = vp._masked_loop
+
+    def profiled(cond, body, state, name):
+        if name != "bounce":
+            return loop(cond, body, state, name)
+        seen = [0]
+
+        def timed(s, live):
+            import torch
+
+            seen[0] += 1
+            if seen[0] == first:
+                torch.cuda.synchronize()
+                prof.start()
+                out["t0"] = time.perf_counter()
+            elif seen[0] == first + count:
+                _stop(torch)
+            return body(s, live)
+
+        def _stop(torch):
+            torch.cuda.synchronize()
+            out["wall_us"] = (time.perf_counter() - out.pop("t0")) * 1e6
+            out["iters"] = seen[0] - first
+            prof.stop()
+
+        result = loop(cond, timed, state, name)
+        if "t0" in out:
+            import torch
+
+            seen[0] += 1
+            _stop(torch)
+        return result
+
+    @contextlib.contextmanager
+    def ctx():
+        vp._masked_loop = profiled
+        try:
+            yield
+        finally:
+            vp._masked_loop = loop
+
+    return ctx()
+
+
+def _rng_launches(rng, n, dev):
+    """Kernel launches of one rng.uniform draw of each shape on n lanes,
+    counted under the profiler: {(): k, (2,): k}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    key = rng.ray_key(rng.prng_key(0, n, dev), torch.arange(n, device=dev))
+    b = torch.ones(n, dtype=torch.int32, device=dev)
+    out = {}
+    for shape in ((), (2,)):
+        rng.uniform(key, b, rng.SLOT_RR, shape)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rng.uniform(key, b, rng.SLOT_RR, shape)
+            torch.cuda.synchronize()
+        out[shape] = sum(e.count for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+    return out
+
+
+def _time_batch(kind, fn, work, phase, label, card):
+    """Times one recorded batch by CUDA graph replay; returns (ms, bound ms)."""
+    ms, _ = _time_ms(fn, 10, 3)
+    ops, nbytes = work
+    bound = max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S) * 1e3
+    print(f"phase {phase}: {kind} on the {label}: {ms * 1e3:.2f} us/launch by CUDA graph replay, "
+          f"bound {bound * 1e3:.2f} us ({ops / 1e9:.4f} Gop, {nbytes / 1e6:.2f} MB) on {card}")
+    return ms, bound
+
+
+def _rung_phases(card):
+    """Phases 32-35: the per-ray volpath rungs (versions 1-5) through
+    render_samples on K1, K2 and K3. Returns {kernel: {batch: (launches
+    per sample, ms, bound ms)}} for the kernels line."""
+    import functools
+    import os
+    import tempfile
+    import types
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import traverse_soa as trs
+    from gdpt_tpu_torch.core import image as gimage
+    from gdpt_tpu_torch.core import rng
+    from gdpt_tpu_torch.core import transform as xf
+    from gdpt_tpu_torch.integrators import path_soa, render
+    from gdpt_tpu_torch.integrators import volpath as vp
+    from gdpt_tpu_torch.scene import model as M
+    from gdpt_tpu_torch.scene import parser, presets, xml_writer
+    from gdpt_tpu_torch.scene.build import scene_to
+    from gdpt_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda")
+    rows = {"K1": {}, "K2": {}, "K3 closest": {}, "K3 any hit": {}}
+
+    # ---- phase 32: the rungs at 512x512, brute force ----
+    t_phase = time.perf_counter()
+    want = {("main", 0, 3): "v5 bounce cast", ("shadow", 1, 3): "v5 shadow segment"}
+    k1_batches, k2_batches = {}, {}
+    for ver in (1, 2, 3, 4, 5):
+        scene = presets.volpath_scene(version=ver, width=512, height=512, spp=RUNG_SPP,
+                                      max_depth=-1, with_diffuse_sphere=(ver == 5))
+        if not scene.static.use_brute_force:
+            raise AssertionError("the phase 32 scene is not brute force")
+        path_soa.scene_soa_from_aos(scene_to(scene, dev))
+        record = _record_casts(trs, bk, "intersect_brute", want if ver == 5 else {})
+        shadow = _keep_calls(bk, "occluded_brute",
+                             lambda a, kw: "v2 shadow ray" if ver == 2 else None)
+        for d in (bk.LAUNCHES, vp.HOST_READS):
+            for k in d:
+                d[k] = 0
+        with record as k1_kept, shadow as k2_kept:
+            t0 = time.perf_counter()
+            img, rays = render.render(scene, seed=0, device="cuda", return_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches, reads = dict(bk.LAUNCHES), dict(vp.HOST_READS)
+        k1_batches.update(k1_kept)
+        k2_batches.update({k: v[0] for k, v in k2_kept.items()})
+        per = {k: v / RUNG_SPP for k, v in launches.items()}
+        print(f"phase 32: volpath v{ver} 512x512 spp {RUNG_SPP}: mean radiance "
+              f"{float(img.mean()):.6f}, wall {wall:.3f} s, rays {rays:.0f}, "
+              f"{rays / wall / 1e6:.3f} Mrays/s, K1 {per['intersect']:.2f} and K2 "
+              f"{per['occluded']:.2f} launches per sample, host reads per sample "
+              f"{ {k: v / RUNG_SPP for k, v in reads.items()} } on {card}")
+        if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not float(img.mean()) > 0:
+            raise AssertionError(f"v{ver}: image not finite, not 512x512x3 or black")
+        if not launches["intersect"] or bool(launches["occluded"]) != (ver == 2):
+            raise AssertionError(f"v{ver} did not go through K1 (and K2 for v2 only): {launches}")
+        rows["K1"][f"v{ver} per sample"] = per["intersect"]
+        if ver == 2:
+            rows["K2"]["v2 per sample"] = per["occluded"]
+    if set(k1_batches) != set(want.values()) or len(k2_batches) != 1:
+        raise AssertionError(f"phase 32 kept {sorted(k1_batches)} and {sorted(k2_batches)}")
+    t_phase = _phase_done(32, t_phase)
+
+    # ---- phase 33: cuda vs cpu at 32x32 ----
+    small = [(f"v{ver}", presets.volpath_scene(version=ver, width=32, height=32, spp=2,
+                                               max_depth=6, with_diffuse_sphere=(ver == 5)))
+             for ver in (1, 2, 3, 4, 5)]
+    balls = [(1, (368.0, 100.0, 351.0), 100.0), (1, (186.0, 60.0, 169.0), 60.0)]
+    for ver in (5, 2):
+        small.append((f"medium box v{ver} (BVH)", presets.medium_box(
+            32, 32, 2, balls=balls, grid_res=16, max_depth=6, version=ver)))
+    for label, sc in small:
+        before = dict(pk.LAUNCHES)
+        a, ra = render.render(sc, seed=3, device="cuda", return_stats=True)
+        if "BVH" in label:
+            mode = "packet_occluded" if label.endswith("v2 (BVH)") else "packet_intersect"
+            if sc.static.use_brute_force or pk.LAUNCHES[mode] == before[mode]:
+                raise AssertionError(f"{label} did not go through the packet walk K3 ({mode})")
+        b, rb = render.render(sc, seed=3, device="cpu", return_stats=True)
+        _gate_cuda_vs_cpu(a, b, float(b.mean()), 33, f"volpath {label}")
+        print(f"phase 33: rays cuda {ra:.0f}, cpu {rb:.0f}")
+        if ra != rb:
+            raise AssertionError(f"volpath {label}: cuda and cpu ray counts differ")
+    t_phase = _phase_done(33, t_phase)
+
+    # ---- phase 34: K1, K2, K3 on the rungs' own batches; two v5 bounces profiled ----
+    args = k2_batches["v2 shadow ray"]
+    live = args[10] > float(torch.tensor(args[11], dtype=torch.float32))
+    _compare_k2(bk.occluded_brute(*args), bk.occluded_brute_plain(*args), "v2 shadow ray", live)
+    n_live, ops, nbytes = _brute_work("K2", args)
+    rows["K2"]["v2 shadow ray"] = _time_batch(
+        "K2", lambda: bk.occluded_brute(*args), (ops, nbytes), 34,
+        f"v2 shadow ray batch ({args[10].shape[0]} lanes, live {n_live / args[10].shape[0]:.4f})",
+        card)
+    for key in ("v5 bounce cast", "v5 shadow segment"):
+        kargs, _ = k1_batches[key]
+        _compare_k1(bk.intersect_brute(*kargs), bk.intersect_brute_plain(*kargs), key)
+        n_live, ops, nbytes = _brute_work("K1", kargs)
+        n = kargs[10].shape[0]
+        rows["K1"][key] = _time_batch(
+            "K1", lambda: bk.intersect_brute(*kargs), (ops, nbytes), 34,
+            f"{key} batch ({n} lanes, live {n_live / n:.4f}, tnear {kargs[11]:g})", card)
+
+    box = presets.medium_box(512, 512, 1, grid_res=VOL_GRID, max_depth=RUNG_BOX_DEPTH,
+                             version=5)
+    if box.static.use_brute_force or box.static.n_tris < 400_000:
+        raise AssertionError("the medium box is not the full-size BVH scene")
+    tab = path_soa.scene_soa_from_aos(scene_to(box, dev)).geom.packet
+    want = {("main", 0, 2): "v5 bounce cast", ("shadow", 0, 2): "v5 shadow segment"}
+    for k in pk.LAUNCHES:
+        pk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with _record_casts(trs, pk, "trace_packets", want) as k3_batches:
+        img, rays = render.render(box, seed=0, device="cuda", return_stats=True)
+    wall = time.perf_counter() - t0
+    launches = dict(pk.LAUNCHES)
+    print(f"phase 34: medium box v5 512x512 1 spp depth {RUNG_BOX_DEPTH} on the {tab.width}-wide "
+          f"table: wall {wall:.3f} s, rays {rays:.0f}, {rays / wall / 1e6:.3f} Mrays/s, "
+          f"launches {launches}, mean {float(img.mean()):.6f} on {card}")
+    if not launches["packet_intersect"] or launches["packet_occluded"] or tab.width != 32:
+        raise AssertionError(f"the v5 medium box did not go through K3 closest: {launches}")
+    if not np.isfinite(img).all() or not float(img.mean()) > 0:
+        raise AssertionError("the v5 medium box image is not finite or black")
+    rows["K3 closest"]["medium box v5 per sample"] = launches["packet_intersect"]
+    box2 = presets.medium_box(512, 512, 1, grid_res=VOL_GRID, version=2)
+    with _keep_calls(pk, "trace_packets",
+                     lambda a, kw: "v2 shadow ray" if kw.get("any_hit") else None) as any_kept:
+        render.render(box2, seed=0, device="cuda")
+    k3_batches.update(any_kept)
+    for key, any_hit in (("v5 bounce cast", False), ("v5 shadow segment", False),
+                         ("v2 shadow ray", True)):
+        (tab_b, *r), kw = k3_batches[key]
+        n_tris = kw.get("n_tris")
+        _compare_k3(pk, tab_b, tuple(r), n_tris, any_hit, f"medium box {key}")
+        ops, nbytes, _, visits = _walk_work(pk, tab_b, tuple(r), any_hit)
+        n = r[0].shape[0]
+        row = "K3 any hit" if any_hit else "K3 closest"
+        rows[row][f"medium box {key}"] = _time_batch(
+            row, lambda: pk.trace_packets(tab_b, *r, n_tris=n_tris, any_hit=any_hit),
+            (ops, nbytes), 34, f"medium box {key} batch ({n} lanes, live "
+            f"{float((r[7] > r[6]).float().mean()):.4f}, {visits / n:.2f} visits per ray)", card)
+
+    scene = presets.volpath_scene(version=5, width=512, height=512, spp=RUNG_SPP, max_depth=-1,
+                                  with_diffuse_sphere=True)
+    per_draw = _rng_launches(rng, 512 * 512 * RUNG_SPP, dev)
+    draws = {(): 0, (2,): 0}
+    uniform, window = rng.uniform, {}
+
+    def counting(key, bounce, slot, shape=()):
+        if "t0" in window:  # only the draws of the profiled window
+            draws[tuple(shape)] += 1
+        return uniform(key, bounce, slot, shape)
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    rng.uniform = counting
+    try:
+        with _profiled_bounces(vp, prof, 3, 2, window):
+            render.render(scene, seed=0, device="cuda")
+    finally:
+        rng.uniform = uniform
+    iters = window.get("iters", 0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in kernels)
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in kernels)
+    if iters != 2 or not count:
+        raise AssertionError(f"the profiled window held {iters} bounces and {count} launches")
+    n_rng = draws[()] * per_draw[()] + draws[(2,)] * per_draw[(2,)]
+    print(f"phase 34: two v5 bounce iterations (bodies 3 and 4, {512 * 512 * RUNG_SPP} lanes) "
+          f"under torch.profiler on {card}: wall {window['wall_us'] / 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms ({busy / window['wall_us']:.3f} of wall), {count / iters:.0f} "
+          f"kernel launches per iteration; RNG draws {draws} at {per_draw[()]} (scalar) and "
+          f"{per_draw[(2,)]} (pair) launches each: {n_rng / iters:.0f} launches per iteration, "
+          f"{n_rng / count:.3f} of launches")
+    for e in sorted(kernels, key=lambda e: -getattr(e, "self_device_time_total", 0))[:6]:
+        print(f"  {getattr(e, 'self_device_time_total', 0) / 1e3:8.2f} ms  {e.count:6d}x  "
+              f"{e.key[:80]}")
+    t_phase = _phase_done(34, t_phase)
+
+    # ---- phase 35: the golden, the command line and resume ----
+    root = os.path.dirname(os.path.abspath(__file__))
+    golden = gimage.read_exr(os.path.join(root, "tests", "goldens", "volpath_v5.exr"))
+    img = render.render(presets.volpath_scene(version=5, width=32, height=32, spp=32,
+                                              max_depth=5, with_diffuse_sphere=True),
+                        seed=42, device="cuda")
+    rel = float(np.sqrt(((img - golden) ** 2).mean())) / max(float(np.abs(golden).mean()), 1e-3)
+    print(f"phase 35: volpath_v5 golden on cuda: RMSE / mean {rel:.3g} (bound 0.05)")
+    if not rel < 0.05:
+        raise AssertionError("the volpath_v5 golden fails on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = presets.build_volpath_scene(
+            M, types.SimpleNamespace(build_scene=functools.partial(
+                xml_writer.write_scene, os.path.join(tmp, "v5"))), xf,
+            version=5, width=512, height=512, with_diffuse_sphere=True, g=0.5, **RUNG_FILE)
+        exr = os.path.join(tmp, "v5.exr")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "gdpt_tpu_torch", xml, "-o", exr,
+                               "--device", "cuda"], cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        for line in proc.stdout.splitlines():
+            print(f"phase 35: python -m gdpt_tpu_torch: {line}")
+        print(f"phase 35: the command took {time.perf_counter() - t0:.2f} s, exit "
+              f"{proc.returncode} ({card})")
+        if proc.returncode != 0:
+            raise AssertionError(f"python -m gdpt_tpu_torch failed on the v5 file:\n{proc.stderr}")
+        straight = gimage.read_exr(exr)
+        if straight.shape != (512, 512, 3) or not np.isfinite(straight).all() or \
+                not straight.mean() > 0:
+            raise AssertionError("the v5 file's EXR is not finite, not 512x512x3 or black")
+        v5, _ = parser.parse_scene(xml)
+        spp = v5.static.options.samples_per_pixel
+        ckpt = os.path.join(tmp, "v5.ckpt.npz")
+        fp = checkpoint._fingerprint(v5, spp, 0)
+
+        class Stop(Exception):
+            pass
+
+        def first_pass(acc, done):
+            checkpoint.save_checkpoint(ckpt, acc, done, fp)
+            raise Stop(done)
+
+        t0 = time.perf_counter()
+        try:
+            render.render_samples(scene_to(v5, dev), vp.trace_fn(v5.static), seed=0,
+                                  on_chunk=first_pass)
+            raise AssertionError("the v5 file rendered in one pass: nothing to resume")
+        except Stop as stop:
+            done = stop.args[0]
+        if not 0 < done < spp:
+            raise AssertionError(f"the v5 file's first pass took {done} of {spp} spp")
+        resumed = checkpoint.render_with_checkpoints(v5, seed=0, every=1, path=ckpt,
+                                                     device="cuda")
+        exact = bool(np.array_equal(resumed, straight))
+        print(f"phase 35: v5 file, {done} + {spp - done} of {spp} spp resumed: "
+              f"{'equal bit for bit' if exact else 'not bit for bit'} to the command's "
+              f"uninterrupted render, largest difference "
+              f"{float(np.abs(resumed - straight).max()):.3g}; "
+              f"{time.perf_counter() - t0:.1f} s on {card}")
+        if not exact:
+            raise AssertionError("the resumed v5 render differs from the uninterrupted one")
+    _phase_done(35, t_phase)
+    return rows
+
 
 def _phase_done(phase, since):
     now = time.perf_counter()
@@ -1941,6 +2320,7 @@ def main():
     _material_phases(card)
     k1_vol, k3_vol = _volpath_phases(card)
     _file_phases(card)
+    rungs = _rung_phases(card)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
@@ -1949,6 +2329,9 @@ def main():
         row["us_per_sample"] = {r: v[name] for r, v in sums.items()}
     rows[0]["volpath_launches_per_sample"] = k1_vol
     rows[2]["volpath_launches_per_sample"] = k3_vol
+    for row, name in zip(rows, ("K1", "K2", "K3 closest", "K3 any hit")):
+        row["rungs"] = {k: (v if isinstance(v, (int, float)) else
+                            {"ms": v[0], "bound_ms": v[1]}) for k, v in rungs[name].items()}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 """Tabulated sampling distributions, built on the host in numpy.
 
 Counterpart of gdpt_tpu/core/distributions.py (reference:
-src/table_dist.h/.cpp): the table constructors, and the alias table with
-its sampler (envmap NEE). The light CDF is sampled with torch.searchsorted
-directly.
+src/table_dist.h/.cpp): the table constructors, the alias table with
+its sampler (the SoA renders' envmap NEE), and the 2D table's per-lane
+sampler and density (the per-ray integrators' envmap). The light CDF is
+sampled with torch.searchsorted directly.
 """
 
 from typing import NamedTuple
@@ -130,3 +131,31 @@ def sample_alias(cut, alias, u):
     left = torch.where(keep, f / torch.clamp_min(c, 1e-12),
                        (f - c) / torch.clamp_min(1.0 - c, 1e-12))
     return idx, torch.clamp(left, 0.0, 0.999999)
+
+
+def sample_2d(table: TableDist2D, uv):
+    """Per-lane (u, v) in [0,1]^2 from uv (N, 2), density proportional to
+    the table: a row from the marginal, a column from the row's
+    conditional, then a uniform remap within the cell (reference:
+    src/table_dist.cpp:119-143)."""
+    w, h = table.width, table.height
+    u, v = uv[:, 0].contiguous(), uv[:, 1].contiguous()
+    y = torch.clamp(torch.searchsorted(table.cdf_marginals, v, right=True) - 1, 0, h - 1)
+    cm0 = table.cdf_marginals[y]
+    cm1 = table.cdf_marginals[y + 1]
+    dy = torch.where(cm1 - cm0 > 0, (v - cm0) / torch.where(cm1 - cm0 > 0, cm1 - cm0, 1.0),
+                     v - cm0)
+    row_cdf = table.cdf_rows[y]
+    x = torch.clamp(torch.searchsorted(row_cdf, u[:, None], right=True)[:, 0] - 1, 0, w - 1)
+    c0 = row_cdf.gather(1, x[:, None])[:, 0]
+    c1 = row_cdf.gather(1, x[:, None] + 1)[:, 0]
+    dx = torch.where(c1 - c0 > 0, (u - c0) / torch.where(c1 - c0 > 0, c1 - c0, 1.0), u - c0)
+    return torch.stack([(x + dx) / w, (y + dy) / h], dim=-1)
+
+
+def pdf_2d(table: TableDist2D, uv):
+    """Density of sample_2d at uv (N, 2)."""
+    w, h = table.width, table.height
+    x = torch.clamp((uv[:, 0] * w).to(INT), 0, w - 1).long()
+    y = torch.clamp((uv[:, 1] * h).to(INT), 0, h - 1).long()
+    return table.pdf_marginals[y] * table.pdf_rows[y, x] * w * h

@@ -4,20 +4,94 @@ Counterpart of gdpt_tpu/integrators/render.py. The scene (built on the
 host) is carried to `device` — the CUDA card unless the caller passes
 device="cpu" — and rendered there. Ported integrators: "path",
 "gradpath" (gradient-domain path tracing with the screened-Poisson
-reconstruction), "volpath" at its production rung (versions 6 and 0;
-ops/media_soa.py) and the AOV kinds (integrators/aux.py: one primary
-cast per pixel), over every material kind, texture slot and light type
-of the SoA stack (ops/materials_soa.py, ops/textures_soa.py), as the
-reference's SoA dispatch takes every scene of these integrators.
+reconstruction), "volpath" and the AOV kinds (integrators/aux.py: one
+primary cast per pixel), over every material kind, texture slot and
+light type of the SoA stack (ops/materials_soa.py, ops/textures_soa.py),
+as the reference's SoA dispatch takes every scene of these integrators.
+Volpath versions 6 and 0 render through integrators/volpath_soa.py,
+versions 1-5 through the per-ray rungs of integrators/volpath.py, driven
+by render_samples.
 Brute-force scenes go through the banded loops, BVH
 scenes (above 128 primitives) through the packet table and the wavefront
 renderers; packet_wide and packet_dual choose the table's width and the
 walk: the solo kernel K3, or on a 16-wide table the dual kernel K4.
 """
 
-from gdpt_tpu_torch.core.dtypes import resolve_device
+import numpy as np
+import torch
+
+from gdpt_tpu_torch.core import rng
+from gdpt_tpu_torch.core.dtypes import REAL, resolve_device
 from gdpt_tpu_torch.integrators import aux
 from gdpt_tpu_torch.scene.build import Scene, scene_to
+
+# Target rays in flight per pass of render_samples (the reference's).
+MAX_RAYS_PER_PASS = 1 << 20
+
+
+def _render_pass(scene: Scene, trace, casts, xs, ys, pix_idx, sample0, n_samples, spp,
+                 seed):
+    """n_samples samples of every pixel as one batch of lanes (sample
+    major), each lane's key folded from PRNGKey(seed) by
+    pix_idx * spp + sample, as gdpt_tpu/integrators/render.py:_render_pass
+    keys its fori_loop's samples; the samples are summed in f32 in sample
+    order, as that loop sums them."""
+    n_pix = xs.shape[0]
+    sample = sample0 + torch.arange(n_samples, dtype=torch.int64, device=xs.device)
+    ray_idx = (pix_idx[None, :] * spp + sample[:, None]).reshape(-1)
+    key = rng.ray_key(rng.prng_key(seed, ray_idx.shape[0], xs.device), ray_idx)
+    out = trace(scene.device, scene.static, casts, xs.repeat(n_samples),
+                ys.repeat(n_samples), key).reshape(n_samples, n_pix, 3)
+    acc = torch.zeros((n_pix, 3), dtype=REAL, device=xs.device)
+    for s in range(n_samples):
+        acc = acc + out[s]
+    return acc
+
+
+def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, init_acc=None,
+                   on_chunk=None, return_stats=False, packet_wide=32, packet_dual=False):
+    """Monte Carlo accumulation of a per-ray integrator over the scene on
+    its device; returns an (h, w, 3) float32 numpy image (non-finite
+    pixels 0), with return_stats also the live rays cast.
+
+    trace_fn(scene.device, static, casts, xs, ys, key) returns each
+    lane's radiance (N, 3). A pass traces up to MAX_RAYS_PER_PASS rays
+    (whole samples of every pixel) at once; its samples are summed in f32
+    on the device and the passes accumulated in float64 on the host.
+    start_sample/init_acc resume an interrupted accumulation (init_acc is
+    the raw (n_pix, 3) float64 sample-sum array); on_chunk(acc, done)
+    fires after every pass."""
+    from gdpt_tpu_torch.integrators import path_soa
+    from gdpt_tpu_torch.ops import intersect as isect
+
+    static = scene.static
+    w, h = static.width, static.height
+    spp = spp if spp is not None else static.options.samples_per_pixel
+    n_pix = w * h
+    device = scene.device.camera.sample_to_cam.device
+    casts = isect.Casts(path_soa.scene_soa_from_aos(scene, packet_wide, packet_dual).geom)
+    pix_idx = torch.arange(n_pix, dtype=torch.int64, device=device)
+    xs = (pix_idx % w).to(REAL)
+    ys = (pix_idx // w).to(REAL)
+
+    batch = max(1, min(spp, MAX_RAYS_PER_PASS // n_pix))
+    acc = (np.zeros((n_pix, 3), np.float64) if init_acc is None
+           else np.asarray(init_acc, np.float64).copy())
+    done = int(start_sample)
+    while done < spp:
+        n = min(batch, spp - done)
+        out = _render_pass(scene, trace_fn, casts, xs, ys, pix_idx, done, n, spp, seed)
+        acc += out.cpu().numpy().astype(np.float64)
+        done += n
+        if on_chunk is not None:
+            on_chunk(acc, done)
+    img = (acc / spp).reshape(h, w, 3)
+    # NaN filtering as in the reference's volumetric render loop
+    # (reference: src/render.cpp:156-159).
+    img = np.where(np.isfinite(img), img, 0.0).astype(np.float32)
+    if return_stats:
+        return img, float(casts.rays)
+    return img
 
 
 def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
@@ -50,9 +124,10 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
         from gdpt_tpu_torch.integrators import volpath_soa
 
         if not volpath_soa.supports_soa_volpath(scene):
-            raise NotImplementedError(
-                f"volpath version {scene.static.options.vol_path_version} (a per-ray rung) "
-                "is not ported yet; see ROADMAP.md")
+            from gdpt_tpu_torch.integrators import volpath
+
+            return render_samples(scene_to(scene, device), volpath.trace_fn(scene.static),
+                                  spp=spp, seed=seed, return_stats=return_stats, **walk)
         return volpath_soa.render_volpath_soa(scene_to(scene, device), spp=spp, seed=seed,
                                               return_stats=return_stats, **walk)
     raise NotImplementedError(

@@ -3,11 +3,11 @@
 Counterpart of the host half of gdpt_tpu/scene/textures.py: every mip
 level of every image is flattened into one pixel array, with
 (image, level) -> (offset, width, height) tables (reference:
-src/texture.h:13-78, src/mipmap.h:25-48). The renders' image lookups are
-the batched ones of ops/textures_soa.py; of the reference's device half
-only gather_desc is here (the AOV pass reads a material's slot with it).
-Its per-ray lookups (eval_texture, eval_tex1/3, lookup_trilinear,
-_bilinear) serve only its per-ray code and come with it (ROADMAP.md A.6).
+src/texture.h:13-78, src/mipmap.h:25-48). The SoA renders' image
+lookups are the batched ones of ops/textures_soa.py; the device half
+here (gather_desc, eval_texture, eval_tex1/3, lookup_trilinear,
+_bilinear) serves the per-ray integrators, one lane per (pixel, sample)
+ray along the leading dimension.
 
 Texture kinds (reference: src/texture.h:80-115): 0 constant, 1 image,
 2 checkerboard.
@@ -18,7 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gdpt_tpu_torch.core.dtypes import asarray
+from gdpt_tpu_torch.core.dtypes import INT, REAL, asarray
 
 TEX_CONST = 0
 TEX_IMAGE = 1
@@ -109,6 +109,82 @@ class TexDesc(NamedTuple):
     vscale: torch.Tensor
     uoffset: torch.Tensor
     voffset: torch.Tensor
+
+
+def _bilinear(pool: TexturePoolArrays, img_id, level, u, v):
+    """One bilinear tap per lane at integer mip level (reference:
+    src/mipmap.h:50-72); the -0.5 shift is Mitsuba's pixel-center
+    convention. Returns (N, C)."""
+    img_id, level = img_id.long(), level.long()
+    w = pool.level_w[img_id, level]
+    h = pool.level_h[img_id, level]
+    off = pool.level_offset[img_id, level]
+    x = u * w.to(REAL) - 0.5
+    y = v * h.to(REAL) - 0.5
+    x0 = torch.floor(x).to(INT)
+    y0 = torch.floor(y).to(INT)
+    fx = (x - x0.to(REAL))[:, None]
+    fy = (y - y0.to(REAL))[:, None]
+    x0m = torch.remainder(x0, w)
+    y0m = torch.remainder(y0, h)
+    x1m = torch.remainder(x0 + 1, w)
+    y1m = torch.remainder(y0 + 1, h)
+    p00 = pool.data[(off + y0m * w + x0m).long()]
+    p01 = pool.data[(off + y1m * w + x0m).long()]
+    p10 = pool.data[(off + y0m * w + x1m).long()]
+    p11 = pool.data[(off + y1m * w + x1m).long()]
+    return (
+        p00 * ((1 - fx) * (1 - fy))
+        + p10 * (fx * (1 - fy))
+        + p01 * ((1 - fx) * fy)
+        + p11 * (fx * fy)
+    )
+
+
+def lookup_trilinear(pool: TexturePoolArrays, img_id, u, v, level):
+    """Trilinear mip lookup with a fractional level per lane (reference:
+    src/mipmap.h:76-88). Returns (N, C)."""
+    max_level = pool.n_levels[img_id.long()] - 1
+    l0 = torch.minimum(torch.clamp_min(torch.floor(level).to(INT), 0), max_level)
+    l1 = torch.minimum(torch.clamp_min(l0 + 1, 0), max_level)
+    frac = torch.clamp(level - l0.to(REAL), 0.0, 1.0)
+    frac = torch.where(level <= 0, 0.0, frac)[:, None]
+    a = _bilinear(pool, img_id, l0, u, v)
+    b = _bilinear(pool, img_id, l1, u, v)
+    return a * (1.0 - frac) + b * frac
+
+
+def eval_texture(pool: TexturePoolArrays, desc_row: TexDesc, uv, footprint):
+    """Evaluate gathered TexDesc rows (one per lane) at uv (N, 2) with a
+    screen footprint (N,); returns (N, C). Image textures as reference:
+    src/texture.h:129-139 (uv wrap, log2 footprint level, trilinear mip
+    lookup), checkerboards as src/texture.h:141-152."""
+    kind, value, value2, img_id, us, vs, uo, vo = desc_row
+    lu = torch.remainder(uv[:, 0] * us + uo, 1.0)
+    lv = torch.remainder(uv[:, 1] * vs + vo, 1.0)
+    img = img_id.long()
+    w0 = pool.level_w[img, 0].to(REAL)
+    h0 = pool.level_h[img, 0].to(REAL)
+    scaled_fp = torch.maximum(w0, h0) * torch.maximum(us, vs) * footprint
+    level = torch.log2(torch.clamp_min(scaled_fp, 1e-8))
+    img_val = lookup_trilinear(pool, img_id, lu, lv, level)
+    cx = 2 * torch.remainder((lu * 2).to(INT), 2) - 1
+    cy = 2 * torch.remainder((lv * 2).to(INT), 2) - 1
+    checker = torch.where((cx * cy == 1)[:, None], value, value2)
+    return torch.where(
+        (kind == TEX_IMAGE)[:, None], img_val,
+        torch.where((kind == TEX_CHECKER)[:, None], checker, value),
+    )
+
+
+def eval_tex3(pool, desc: TexDesc, mat_id, uv, footprint):
+    """Spectrum slot of the materials mat_id (N,): returns (N, 3)."""
+    return eval_texture(pool, gather_desc(desc, mat_id.long()), uv, footprint)
+
+
+def eval_tex1(pool, desc: TexDesc, mat_id, uv, footprint):
+    """Float slot of the materials mat_id (N,): returns (N,)."""
+    return eval_texture(pool, gather_desc(desc, mat_id.long()), uv, footprint)[:, 0]
 
 
 def gather_desc(desc: TexDesc, idx):

@@ -6,15 +6,18 @@ running per-pixel sums and the sample count; resuming continues the
 deterministic counter-based sample streams exactly where they stopped.
 
 Covers the accumulating integrators the port renders: path, volpath
-(versions 6 and 0) and gradpath, whose 6-buffer accumulator state —
-primal, brute-force primal, 4 one-sided gradients — is saved before the
-Poisson reconstruction. All three resume on their banded loops.
+(versions 6 and 0 on the SoA banded loop, versions 1-5 on the per-ray
+rungs' render_samples, whose accumulator is (n_pix, 3)) and gradpath,
+whose 6-buffer accumulator state — primal, brute-force primal, 4
+one-sided gradients — is saved before the Poisson reconstruction. The
+SoA integrators resume on their banded loops.
 Checkpoints carry a scene/seed/spp fingerprint; a stale file from a
 different render is discarded rather than corrupting the accumulator.
 The file holds numpy arrays only, so a checkpoint written by a render on
 one device resumes a render of the same scene on another.
 """
 
+import functools
 import hashlib
 import warnings
 import zipfile
@@ -26,7 +29,7 @@ import torch
 
 from gdpt_tpu_torch.convert import tree_leaves
 from gdpt_tpu_torch.core.dtypes import resolve_device
-from gdpt_tpu_torch.integrators import gdpt_soa, path_soa, volpath_soa
+from gdpt_tpu_torch.integrators import gdpt_soa, path_soa, render, volpath, volpath_soa
 from gdpt_tpu_torch.scene.build import scene_to
 
 
@@ -105,12 +108,11 @@ def render_with_checkpoints(scene, spp=None, seed=0, every=16,
     n_pix = static.width * static.height
     if integrator == "path":
         renderer, shape = path_soa.render_soa, (3, n_pix)
-    elif integrator == "volpath":
-        if not volpath_soa.supports_soa_volpath(scene):
-            raise NotImplementedError(
-                f"volpath version {static.options.vol_path_version} (a per-ray rung) "
-                "is not ported yet; see ROADMAP.md")
+    elif integrator == "volpath" and volpath_soa.supports_soa_volpath(scene):
         renderer, shape = volpath_soa.render_volpath_soa, (3, n_pix)
+    elif integrator == "volpath":
+        renderer = functools.partial(render.render_samples, trace_fn=volpath.trace_fn(static))
+        shape = (n_pix, 3)
     elif integrator == "gradpath":
         renderer, shape = gdpt_soa.render_gradpath_soa, (6, 3, n_pix)
     else:

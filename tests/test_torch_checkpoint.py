@@ -124,9 +124,15 @@ def test_aux_integrator_rejected(tmp_path):
 
 
 def test_per_ray_volpath_rung_raises(tmp_path):
+    """A per-ray rung (version 3), which raised NotImplementedError before
+    it was ported, now renders with checkpoints: the (n_pix, 3)
+    accumulator of render_samples, and the image of render.render."""
     sc = presets.volpath_scene(version=3, width=8, height=8, spp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        checkpoint.render_with_checkpoints(sc, path=str(tmp_path / "c.npz"), device="cpu")
+    img = checkpoint.render_with_checkpoints(sc, path=str(tmp_path / "c.npz"), device="cpu")
+    np.testing.assert_array_equal(img, R.render(sc, device="cpu"))
+    acc, done = checkpoint.load_checkpoint(str(tmp_path / "c.npz"),
+                                           checkpoint._fingerprint(sc, 2, 0), (64, 3))
+    assert done == 2 and acc is not None
 
 
 def test_unwritable_checkpoint_raises(tmp_path):

@@ -57,7 +57,9 @@ def test_slice_modules_are_covered():
                    "tools/visit_microbench.py", "cli.py", "__main__.py", "core/image.py",
                    "core/exr_piz.py", "scene/loaders.py", "scene/parser.py",
                    "scene/xml_writer.py", "integrators/aux.py", "utils/checkpoint.py",
-                   "utils/profiling.py", "utils/host_parallel.py"):
+                   "utils/profiling.py", "utils/host_parallel.py", "core/rng.py",
+                   "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
+                   "ops/media.py", "ops/intersect.py", "integrators/volpath.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
@@ -67,7 +69,9 @@ def test_slice_modules_are_covered():
 
 NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
                "tools/visit_microbench.py", "accel/packet_kernels.py", "accel/traverse_soa.py",
-               "cli.py", "integrators/aux.py", "utils/checkpoint.py"]
+               "cli.py", "integrators/aux.py", "utils/checkpoint.py", "core/rng.py",
+               "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
+               "ops/media.py", "ops/intersect.py", "integrators/volpath.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -168,6 +172,20 @@ def test_render_defaults_to_cuda_for(integrator, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         render.render(presets.cornell_box(4, 4, spp=1, integrator=integrator, force_bvh=True))
+
+
+@pytest.mark.parametrize("version", [1, 5])
+def test_volpath_rungs_default_to_cuda(version, monkeypatch):
+    """The per-ray rungs, through render.render and the checkpointed
+    render, raise without a card unless the CPU is asked for."""
+    from gdpt_tpu_torch.utils import checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = presets.volpath_scene(version=version, width=4, height=4, spp=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render.render(scene)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.render_with_checkpoints(scene, path="unused.npz")
 
 
 def test_render_on_cpu_when_asked():
