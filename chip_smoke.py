@@ -175,14 +175,41 @@ Phases, each fatal on failure:
      depth 4) rendered by `python -m gdpt_tpu_torch` as a subprocess,
      then its first pass checkpointed in process (the render stopped
      after it) and resumed by render_with_checkpoints: equal bit for bit
-     to the command's image.
+     to the command's image;
+ 36. the per-ray `path` oracle (integrators/path.py through
+     render.render_samples) at 512x512, 4 spp in one pass of 1,048,576
+     lanes: the cbox (K1, K2) and phase 7's icosphere box (K3 closest and
+     any hit on the 32-wide table); counts and host reads zeroed just
+     before each render and read just after, exactly the route's kernels
+     launched; wall, rays, Mrays/s, launches and host reads per sample;
+     the mean held to the SoA `path` image's within 6%
+     (tests/test_soa.py's gate); a bounce cast and a shadow batch kept;
+ 37. the per-ray gradient-domain render, gdpt.render_gradpath (one
+     sample a pass: 262,144 base and 1,048,576 offset lanes), depth 5:
+     the cbox at 4 spp (K1, K2) and the icosphere box at 2 spp (K3); the
+     same numbers and the peak device memory; the reconstruction keeps
+     its primal's mean within 2%; the offsets' reconnection-probe and
+     replay batches kept;
+ 38. the per-ray final volpath version (volpath.trace_volpath_final
+     through render_samples): phase 24's grid scene at 4 spp, depth 6
+     (K1), and the medium box at 1 spp, depth 4 (K3); host reads of each
+     loop (bounce, flight, segment, ratio tracking) per sample; the mean
+     held to volpath_soa's on the same scene within 6%; a bounce cast and
+     a shadow segment kept;
+ 39. each of the three at 32x32 on cuda and on the CPU at phase 4's gate
+     with equal ray counts (every gradpath buffer); the cbox_gdpt golden
+     through render_gradpath on cuda (RMSE / mean < 0.05); K1, K2 and K3
+     held bit for bit against their plain versions on the batches kept in
+     phases 36-38 (among them the gradpath probe and a final-version
+     shadow segment), each timed by CUDA graph replay beside its bound.
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
 each render, K1's and K3 closest's launches per volpath sample of phases
-24 and 26, and under "rungs" K1's, K2's and K3's launches per sample of
+24 and 26, under "rungs" K1's, K2's and K3's launches per sample of
 the rungs (phases 32, 34) and the time and bound of each rung batch of
-phase 34),
+phase 34, and under "perray" their launches per sample of each per-ray
+oracle (phases 36-38) and the time and bound of each batch of phase 39),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -218,6 +245,11 @@ FILE_VOL_SPP = 2            # the volpath file of phase 31
 RUNG_SPP = 4                # phase 32: the per-ray volpath rungs at 512x512 (one pass)
 RUNG_FILE = dict(spp=8, max_depth=4)  # phase 35's v5 file: two passes of 4 spp
 RUNG_BOX_DEPTH = 4          # phase 34: the v5 medium box render whose K3 batches are kept
+PERRAY_SPP = 4              # phases 36-37: per-ray path (cbox, icosphere box), cbox gradpath
+PERRAY_GRAD_DEPTH = 5       # phase 37: render_gradpath's depth
+PERRAY_GRAD_BOX_SPP = 2     # phase 37: the icosphere box through render_gradpath
+FINAL_GRID = dict(spp=4, max_depth=6)  # phase 38: trace_volpath_final on the grid scene
+FINAL_BOX = dict(spp=1, max_depth=4)   # phase 38: trace_volpath_final on the medium box
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -2260,6 +2292,263 @@ def _rung_phases(card):
     _phase_done(35, t_phase)
     return rows
 
+def _nth(want, kind_of=lambda a, kw: None):
+    """A _keep_calls picker: counts the calls of each kind_of(args, kw)
+    and labels the n-th of a kind as want[(kind, n)] says."""
+    seen = {}
+
+    def pick(a, kw):
+        kind = kind_of(a, kw)
+        seen[kind] = seen.get(kind, 0) + 1
+        return want.get((kind, seen[kind]))
+
+    return pick
+
+
+def _perray_phases(card, ctx):
+    """Phases 36-39: the per-ray oracles (integrators/path.py,
+    gdpt.render_gradpath, volpath.trace_volpath_final) at 512x512 through
+    K1, K2 and K3, and their cross-checks. Returns {kernel: {entry:
+    launches per sample, or (ms, bound ms) of a batch}} for the kernels
+    line."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import traverse_soa as trs
+    from gdpt_tpu_torch.core import image as gimage
+    from gdpt_tpu_torch.integrators import gdpt, path, path_soa, render
+    from gdpt_tpu_torch.integrators import volpath as vp
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    dev = torch.device("cuda")
+    rows = {"K1": {}, "K2": {}, "K3 closest": {}, "K3 any hit": {}}
+    k1_kept, k2_kept, k3_kept = {}, {}, {}
+    lanes = lambda a, kw: a[10].shape[0]  # noqa: E731 (a K1 call's lane count)
+    walk = lambda a, kw: (bool(kw.get("any_hit")), a[1].shape[0])  # noqa: E731
+
+    def run(phase, label, scene, fn, spp, need, keep=()):
+        """fn() with every count and host read zeroed just before and read
+        just after; keep: (module, wrapper, picker, dict) whose calls are
+        kept. Returns (fn's result, wall, launches and host reads per
+        sample, peak device memory in GB)."""
+        path_soa.scene_soa_from_aos(scene_to(scene, dev))  # tables outside the wall
+        for d in (bk.LAUNCHES, pk.LAUNCHES, vp.HOST_READS):
+            for k in d:
+                d[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            kept = [(stack.enter_context(_keep_calls(mod, name, pick)), into)
+                    for mod, name, pick, into in keep]
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        for got, into in kept:
+            into.update(got)
+        launches = {**bk.LAUNCHES, **pk.LAUNCHES}
+        per = {k: v / spp for k, v in launches.items() if v}
+        reads = {k: v / spp for k, v in vp.HOST_READS.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rays = out[-1]
+        print(f"phase {phase}: {label} 512x512 spp {spp}: wall {wall:.3f} s, rays {rays:.0f}, "
+              f"{rays / wall / 1e6:.3f} Mrays/s, launches per sample {per}, host reads per "
+              f"sample {reads}, peak device memory {peak:.2f} GB on {card}")
+        missing = [k for k in need if not launches[k]]
+        others = [k for k, v in launches.items() if v and k not in need]
+        if missing or others:
+            raise AssertionError(f"{label}: launched {launches}, needs exactly {need}")
+        return out, wall, per, reads, peak
+
+    def check_image(img, label):
+        if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not img.mean() > 0:
+            raise AssertionError(f"{label}: image not finite, not 512x512x3 or black")
+
+    def hold_mean(phase, label, img, other, what, bound):
+        rel = abs(float(img.mean()) - float(other.mean())) / float(other.mean())
+        print(f"phase {phase}: {label}: mean {float(img.mean()):.6f}, {what} "
+              f"{float(other.mean()):.6f}, rel diff {rel:.4f} (bound {bound}) on {card}")
+        if not rel < bound:
+            raise AssertionError(f"{label}: the mean is not {what}'s")
+
+    # ---- phase 36: per-ray path at 512x512 ----
+    t_phase = time.perf_counter()
+    cbox = presets.cornell_box(512, 512, spp=PERRAY_SPP)
+    box = ctx["scene"]
+    if box.static.options.samples_per_pixel != PERRAY_SPP or box.static.use_brute_force:
+        raise AssertionError("phase 7's scene is not the 4 spp BVH box")
+    for label, scene, need, keep in (
+            ("cbox", cbox, ("intersect", "occluded"),
+             [(bk, "intersect_brute", _nth({(None, 2): "path cbox bounce cast"}), k1_kept),
+              (bk, "occluded_brute", _nth({(None, 1): "path cbox shadow ray"}), k2_kept)]),
+            ("icosphere box", box, ("packet_intersect", "packet_occluded"),
+             [(pk, "trace_packets", _nth({(False, 2): "path icosphere box bounce cast",
+                                          (True, 1): "path icosphere box shadow ray"},
+                                         lambda a, kw: bool(kw.get("any_hit"))), k3_kept)])):
+        (img, rays), wall, per, reads, _ = run(
+            36, f"per-ray path, {label}", scene,
+            lambda: render.render_samples(scene_to(scene, dev), path.trace_path,
+                                          return_stats=True), PERRAY_SPP, need, keep)
+        check_image(img, f"per-ray path, {label}")
+        hold_mean(36, f"per-ray path, {label}", img, render.render(scene, device="cuda"),
+                  "the SoA path image", 0.06)
+        if label == "cbox":
+            rows["K1"]["path cbox per sample"] = per["intersect"]
+            rows["K2"]["path cbox per sample"] = per["occluded"]
+        else:
+            rows["K3 closest"]["path icosphere box per sample"] = per["packet_intersect"]
+            rows["K3 any hit"]["path icosphere box per sample"] = per["packet_occluded"]
+    t_phase = _phase_done(36, t_phase)
+
+    # ---- phase 37: per-ray gradpath (render_gradpath) at 512x512 ----
+    st = box.static
+    box_g = box._replace(static=dataclasses.replace(st, options=dataclasses.replace(
+        st.options, integrator="gradpath", max_depth=PERRAY_GRAD_DEPTH,
+        samples_per_pixel=PERRAY_GRAD_BOX_SPP)))
+    cbox_g = presets.cornell_box(512, 512, spp=PERRAY_SPP, integrator="gradpath",
+                                 max_depth=PERRAY_GRAD_DEPTH)
+
+    def offset_lanes(scene):  # a pass's offset lanes: 4 per base lane
+        n_pix, spp = 512 * 512, scene.static.options.samples_per_pixel
+        return 4 * n_pix * min(spp, max(1, gdpt.LANES_PER_PASS // n_pix))
+
+    n4, n4_box = offset_lanes(cbox_g), offset_lanes(box_g)
+    for label, scene, need, keep in (
+            ("cbox", cbox_g, ("intersect", "occluded"),
+             [(bk, "intersect_brute", _nth({(n4, 2): "gradpath cbox probe",
+                                            (n4, 3): "gradpath cbox replay"}, lanes), k1_kept)]),
+            ("icosphere box", box_g, ("packet_intersect", "packet_occluded"),
+             [(pk, "trace_packets", _nth({((False, n4_box), 2): "gradpath icosphere box probe"},
+                                         walk), k3_kept)])):
+        spp = scene.static.options.samples_per_pixel
+        (recon, aux, rays), wall, per, reads, peak = run(
+            37, f"per-ray gradpath (render_gradpath, depth {PERRAY_GRAD_DEPTH}), {label}",
+            scene, lambda: gdpt.render_gradpath(scene, device="cuda", return_aux=True,
+                                                 return_stats=True),
+            spp, need, keep)
+        check_image(recon, f"per-ray gradpath, {label}")
+        if not all(np.isfinite(a).all() for a in aux.values()) or not np.abs(aux["gx"]).mean() > 0:
+            raise AssertionError("per-ray gradpath: auxiliary buffers not finite, or gx zero")
+        hold_mean(37, f"per-ray gradpath, {label}, reconstruction", recon, aux["primal"],
+                  "its primal", 0.02)
+        key = "cbox" if label == "cbox" else "icosphere box"
+        if label == "cbox":
+            rows["K1"][f"gradpath {key} per sample"] = per["intersect"]
+            rows["K2"][f"gradpath {key} per sample"] = per["occluded"]
+        else:
+            rows["K3 closest"][f"gradpath {key} per sample"] = per["packet_intersect"]
+            rows["K3 any hit"][f"gradpath {key} per sample"] = per["packet_occluded"]
+    t_phase = _phase_done(37, t_phase)
+
+    # ---- phase 38: the per-ray final volpath version at 512x512 ----
+    grid = presets.volpath_scene(
+        version=6, width=512, height=512, g=0.6, with_diffuse_sphere=True,
+        density=presets.medium_grid(VOL_GRID, 3, 0.8), albedo=presets.albedo_grid(VOL_GRID, 4),
+        **FINAL_GRID)
+    medium = presets.medium_box(512, 512, grid_res=VOL_GRID, version=6, **FINAL_BOX)
+    if medium.static.use_brute_force or not grid.static.use_brute_force:
+        raise AssertionError("the phase 38 scenes are not the brute-force grid and the BVH box")
+    for label, scene, need, mod, name, into in (
+            ("grid scene", grid, ("intersect",), bk, "intersect_brute", k1_kept),
+            ("medium box", medium, ("packet_intersect",), pk, "trace_packets", k3_kept)):
+        spp = scene.static.options.samples_per_pixel
+        want = {("main", 0, 2): f"final {label} bounce cast",
+                ("shadow", 0, 2): f"final {label} shadow segment"}
+        with _record_casts(trs, mod, name, want) as kept:
+            (img, rays), wall, per, reads, _ = run(
+                38, f"per-ray final volpath (depth {scene.static.options.max_depth}), {label}",
+                scene, lambda: render.render_samples(scene_to(scene, dev), vp.trace_volpath_final,
+                                                     return_stats=True), spp, need)
+        into.update(kept)
+        check_image(img, f"final volpath, {label}")
+        t0 = time.perf_counter()
+        soa = render.render(scene, device="cuda")
+        print(f"phase 38: volpath_soa on the same scene: {time.perf_counter() - t0:.3f} s "
+              f"on {card}")
+        hold_mean(38, f"per-ray final volpath, {label}", img, soa, "volpath_soa's", 0.06)
+        if label == "grid scene":
+            rows["K1"]["final grid scene per sample"] = per["intersect"]
+        else:
+            rows["K3 closest"]["final medium box per sample"] = per["packet_intersect"]
+    t_phase = _phase_done(38, t_phase)
+
+    # ---- phase 39: cuda against cpu, the golden, the kernels on the recorded batches ----
+    small = {"path": presets.cornell_box(32, 32, spp=2, max_depth=4),
+             "gradpath": presets.cornell_box(32, 32, spp=2, max_depth=4, integrator="gradpath"),
+             "final volpath": _small_volpath(presets)}
+    for label, sc in small.items():
+        outs = {}
+        for d in ("cuda", "cpu"):
+            if label == "gradpath":
+                recon, aux, r = gdpt.render_gradpath(sc, seed=3, device=d, return_aux=True,
+                                                     return_stats=True)
+                outs[d] = (dict(aux, recon=recon), r)
+            else:
+                fn = path.trace_path if label == "path" else vp.trace_volpath_final
+                img, r = render.render_samples(scene_to(sc, d), fn, seed=3, return_stats=True)
+                outs[d] = ({"image": img}, r)
+        (a, ra), (b, rb) = outs["cuda"], outs["cpu"]
+        scale = float(b.get("primal", b.get("image")).mean())
+        for k in a:
+            _gate_cuda_vs_cpu(a[k], b[k], scale, 39, f"per-ray {label}, {k}")
+        print(f"phase 39: per-ray {label}: rays cuda {ra:.0f}, cpu {rb:.0f}")
+        if ra != rb:
+            raise AssertionError(f"per-ray {label}: cuda and cpu ray counts differ")
+    root = os.path.dirname(os.path.abspath(__file__))
+    golden = gimage.read_exr(os.path.join(root, "tests", "goldens", "cbox_gdpt.exr"))
+    img = gdpt.render_gradpath(presets.cornell_box(width=48, height=48, spp=16,
+                                                   integrator="gradpath", max_depth=5),
+                               seed=42, device="cuda")
+    rel = float(np.sqrt(((img - golden) ** 2).mean())) / max(float(np.abs(golden).mean()), 1e-3)
+    print(f"phase 39: cbox_gdpt golden on cuda through render_gradpath: RMSE / mean {rel:.4g} "
+          f"(bound 0.05)")
+    if not rel < 0.05:
+        raise AssertionError("the cbox_gdpt golden fails on the card")
+
+    expect = ({"path cbox bounce cast", "gradpath cbox probe", "gradpath cbox replay",
+               "final grid scene bounce cast", "final grid scene shadow segment"},
+              {"path cbox shadow ray"},
+              {"path icosphere box bounce cast", "path icosphere box shadow ray",
+               "gradpath icosphere box probe", "final medium box bounce cast",
+               "final medium box shadow segment"})
+    if (set(k1_kept), set(k2_kept), set(k3_kept)) != expect:
+        raise AssertionError(f"phases 36-38 kept K1 {sorted(k1_kept)}, K2 {sorted(k2_kept)}, "
+                             f"K3 {sorted(k3_kept)}")
+    for key, (args, _) in sorted(k1_kept.items()):
+        _compare_k1(bk.intersect_brute(*args), bk.intersect_brute_plain(*args), key)
+        n_live, ops, nbytes = _brute_work("K1", args)
+        n = args[10].shape[0]
+        rows["K1"][key] = _time_batch(
+            "K1", lambda: bk.intersect_brute(*args), (ops, nbytes), 39,
+            f"{key} batch ({n} lanes, live {n_live / n:.4f}, tnear {args[11]:g})", card)
+    for key, (args, _) in sorted(k2_kept.items()):
+        live = args[10] > float(torch.tensor(args[11], dtype=torch.float32))
+        _compare_k2(bk.occluded_brute(*args), bk.occluded_brute_plain(*args), key, live)
+        n_live, ops, nbytes = _brute_work("K2", args)
+        n = args[10].shape[0]
+        rows["K2"][key] = _time_batch(
+            "K2", lambda: bk.occluded_brute(*args), (ops, nbytes), 39,
+            f"{key} batch ({n} lanes, live {n_live / n:.4f})", card)
+    for key, ((tab, *r), kw) in sorted(k3_kept.items()):
+        any_hit, n_tris = bool(kw.get("any_hit")), kw.get("n_tris")
+        _compare_k3(pk, tab, tuple(r), n_tris, any_hit, key)
+        ops, nbytes, _, visits = _walk_work(pk, tab, tuple(r), any_hit)
+        n = r[0].shape[0]
+        row = "K3 any hit" if any_hit else "K3 closest"
+        rows[row][key] = _time_batch(
+            row, lambda: pk.trace_packets(tab, *r, n_tris=n_tris, any_hit=any_hit),
+            (ops, nbytes), 39, f"{key} batch ({n} lanes, live "
+            f"{float((r[7] > r[6]).float().mean()):.4f}, {visits / n:.2f} visits per ray, "
+            f"{tab.width}-wide table)", card)
+    _phase_done(39, t_phase)
+    return rows
+
 
 def _phase_done(phase, since):
     now = time.perf_counter()
@@ -2321,6 +2610,7 @@ def main():
     k1_vol, k3_vol = _volpath_phases(card)
     _file_phases(card)
     rungs = _rung_phases(card)
+    perray = _perray_phases(card, ctx)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
@@ -2332,6 +2622,8 @@ def main():
     for row, name in zip(rows, ("K1", "K2", "K3 closest", "K3 any hit")):
         row["rungs"] = {k: (v if isinstance(v, (int, float)) else
                             {"ms": v[0], "bound_ms": v[1]}) for k, v in rungs[name].items()}
+        row["perray"] = {k: (v if isinstance(v, (int, float)) else
+                             {"ms": v[0], "bound_ms": v[1]}) for k, v in perray[name].items()}
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

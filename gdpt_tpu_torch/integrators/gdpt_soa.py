@@ -20,8 +20,8 @@ Ported: the banded sample loop (brute-force scenes, and checkpointed
 renders: ``on_chunk``, ``init_acc``, ``start_sample``) and the wavefront
 lane pool (BVH scenes) behind ``render_gradpath_soa``. Not yet, and
 raising NotImplementedError when asked for: the pool-sorted wavefront
-and sharding (``mesh=``); see ROADMAP.md. The per-ray oracle
-integrators/gdpt.py of the reference is not ported either.
+and sharding (``mesh=``); see ROADMAP.md. Its per-ray oracle is
+integrators/gdpt.py (trace_gdpt, render_gradpath).
 
 Every tensor is made on the device the scene lives on.
 """

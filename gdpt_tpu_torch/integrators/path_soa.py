@@ -165,6 +165,16 @@ def _footprint_constants(dev):
     return (n0, n1, n2), (uv0, uv1, uv2), inv_uv, mc
 
 
+def supports_soa(scene: Scene) -> bool:
+    """The SoA fast path covers the full material stack and every light
+    type, so every "path" scene (reference:
+    gdpt_tpu/integrators/path_soa.py:112-119); render.render and
+    render_with_checkpoints take integrators/path.py where it is False."""
+    if scene.static.options.integrator != "path":
+        return False
+    return msoa.supports_soa_materials(scene)
+
+
 _SOA_MEMO = SceneMemo()
 
 

@@ -6,11 +6,14 @@ device="cpu" — and rendered there. Ported integrators: "path",
 "gradpath" (gradient-domain path tracing with the screened-Poisson
 reconstruction), "volpath" and the AOV kinds (integrators/aux.py: one
 primary cast per pixel), over every material kind, texture slot and
-light type of the SoA stack (ops/materials_soa.py, ops/textures_soa.py),
-as the reference's SoA dispatch takes every scene of these integrators.
-Volpath versions 6 and 0 render through integrators/volpath_soa.py,
-versions 1-5 through the per-ray rungs of integrators/volpath.py, driven
-by render_samples.
+light type of the SoA stack (ops/materials_soa.py, ops/textures_soa.py).
+The dispatch is the reference's: "path" and "gradpath" take the SoA
+renderers while path_soa.supports_soa / gdpt_soa.supports_soa_gdpt hold
+(always, as in the reference), else the per-ray oracles
+(integrators/path.py through render_samples, integrators/gdpt.py's
+render_gradpath); volpath versions 6 and 0 render through
+integrators/volpath_soa.py, versions 1-5 through the per-ray rungs of
+integrators/volpath.py, driven by render_samples.
 Brute-force scenes go through the banded loops, BVH
 scenes (above 128 primitives) through the packet table and the wavefront
 renderers; packet_wide and packet_dual choose the table's width and the
@@ -112,11 +115,21 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     if integrator == "path":
         from gdpt_tpu_torch.integrators import path_soa
 
+        if not path_soa.supports_soa(scene):
+            from gdpt_tpu_torch.integrators import path
+
+            return render_samples(scene_to(scene, device), path.trace_path, spp=spp,
+                                  seed=seed, return_stats=return_stats, **walk)
         return path_soa.render_soa(scene_to(scene, device), spp=spp, seed=seed,
                                    return_stats=return_stats, **walk)
     if integrator == "gradpath":
         from gdpt_tpu_torch.integrators import gdpt_soa
 
+        if not gdpt_soa.supports_soa_gdpt(scene):
+            from gdpt_tpu_torch.integrators import gdpt
+
+            return gdpt.render_gradpath(scene, spp=spp, seed=seed, return_aux=return_aux,
+                                        device=device, return_stats=return_stats, **walk)
         return gdpt_soa.render_gradpath_soa(scene_to(scene, device), spp=spp, seed=seed,
                                             return_aux=return_aux,
                                             return_stats=return_stats, **walk)

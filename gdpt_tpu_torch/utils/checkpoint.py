@@ -5,12 +5,16 @@ Monte Carlo accumulation makes checkpointing natural: persist the
 running per-pixel sums and the sample count; resuming continues the
 deterministic counter-based sample streams exactly where they stopped.
 
-Covers the accumulating integrators the port renders: path, volpath
-(versions 6 and 0 on the SoA banded loop, versions 1-5 on the per-ray
-rungs' render_samples, whose accumulator is (n_pix, 3)) and gradpath,
+Covers the accumulating integrators the port renders, dispatched as
+render.render dispatches them: path (the SoA render, or the per-ray
+path.trace_path through render_samples), volpath (versions 6 and 0 on
+the SoA banded loop, versions 1-5 on the per-ray rungs' render_samples)
+and gradpath (the SoA render, or the per-ray gdpt.render_gradpath),
 whose 6-buffer accumulator state — primal, brute-force primal, 4
 one-sided gradients — is saved before the Poisson reconstruction. The
-SoA integrators resume on their banded loops.
+SoA accumulators are (3, n_pix) and (6, 3, n_pix), the per-ray ones
+(n_pix, 3) and (6, n_pix, 3), as the reference's. The SoA integrators
+resume on their banded loops.
 Checkpoints carry a scene/seed/spp fingerprint; a stale file from a
 different render is discarded rather than corrupting the accumulator.
 The file holds numpy arrays only, so a checkpoint written by a render on
@@ -29,7 +33,8 @@ import torch
 
 from gdpt_tpu_torch.convert import tree_leaves
 from gdpt_tpu_torch.core.dtypes import resolve_device
-from gdpt_tpu_torch.integrators import gdpt_soa, path_soa, render, volpath, volpath_soa
+from gdpt_tpu_torch.integrators import gdpt, gdpt_soa, path_soa, render, volpath, volpath_soa
+from gdpt_tpu_torch.integrators import path as path_integrator
 from gdpt_tpu_torch.scene.build import scene_to
 
 
@@ -106,15 +111,21 @@ def render_with_checkpoints(scene, spp=None, seed=0, every=16,
     integrator = static.options.integrator
     spp = spp if spp is not None else static.options.samples_per_pixel
     n_pix = static.width * static.height
-    if integrator == "path":
+    if integrator == "path" and path_soa.supports_soa(scene):
         renderer, shape = path_soa.render_soa, (3, n_pix)
+    elif integrator == "path":
+        renderer = functools.partial(render.render_samples, trace_fn=path_integrator.trace_path)
+        shape = (n_pix, 3)
     elif integrator == "volpath" and volpath_soa.supports_soa_volpath(scene):
         renderer, shape = volpath_soa.render_volpath_soa, (3, n_pix)
     elif integrator == "volpath":
         renderer = functools.partial(render.render_samples, trace_fn=volpath.trace_fn(static))
         shape = (n_pix, 3)
-    elif integrator == "gradpath":
+    elif integrator == "gradpath" and gdpt_soa.supports_soa_gdpt(scene):
         renderer, shape = gdpt_soa.render_gradpath_soa, (6, 3, n_pix)
+    elif integrator == "gradpath":
+        renderer = functools.partial(gdpt.render_gradpath, device=device)
+        shape = (6, n_pix, 3)
     else:
         raise ValueError(
             f"integrator {integrator!r} is single-pass; checkpointing is for "

@@ -59,7 +59,8 @@ def test_slice_modules_are_covered():
                    "scene/xml_writer.py", "integrators/aux.py", "utils/checkpoint.py",
                    "utils/profiling.py", "utils/host_parallel.py", "core/rng.py",
                    "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
-                   "ops/media.py", "ops/intersect.py", "integrators/volpath.py"):
+                   "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
+                   "integrators/path.py", "integrators/gdpt.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
@@ -71,7 +72,8 @@ NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.
                "tools/visit_microbench.py", "accel/packet_kernels.py", "accel/traverse_soa.py",
                "cli.py", "integrators/aux.py", "utils/checkpoint.py", "core/rng.py",
                "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
-               "ops/media.py", "ops/intersect.py", "integrators/volpath.py"]
+               "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
+               "integrators/path.py", "integrators/gdpt.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -186,6 +188,28 @@ def test_volpath_rungs_default_to_cuda(version, monkeypatch):
         render.render(scene)
     with pytest.raises(RuntimeError, match="CUDA"):
         checkpoint.render_with_checkpoints(scene, path="unused.npz")
+
+
+@pytest.mark.parametrize("integrator", ["path", "gradpath"])
+def test_perray_oracles_default_to_cuda(integrator, monkeypatch):
+    """With the SoA predicate off, render.render and the checkpointed
+    render take the per-ray oracles, which raise without a card unless
+    the CPU is asked for; so does gdpt.render_gradpath called directly."""
+    from gdpt_tpu_torch.integrators import gdpt
+    from gdpt_tpu_torch.ops import materials_soa
+    from gdpt_tpu_torch.utils import checkpoint
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(materials_soa, "supports_soa_materials", lambda scene: False)
+    scene = presets.cornell_box(4, 4, spp=1, max_depth=2, integrator=integrator)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render.render(scene)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.render_with_checkpoints(scene, path="unused.npz")
+    if integrator == "gradpath":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            gdpt.render_gradpath(scene)
+    assert render.render(scene, device="cpu").shape == (4, 4, 3)
 
 
 def test_render_on_cpu_when_asked():

@@ -117,13 +117,15 @@ def test_v2_single_scatter_positive_outside_lights():
     assert (img[0, -1] > 0).all()
 
 
-def test_trace_fn_refuses_the_soa_versions():
-    """Versions 6 and 0 render through volpath_soa; their per-ray oracle
-    is not ported."""
+def test_trace_fn_maps_6_and_0_to_the_final_version():
+    """Versions 6 and 0 take the per-ray oracle trace_volpath_final, as the
+    reference's trace_fn maps them; 1-5 their own rungs."""
     for version in (6, 0):
         sc = tpresets.volpath_scene(version=version, width=4, height=4, spp=1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tvp.trace_fn(sc.static)
+        assert tvp.trace_fn(sc.static) is tvp.trace_volpath_final
+    for version in (1, 2, 3, 4, 5):
+        sc = tpresets.volpath_scene(version=version, width=4, height=4, spp=1)
+        assert tvp.trace_fn(sc.static) is getattr(tvp, f"trace_volpath_{version}")
 
 
 @pytest.mark.gpu
