@@ -201,7 +201,35 @@ Phases, each fatal on failure:
      through render_gradpath on cuda (RMSE / mean < 0.05); K1, K2 and K3
      held bit for bit against their plain versions on the batches kept in
      phases 36-38 (among them the gradpath probe and a final-version
-     shadow segment), each timed by CUDA graph replay beside its bound.
+     shadow segment), each timed by CUDA graph replay beside its bound;
+ 40. the two-phase entry traversal (packet_trace.trace_two_phase) on
+     phase 7's 32- and 16-wide tables: 1,048,576 camera rays (512x512x4)
+     and phase 8's 262,144 bounce rays closest, its shadow rays any hit,
+     through K3 on both tables and K4 on the 16-wide one (counts zeroed
+     just before each cast and read just after): t and the any-hit mask
+     equal to the single-phase cast's, a differing prim only on a tie;
+     on a cut of 65,536 rays of each set the kernel under the two-phase
+     walk equals the plain walk under it bit for bit; each cast's wall
+     (CUDA events) beside the single-phase one, its dispatches, kernel
+     launches and the share of live lanes that reach the root walk; then
+     render.render of the icosphere box's gradpath at 2 spp with
+     two_phase=True against False: images at the gate, rays within 0.1%;
+ 41. the pool-sorted wavefronts (pool_sort=True against False): the
+     icosphere box's path (4 spp) and gradpath (2 spp) and the medium
+     box's volpath (1 spp): images at the gate, equal ray counts, K3
+     launched, walls both ways; the path also with packet_sort=False
+     (no cast sorts, no morton key computed) against the default; then
+     the sort kernels' device time per iteration of the path and
+     gradpath wavefronts under the profiler, every cast sorting against
+     the pool sorted once per chunk;
+ 42. sharding (parallel/sharding.py): make_mesh() on the card and a mesh
+     of cuda:0 four times; render_soa_sharded on the cbox (4 spp, K1,
+     K2), render_gradpath_soa_sharded on the icosphere box (2 spp, depth
+     5, banded, K3), render_volpath_soa_sharded on the grid scene (2 spp,
+     depth 6, K1) and render_samples_sharded with path.trace_path on the
+     cbox (4 spp), each equal to its unsharded banded render bit for bit
+     with its ray count (no lane padded at 512x512); a 30x30 sharded
+     render (124 padded lanes) on cuda against the CPU at the gate.
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
@@ -209,7 +237,10 @@ each render, K1's and K3 closest's launches per volpath sample of phases
 24 and 26, under "rungs" K1's, K2's and K3's launches per sample of
 the rungs (phases 32, 34) and the time and bound of each rung batch of
 phase 34, and under "perray" their launches per sample of each per-ray
-oracle (phases 36-38) and the time and bound of each batch of phase 39),
+oracle (phases 36-38) and the time and bound of each batch of phase 39,
+and K3's and K4's rows under "two_phase" each phase 40 cast's wall
+(wall_ms, not the kernel's own time), the single-phase wall, kernel
+launches a cast and root-walk share),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -250,6 +281,15 @@ PERRAY_GRAD_DEPTH = 5       # phase 37: render_gradpath's depth
 PERRAY_GRAD_BOX_SPP = 2     # phase 37: the icosphere box through render_gradpath
 FINAL_GRID = dict(spp=4, max_depth=6)  # phase 38: trace_volpath_final on the grid scene
 FINAL_BOX = dict(spp=1, max_depth=4)   # phase 38: trace_volpath_final on the medium box
+TWO_PHASE_CAMERA_SPP = 4    # phase 40: 512x512x4 = 1,048,576 camera rays through two-phase
+TWO_PHASE_CUT = 65_536      # phase 40: rays of each set held kernel against plain walk
+TWO_PHASE_GRAD_SPP = 2      # phase 40: the icosphere box gradpath with two_phase on and off
+POOL_SORT_SPP = {"path": 4, "gradpath": 2}  # phase 41: the icosphere box, pool sorted or not
+POOL_SORT_VOL_SPP = 1       # phase 41: the medium box volpath, cut from 4 spp
+SHARD_PATH_SPP = 4          # phase 42: the cbox through render_soa_sharded / render_samples_sharded
+SHARD_GRAD_SPP = 2          # phase 42: the icosphere box gradpath, banded and sharded,
+SHARD_GRAD_DEPTH = 5        # at the cbox_gdpt golden's depth, cut from unbounded
+SHARD_GRID = dict(spp=2, max_depth=6)  # phase 42: the grid scene volpath, depth cut from unbounded
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -2550,6 +2590,380 @@ def _perray_phases(card, ctx):
     return rows
 
 
+def _camera_rays_spp(scene, dev, spp):
+    """`spp` jittered camera rays per pixel of `scene` (seed 7), as V3s:
+    phase 40's 512x512x4 set."""
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch.core import soa
+    from gdpt_tpu_torch.integrators import path_soa
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    st = scene.static
+    ys, xs = np.mgrid[0:st.height, 0:st.width]
+    xs_d = torch.as_tensor(np.tile(xs.ravel(), spp), dtype=torch.float32, device=dev)
+    ys_d = torch.as_tensor(np.tile(ys.ravel(), spp), dtype=torch.float32, device=dev)
+    u0, u1 = soa.uniform2(7, torch.arange(xs_d.shape[0], device=dev), 0, 0)
+    cam = scene_to(scene, dev).device.camera
+    return path_soa.primary_rays_soa(st, cam, xs_d, ys_d, u0, u1)
+
+
+def _dispatch_lanes(pt, fn):
+    """fn() with packet_trace._entry_dispatch wrapped: returns (fn's
+    result, the lanes each two-phase dispatch cast, in order; the last
+    dispatch of a cast is its root walk)."""
+    seen, real = [], pt._entry_dispatch
+
+    def counting(tab, org, d, tnear, tfar, entry_id, *a):
+        seen.append(int((entry_id < tab.entry_ref.shape[0]).sum()))
+        return real(tab, org, d, tnear, tfar, entry_id, *a)
+
+    pt._entry_dispatch = counting
+    try:
+        return fn(), seen
+    finally:
+        pt._entry_dispatch = real
+
+
+def _compare_two_phase(pk, tab, rays, got, ref, any_hit, label):
+    """A two-phase cast against the single-phase cast of the same rays:
+    no ray may differ in t or in the any-hit mask, and a ray whose prim
+    differs must be a tie (both primitives hit at that same t). Returns
+    (rays whose prim differs, max abs err of t)."""
+    import torch
+
+    if any_hit:
+        n_bad = int(((got[1] >= 0) != (ref[1] >= 0)).sum())
+        print(f"  two-phase any hit {label}: {got[1].numel()} rays, the blocked mask differs on "
+              f"{n_bad}, blocked {float((ref[1] >= 0).float().mean()):.4f}")
+        if n_bad:
+            raise AssertionError(f"the two-phase any-hit mask differs from single-phase on {label}")
+        return 0, 0.0
+    bad_t = int((got[0].view(torch.int32) != ref[0].view(torch.int32)).sum())
+    diff = torch.nonzero(got[1] != ref[1]).squeeze(1)
+    ties = 0
+    if diff.numel():
+        o, d = torch.stack(rays[:3], 1)[diff], torch.stack(rays[3:6], 1)[diff]
+        for prim in (got[1][diff], ref[1][diff]):
+            geo = tab.geo9[prim.clamp_min(0).long()][:, None, :]
+            tt, hit = pk._prim_hits(geo, prim[:, None], tuple(o.T[:, :, None]),
+                                    tuple(d.T[:, :, None]), rays[6][diff][:, None],
+                                    torch.full_like(rays[6][diff][:, None], 3e37), None)
+            ties += int((hit[:, 0] & (tt[:, 0] == ref[0][diff])).sum())
+    err = float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
+    print(f"  two-phase closest {label}: {got[0].numel()} rays, t differs on {bad_t}, prim on "
+          f"{diff.numel()} ({ties // 2 if diff.numel() else 0} of them ties), hits "
+          f"{float((ref[1] >= 0).float().mean()):.4f}")
+    if bad_t or 2 * diff.numel() != ties:
+        raise AssertionError(f"the two-phase walk differs from single-phase on {label}")
+    return diff.numel(), err
+
+
+def _variant_phases(card, ctx):
+    """Phases 40-41: the opt-in ray-casting variants at full width: the
+    two-phase entry traversal (K3, K4) on phase 7's icosphere box, and the
+    pool-sorted wavefronts of path, gradpath and volpath. Returns
+    {kernel row: {ray set: two-phase numbers}} for the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import packet_trace as pt
+    from gdpt_tpu_torch.core.soa import V3
+    from gdpt_tpu_torch.integrators import gdpt_soa, path_soa, render, volpath_soa
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    dev = torch.device("cuda")
+    scene, scene_dev = ctx["scene"], ctx["scene_dev"]
+    st = scene_dev.static
+    tab32 = path_soa.scene_soa_from_aos(scene_dev).geom.packet
+    tab16 = path_soa.scene_soa_from_aos(scene_dev, wide=16).geom.packet
+    rows = {"K3 closest": {}, "K3 any hit": {}, "K4 closest": {}, "K4 any hit": {}}
+
+    # ---- phase 40: two-phase entry traversal, casts then a gradpath render ----
+    t_phase = time.perf_counter()
+    org, d = _camera_rays_spp(scene, dev, TWO_PHASE_CAMERA_SPP)
+    n_cam = org.x.shape[0]
+    camera = (*(c.contiguous() for c in org), *(c.contiguous() for c in d),
+              torch.zeros(n_cam, device=dev), torch.full((n_cam,), 3e37, device=dev))
+    sets = (("camera", camera, False), ("bounce", ctx["bounce"], False),
+            ("shadow", ctx["shadow"], True))
+    real_walk = pk.trace_packets
+
+    def plain_walk(tab, *rays, dual=False, **kw):
+        return (pk.trace_packets_dual_plain if dual else pk.trace_packets_plain)(tab, *rays, **kw)
+
+    for walker, tab, dual in (("K3", tab32, False), ("K3", tab16, False), ("K4", tab16, True)):
+        for name, r, any_hit in sets:
+            o3, d3 = V3(*r[:3]), V3(*r[3:6])
+            n = r[0].shape[0]
+            label = f"{name} rays ({n}), {walker} on the {tab.width}-wide table"
+            mode = ("packet_dual_" if dual else "packet_") + ("occluded" if any_hit else
+                                                              "intersect")
+            for k in pk.LAUNCHES:
+                pk.LAUNCHES[k] = 0
+            got, lanes = _dispatch_lanes(pt, lambda: pt.trace_two_phase(
+                tab, o3, d3, r[6], r[7], any_hit=any_hit, dual=dual))
+            launches = dict(pk.LAUNCHES)
+            if launches[mode] != sum(m > 0 for m in lanes) or sum(launches.values()) != \
+                    launches[mode]:
+                raise AssertionError(f"two-phase {label}: launched {launches}")
+            one = pt.trace_packet_soa(tab, o3, d3, r[6], r[7], any_hit=any_hit, dual=dual)
+            torch.cuda.synchronize()
+            _, err = _compare_two_phase(pk, tab, r, got, one, any_hit, label)
+            # The kernels against the plain walks under the same two-phase
+            # walk, on a cut of the set (a ray's result does not depend on
+            # the others'), bit for bit.
+            cut = tuple(c[:TWO_PHASE_CUT].contiguous() for c in r)
+            oc, dc = V3(*cut[:3]), V3(*cut[3:6])
+            mine = pt.trace_two_phase(tab, oc, dc, cut[6], cut[7], any_hit=any_hit, dual=dual)
+            pk.trace_packets = plain_walk
+            try:
+                plain = pt.trace_two_phase(tab, oc, dc, cut[6], cut[7], any_hit=any_hit,
+                                           dual=dual)
+            finally:
+                pk.trace_packets = real_walk
+            torch.cuda.synchronize()
+            bad = int(((mine[0].view(torch.int32) != plain[0].view(torch.int32))
+                       | (mine[1] != plain[1])).sum())
+            if bad:
+                raise AssertionError(f"two-phase {label}: the kernel and the plain walk differ on "
+                                     f"{bad} of {TWO_PHASE_CUT} rays")
+            ms2 = _events_ms(lambda: [pt.trace_two_phase(tab, o3, d3, r[6], r[7], any_hit=any_hit,
+                                                         dual=dual) for _ in range(3)], 3)
+            ms1 = _events_ms(lambda: [pt.trace_packet_soa(tab, o3, d3, r[6], r[7],
+                                                          any_hit=any_hit, dual=dual)
+                                      for _ in range(3)], 3)
+            live = int((r[7] >= r[6]).sum())
+            root = lanes[-1] / max(live, 1)
+            print(f"phase 40: {label}: two-phase {ms2:.3f} ms a cast, single-phase {ms1:.3f} ms "
+                  f"(CUDA events over 3 eager casts each); {len(lanes)} dispatches cast "
+                  f"{lanes} lanes, {launches[mode]} kernel launches a cast; {root:.4f} of the "
+                  f"{live} live lanes reach the root walk; on a cut of {TWO_PHASE_CUT} rays the "
+                  f"kernel equals the plain walk bit for bit; on {card}")
+            key = f"{walker} {'any hit' if any_hit else 'closest'}"
+            rows[key][f"{name} rays, {tab.width}-wide table"] = {
+                "wall_ms": ms2, "single_phase_wall_ms": ms1, "launches_per_cast": launches[mode],
+                "root_walk_share": root, "max_abs_err_vs_single_phase": err}
+
+    st_g = dataclasses.replace(st, options=dataclasses.replace(
+        st.options, integrator="gradpath", samples_per_pixel=TWO_PHASE_GRAD_SPP))
+    grad = scene._replace(static=st_g)
+    outs = {}
+    for two_phase in (False, True):
+        for k in pk.LAUNCHES:
+            pk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        recon, aux, rays = render.render(grad, seed=0, device="cuda", return_aux=True,
+                                         return_stats=True, two_phase=two_phase)
+        wall = time.perf_counter() - t0
+        outs[two_phase] = (recon, aux, rays, dict(pk.LAUNCHES))
+        print(f"phase 40: icosphere box gradpath 512x512 spp {TWO_PHASE_GRAD_SPP}, two_phase="
+              f"{two_phase}: wall {wall:.3f} s, rays {rays:.0f}, {rays / wall / 1e6:.2f} Mrays/s, "
+              f"launches {outs[two_phase][3]} on {card}")
+    (ra, aa, na, la), (rb, ab, nb, lb) = outs[True], outs[False]
+    scale = float(ab["primal"].mean())
+    _gate_cuda_vs_cpu(ra, rb, scale, 40, "gradpath recon", what="two-phase vs single-phase")
+    for k in ("primal", "gx", "gy"):
+        _gate_cuda_vs_cpu(aa[k], ab[k], scale, 40, f"gradpath {k}",
+                          what="two-phase vs single-phase")
+    if abs(na - nb) > 1e-3 * nb or not la["packet_intersect"] or not la["packet_occluded"]:
+        raise AssertionError(f"two-phase gradpath: rays {na} against {nb}, launches {la}")
+    t_phase = _phase_done(40, t_phase)
+
+    # ---- phase 41: the pool-sorted wavefronts ----
+    medium = presets.medium_box(512, 512, POOL_SORT_VOL_SPP, grid_res=VOL_GRID)
+    st_p = dataclasses.replace(st, options=dataclasses.replace(
+        st.options, samples_per_pixel=POOL_SORT_SPP["path"]))
+    st_g = dataclasses.replace(st_g, options=dataclasses.replace(
+        st_g.options, samples_per_pixel=POOL_SORT_SPP["gradpath"]))
+    path_soa.scene_soa_from_aos(scene_to(medium, dev))  # tables outside the walls
+    real_keys = pt._morton_keys
+    n_keys = [0]
+
+    def counted_keys(*a, **kw):
+        n_keys[0] += 1
+        return real_keys(*a, **kw)
+
+    pt._morton_keys = counted_keys
+    try:
+        for label, sc_, need in (("icosphere box path", scene._replace(static=st_p), "K3"),
+                                 ("icosphere box gradpath", scene._replace(static=st_g), "K3"),
+                                 ("medium box volpath", medium, "K3")):
+            outs = {}
+            # The path render also runs with packet_sort=False: no cast
+            # sorts its rays (the reference's GDPT_PACKET_SORT=0).
+            variants = ("pool_sort=False", "pool_sort=True") + (
+                ("packet_sort=False",) if label == "icosphere box path" else ())
+            for variant in variants:
+                for k in pk.LAUNCHES:
+                    pk.LAUNCHES[k] = 0
+                n_keys[0] = 0
+                switch, value = variant.split("=")
+                t0 = time.perf_counter()
+                img, rays = render.render(sc_, seed=0, device="cuda", return_stats=True,
+                                          **{switch: value == "True"})
+                wall = time.perf_counter() - t0
+                outs[variant] = (img, rays, dict(pk.LAUNCHES), n_keys[0])
+                print(f"phase 41: {label} 512x512 spp {sc_.static.options.samples_per_pixel}, "
+                      f"{variant}: wall {wall:.3f} s, rays {rays:.0f}, "
+                      f"{rays / wall / 1e6:.3f} Mrays/s, {n_keys[0]} morton key sorts, "
+                      f"launches {outs[variant][2]} on {card}")
+            ib, nb, lb, kb = outs["pool_sort=False"]
+            for variant in variants[1:]:
+                ia, na, la, ka = outs[variant]
+                _gate_cuda_vs_cpu(ia, ib, float(ib.mean()), 41, label,
+                                  what=f"{variant} vs the default")
+                if na != nb or not la["packet_intersect"]:
+                    raise AssertionError(f"{variant} {label}: rays {na} against {nb}, "
+                                         f"launches {la}")
+                if variant == "packet_sort=False" and (ka or not kb):
+                    raise AssertionError(f"{variant} {label}: {ka} morton key sorts against "
+                                         f"{kb} with the casts sorting")
+    finally:
+        pt._morton_keys = real_keys
+
+    # The argsorts' device time per iteration, each way, from the profiler's
+    # kernel names (the pool sort once per chunk of k iterations, and every
+    # cast's own sort when the pool is not sorted).
+    camera_d = scene_dev.device.camera
+    sc = path_soa.scene_soa_from_aos(scene_dev)
+    for label, k_iters in (("path", 8), ("gradpath", 6)):
+        sort_us = {}
+        for pool_sort in (False, True):
+            n_pix = st.width * st.height
+            if label == "path":
+                total = n_pix * POOL_SORT_SPP["path"]
+                state = path_soa._wavefront_state(n_pix, path_soa._pool_width(total), total, 1,
+                                                  dev)
+                step = lambda s, ps=pool_sort: path_soa._wavefront_body(  # noqa: E731
+                    st, camera_d, sc, s, ps)
+                sort = lambda s: path_soa._pool_sort(s, sc.geom.packet)  # noqa: E731
+            else:
+                total = n_pix * POOL_SORT_SPP["gradpath"]
+                state = gdpt_soa._gdpt_wavefront_state(st_g, camera_d, sc, total, 1,
+                                                       path_soa._pool_width(total, 1 << 17))
+                step = lambda s, ps=pool_sort: gdpt_soa._gdpt_wavefront_body(  # noqa: E731
+                    st_g, camera_d, sc, st_g.used_material_kinds, s, ps)
+                sort = lambda s: gdpt_soa._gdpt_pool_sort(s, sc.geom.packet)  # noqa: E731
+            for _ in range(k_iters):  # fill the pool first
+                state = step(state)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                if pool_sort:
+                    state = sort(state)
+                for _ in range(k_iters):
+                    state = step(state)
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            sort_us[pool_sort] = sum(getattr(e, "self_device_time_total", 0) for e in kernels
+                                     if "sort" in e.key.lower()) / k_iters
+        print(f"phase 41: {label} wavefront, {k_iters} iterations under torch.profiler: sort "
+              f"kernels' device time per iteration {sort_us[False]:.1f} us with every cast "
+              f"sorting, {sort_us[True]:.1f} us with the pool sorted once per chunk: "
+              f"{sort_us[False] - sort_us[True]:.1f} us saved per iteration on {card}")
+    _phase_done(41, t_phase)
+    return rows
+
+
+def _sharding_phase(card, ctx):
+    """Phase 42: sharded renders (parallel/sharding.py) on the card: each
+    against its unsharded banded render, bit for bit, and ray counts as
+    the reference counts them."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.integrators import gdpt_soa, path, path_soa, render, volpath_soa
+    from gdpt_tpu_torch.parallel import sharding
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    card_mesh = sharding.make_mesh()
+    mesh4 = sharding.make_mesh([dev] * 4)
+    print(f"phase 42: make_mesh() = {card_mesh.devices}; the four-entry mesh {mesh4.devices}")
+    if card_mesh.devices != (torch.device("cuda", 0),):
+        raise AssertionError(f"make_mesh() on one card gave {card_mesh.devices}")
+    box = ctx["scene"]
+    st = box.static
+    box_g = box._replace(static=dataclasses.replace(st, options=dataclasses.replace(
+        st.options, integrator="gradpath", samples_per_pixel=SHARD_GRAD_SPP,
+        max_depth=SHARD_GRAD_DEPTH)))
+    grid = presets.volpath_scene(
+        version=6, width=512, height=512, g=0.6, with_diffuse_sphere=True,
+        density=presets.medium_grid(VOL_GRID, 3, 0.8), albedo=presets.albedo_grid(VOL_GRID, 4),
+        **SHARD_GRID)
+    cbox = presets.cornell_box(512, 512, spp=SHARD_PATH_SPP)
+
+    def timed(fn):
+        for d in (bk.LAUNCHES, pk.LAUNCHES):
+            for k in d:
+                d[k] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {**bk.LAUNCHES, **pk.LAUNCHES}
+
+    cases = (
+        ("cbox path (render_soa_sharded)", cbox, ("intersect", "occluded"),
+         lambda s, m: sharding.render_soa_sharded(s, m, return_stats=True),
+         lambda s: path_soa.render_soa(s, wavefront=False, return_stats=True), 128),
+        ("icosphere box gradpath (render_gradpath_soa_sharded)", box_g,
+         ("packet_intersect", "packet_occluded"),
+         lambda s, m: sharding.render_gradpath_soa_sharded(s, m, return_stats=True),
+         lambda s: gdpt_soa.render_gradpath_soa(s, wavefront=False, return_stats=True), 128),
+        ("grid scene volpath (render_volpath_soa_sharded)", grid, ("intersect",),
+         lambda s, m: sharding.render_volpath_soa_sharded(s, m, return_stats=True),
+         lambda s: volpath_soa.render_volpath_soa(s, wavefront=False, return_stats=True), 128),
+        ("cbox per-ray path (render_samples_sharded)", cbox, ("intersect", "occluded"),
+         lambda s, m: sharding.render_samples_sharded(s, path.trace_path, m,
+                                                      return_stats=True),
+         lambda s: render.render_samples(s, path.trace_path, return_stats=True), 1),
+    )
+    for label, scene, need, sharded, single, align in cases:
+        s_dev = scene_to(scene, dev)
+        path_soa.scene_soa_from_aos(s_dev)  # tables outside the walls
+        (one, one_rays), wall1, _ = timed(lambda: single(s_dev))
+        meshes = [("four-entry mesh", mesh4)] + ([("make_mesh()", card_mesh)]
+                                                 if label.startswith("cbox path") else [])
+        for mesh_label, mesh in meshes:
+            (img, rays), wall, launches = timed(lambda: sharded(scene, mesh))
+            # Ray counts as the reference counts them: where no lane is
+            # padded (512x512 pixels on these meshes), the unsharded count
+            # (padded lanes would trace pixel 0: path and volpath add their
+            # rays, gradpath scales a band's count by its real lanes).
+            pad = sharding.ray_pad(mesh, scene.static.width * scene.static.height, align)
+            print(f"phase 42: {label} over the {mesh_label}: wall {wall:.3f} s (unsharded banded "
+                  f"{wall1:.3f} s), rays {rays:.0f} (unsharded {one_rays:.0f}, {pad} padded "
+                  f"lanes), mean {float(np.mean(img)):.6f}, launches {launches} on {card}")
+            missing = [k for k in need if not launches[k]]
+            if missing or not np.array_equal(img, one) or not (pad or rays == one_rays):
+                raise AssertionError(f"{label} over the {mesh_label}: differs from the unsharded "
+                                     f"render, or did not launch {missing}")
+    # A small image whose 900 pixels pad to 1,024 lanes on four entries.
+    small = presets.cornell_box(30, 30, spp=2, max_depth=3)
+    a, ra = sharding.render_soa_sharded(small, mesh4, seed=3, return_stats=True)
+    b, rb = sharding.render_soa_sharded(small, sharding.make_mesh(["cpu"] * 4), seed=3,
+                                        return_stats=True)
+    _gate_cuda_vs_cpu(a, b, float(b.mean()), 42, "sharded cbox path 30x30 (900 pixels, 124 "
+                      "padded lanes)", what="cuda vs cpu")
+    print(f"phase 42: sharded 30x30 rays cuda {ra:.0f}, cpu {rb:.0f}")
+    if ra != rb or not sharding.ray_pad(mesh4, 900):
+        raise AssertionError("the sharded 30x30 render's ray counts differ between cuda and cpu")
+    _phase_done(42, t_phase)
+
+
 def _phase_done(phase, since):
     now = time.perf_counter()
     print(f"phase {phase}: done in {now - since:.1f} s")
@@ -2611,6 +3025,8 @@ def main():
     _file_phases(card)
     rungs = _rung_phases(card)
     perray = _perray_phases(card, ctx)
+    two_phase = _variant_phases(card, ctx)
+    _sharding_phase(card, ctx)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
@@ -2624,6 +3040,8 @@ def main():
                             {"ms": v[0], "bound_ms": v[1]}) for k, v in rungs[name].items()}
         row["perray"] = {k: (v if isinstance(v, (int, float)) else
                              {"ms": v[0], "bound_ms": v[1]}) for k, v in perray[name].items()}
+    for row, name in zip(rows[2:6], ("K3 closest", "K3 any hit", "K4 closest", "K4 any hit")):
+        row["two_phase"] = two_phase[name]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

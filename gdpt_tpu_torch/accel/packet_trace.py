@@ -4,10 +4,13 @@ Counterpart of gdpt_tpu/accel/packet_trace.py (replaces Embree's
 rtcIntersect1/rtcOccluded1, reference: src/intersection.cpp:32,83) for
 scenes above the brute-force limit. This module holds the host half:
 the collapse of the binary miss-link BVH (accel/bvh.py) into the wide
-table, the ray sort, the dead-lane and non-finite conventions, and the
-hit attributes. The walk itself is kernel K3, or on a 16-wide table and
-on request the dual kernel K4, in accel/packet_kernels.py (hand-written
-CUDA for CUDA tensors, the plain PyTorch versions for CPU tensors).
+table, the ray sort, the dead-lane and non-finite conventions, the hit
+attributes, and the reference's opt-in two-phase entry traversal
+(trace_two_phase: the table's entry subtrees walked one at a time from a
+start ref per ray). The walk itself is kernel K3, or on a 16-wide table
+and on request the dual kernel K4, in accel/packet_kernels.py
+(hand-written CUDA for CUDA tensors, the plain PyTorch versions for CPU
+tensors).
 
 The table lives in device memory and is read through the cache; there
 is no size cap. Its width (16 or 32 children per supernode) is a build
@@ -44,6 +47,10 @@ _EMPTY = np.int32(2**31 - 1)
 LEAF_TRIS = 12           # per leaf row: 12*9 geometry + 12 prim ids = 120
 _CHAIN_SHIFT = 22        # leaf ref: start | (n_rows << 22)
 ENTRY_K = 64             # target size of the entry frontier
+# Casts of at least this many rays take the two-phase walk when it is
+# asked for: four of the reference's 1024-ray packets.
+TWO_PHASE_MIN_RAYS = 4 * 8 * 128
+BIG_KEY = 3e38           # phase 1's key of an entry box the ray misses
 
 
 class PacketTable(NamedTuple):
@@ -54,10 +61,9 @@ class PacketTable(NamedTuple):
     # geometric normal are recomputed outside from one gather of the hit
     # primitive (_hit_attribs).
     geo9: torch.Tensor
-    # Entry frontier of the two-phase traversal (not ported yet; kept so
-    # the table stays identical to the reference's): ~ENTRY_K disjoint
-    # subtrees covering the scene. entry_ref (K+1,) int32 kernel refs
-    # (last = whole-table root); entry_bbox (K+1, 6) f32.
+    # Entry frontier of the two-phase traversal (trace_two_phase): about
+    # entry_k disjoint subtrees covering the scene. entry_ref (K+1,)
+    # int32 kernel refs (last = whole-table root); entry_bbox (K+1, 6) f32.
     entry_ref: torch.Tensor
     entry_bbox: torch.Tensor
     # Bound on the walk's stack: max(64, width * (supernode depth + 1)).
@@ -76,12 +82,17 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
                        sph_center=None, sph_radius=None,
                        leaf_skip_from=None,
                        prim_of_ref=None, ref_bbox_min=None,
-                       ref_bbox_max=None, wide=32):
+                       ref_bbox_max=None, wide=32, premerge=False, entry_k=ENTRY_K):
     """Host-side collapse of the binary miss-link BVH into the packet
     table (numpy; the result holds CPU tensors). wide: supernode width,
     32 (two rows per supernode, 24-prim leaf groups) or 16 (one row,
     12-prim groups). Bit-identical to the reference's table for the
-    same BVH arrays.
+    same BVH arrays and switches.
+
+    premerge: a supernode's expansion stops at W children counted
+    before sibling leaves share rows (the reference's
+    GDPT_EXPAND_PREMERGE=1), not at W slots after it. entry_k: the
+    target size of the two-phase entry frontier (GDPT_ENTRY_K).
 
     Mirrors super16.build_super16's collapse (maximal 16-subtree
     frontier expansion over the DFS/miss-link layout) but with fixed
@@ -205,7 +216,8 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
             sups = [x for x in frontier if x not in fat_of]
             leaves = [x for x in frontier if x in fat_of]
             bins = binpack(leaves)
-            if len(sups) + len(bins) >= W or not sups:
+            full = len(frontier) >= W if premerge else len(sups) + len(bins) >= W
+            if full or not sups:
                 return sups, bins
             big = max(sups, key=lambda x: cnt_sub[x])
             i = frontier.index(big)
@@ -387,7 +399,7 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
         gi = node_group.get(c, empty_gi)
         return int(group_ref(gi))
 
-    k_target = ENTRY_K
+    k_target = int(entry_k)
     frontier = [0]
     while len(frontier) < k_target:
         pick, pick_cnt = None, -1
@@ -415,12 +427,16 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
     )
 
 
-def _morton_keys(tab, org: V3, d: V3):
+def _morton_keys(tab, org: V3, d: V3, hint=None):
     """Ray-coherence sort key: direction octant (3 high bits) then a
     6-bit-per-axis interleaved morton code of the origin in scene-bbox
     space. Bounce batches arrive shuffled; grouping rays that start
     near each other and head the same way keeps a warp's rays in one
-    subtree."""
+    subtree.
+
+    hint: an optional per-lane integer, clipped to [0, 63] and placed
+    above the octant bits (a wavefront pool's bounce depth, say), so
+    that rays sort by it first."""
     lo = tab.bbox[:3]
     ext = torch.clamp_min(tab.bbox[3:] - lo, 1e-6)
 
@@ -439,20 +455,17 @@ def _morton_keys(tab, org: V3, d: V3):
     octant = ((d.x < 0).to(INT)
               | ((d.y < 0).to(INT) << 1)
               | ((d.z < 0).to(INT) << 2))
-    return (octant << 18) | mort
+    key = (octant << 18) | mort
+    if hint is not None:
+        key = key | (torch.clamp(hint.to(INT), 0, 63) << 21)
+    return key
 
 
-def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                     n_tris=None, any_hit=False, sort_rays=True, dual=False):
-    """Flat-ray entry: (t, prim, u, v, gn V3) over n rays.
-
-    tnear and tfar are scalars or (n,) tensors. A lane with tfar < tnear
-    is dead: it does no work and comes back as a miss. A lane with any
-    non-finite ray datum becomes a dead lane. When sort_rays is set,
-    rays are morton/octant-sorted before the walk and results unsorted
-    on the way out. dual=True walks a 16-wide table with the dual kernel
-    (K4) in place of the solo one (K3): the same result per ray.
-    """
+def _scrub(org: V3, d: V3, tnear, tfar):
+    """Rays as the walks take them: (n,) tnear and tfar, and every lane
+    with a non-finite datum dead (tfar = -1 < tnear). Integrators pass
+    masked-off lanes with garbage origins and directions, and non-finite
+    values must never steer a walk. Returns org, d, tnear, tfar, alive."""
     n = org.x.shape[0]
     dev = org.x.device
 
@@ -461,9 +474,6 @@ def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
             return v.to(REAL).expand(n)
         return torch.full((n,), v, dtype=REAL, device=dev)
 
-    # Scrub non-finite inputs: integrators legitimately pass masked-off
-    # lanes with garbage origins/directions, and non-finite values must
-    # never steer the walk.
     tnear = full(tnear)
     tfar = full(tfar)
     fin = (torch.isfinite(org.x) & torch.isfinite(org.y) & torch.isfinite(org.z)
@@ -477,11 +487,32 @@ def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
     d = V3(_fin(d.x, 1.0), _fin(d.y, 0.0), _fin(d.z, 0.0))
     tnear = _fin(tnear, 0.0)
     tfar = torch.where(fin, torch.clamp(_fin(tfar, 3e37), -1.0, 3e37), -1.0)
-    alive = tfar >= tnear
+    return org, d, tnear, tfar, tfar >= tnear
+
+
+def _any_hit_result(t, prim):
+    zero = torch.zeros_like(t)
+    return t, prim, zero, zero, V3(zero, zero, 1.0 + zero)
+
+
+def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
+                     n_tris=None, any_hit=False, sort_rays=True, dual=False, sort_hint=None):
+    """Flat-ray entry: (t, prim, u, v, gn V3) over n rays.
+
+    tnear and tfar are scalars or (n,) tensors. A lane with tfar < tnear
+    is dead: it does no work and comes back as a miss. A lane with any
+    non-finite ray datum becomes a dead lane. When sort_rays is set,
+    rays are morton/octant-sorted before the walk (sort_hint: see
+    _morton_keys) and results unsorted on the way out. dual=True walks a
+    16-wide table with the dual kernel (K4) in place of the solo one
+    (K3): the same result per ray.
+    """
+    n = org.x.shape[0]
+    org, d, tnear, tfar, alive = _scrub(org, d, tnear, tfar)
     org0, d0 = org, d  # original order, for the hit-attribute recompute
     perm = None
     if sort_rays and n > 128:
-        keys = _morton_keys(tab, org, d)
+        keys = _morton_keys(tab, org, d, hint=sort_hint)
         # Dead lanes sort to the back, where whole warps of them exit
         # at once.
         keys = torch.where(alive, keys, 2**30)
@@ -498,9 +529,118 @@ def trace_packet_soa(tab: PacketTable, org: V3, d: V3, tnear, tfar,
         prim = torch.empty_like(prim).index_copy_(0, perm, prim)
     prim = torch.where(alive, prim, -1)
     if any_hit:
-        zero = torch.zeros(n, dtype=REAL, device=dev)
-        return t, prim, zero, zero, V3(zero, zero, 1.0 + zero)
+        return _any_hit_result(t, prim)
     return (t, prim) + _hit_attribs(tab, org0, d0, t, prim, n_tris)
+
+
+def _entry_dispatch(tab: PacketTable, org: V3, d: V3, tnear, tfar, entry_id, mort, n_tris,
+                    any_hit, dual):
+    """One dispatch of the two-phase traversal: every lane with work
+    walks the one subtree it was given.
+
+    entry_id (n,): an index into tab.entry_ref, or K1 (the entry count)
+    for no work this round. Only the lanes with work are cast, each with
+    its own start ref (K3 and K4 take one per ray), ordered by (entry,
+    morton key) so that a warp's rays walk one subtree; the reference
+    scatters them into groups padded to whole 1024-ray TPU packets
+    instead, which changes no ray's result. Returns (t, prim) in the
+    input order, prim = -1 (t = 0) where a lane had no dispatch."""
+    n = org.x.shape[0]
+    k1 = tab.entry_ref.shape[0]
+    t_out = torch.zeros(n, dtype=REAL, device=org.x.device)
+    p_out = torch.full((n,), -1, dtype=INT, device=org.x.device)
+    lanes = torch.nonzero(entry_id < k1).squeeze(1)
+    if lanes.numel() == 0:
+        return t_out, p_out
+    eid = entry_id[lanes].to(torch.int64)
+    key = (eid << _CHAIN_SHIFT) | (mort[lanes].to(torch.int64) & ((1 << _CHAIN_SHIFT) - 1))
+    order = torch.argsort(key, stable=True)
+    lanes = lanes[order]
+    rays = [c[lanes].contiguous() for c in (*org, *d, tnear, tfar)]
+    rref = tab.entry_ref[eid[order]].contiguous()
+    t, prim = pk.trace_packets(tab, *rays, rref=rref, n_tris=n_tris, any_hit=any_hit,
+                               dual=dual)
+    t_out[lanes] = t
+    p_out[lanes] = prim
+    return t_out, p_out
+
+
+def trace_two_phase(tab: PacketTable, org: V3, d: V3, tnear, tfar, n_tris=None,
+                    any_hit=False, entry_iters=3, dual=False):
+    """Two-phase entry-point traversal: trace_packet_soa's contract.
+
+    Phase 1 slab-tests every ray against the K entry-subtree boxes
+    (tab.entry_bbox[:K]) as one dense (n, K) tensor pass and ranks the
+    boxes hit by their entry distance. Phase 2 runs tk = min(entry_iters,
+    K) dispatches (_entry_dispatch), the nearest box first, each lane
+    walking the one subtree it enters with tfar tightened to its running
+    best; in any-hit mode a lane is done at its first blocker. A last
+    dispatch walks the whole table (the root ref) for the lanes that
+    crossed more than tk boxes and are not done, with the tightened
+    tfar. Any hit returns the (scrubbed) input tfar as t, as the
+    reference does."""
+    n = org.x.shape[0]
+    org, d, tnear, tfar, alive = _scrub(org, d, tnear, tfar)
+    k1 = tab.entry_ref.shape[0]
+    k = k1 - 1                                 # real entries (the last is the root)
+
+    # ---- phase 1: dense (n, K) entry culling, the reference's operation order ----
+    eb = tab.entry_bbox
+    inv = V3(*(1.0 / torch.where(c == 0, 1e-20, c) for c in d))
+
+    def slab(lo_c, hi_c, o_c, i_c):
+        a = (lo_c[None, :] - o_c[:, None]) * i_c[:, None]
+        b = (hi_c[None, :] - o_c[:, None]) * i_c[:, None]
+        return torch.minimum(a, b), torch.maximum(a, b)
+
+    ax, bx = slab(eb[:k, 0], eb[:k, 3], org.x, inv.x)
+    ay, by = slab(eb[:k, 1], eb[:k, 4], org.y, inv.y)
+    az, bz = slab(eb[:k, 2], eb[:k, 5], org.z, inv.z)
+    t_in = torch.maximum(torch.maximum(ax, ay), torch.maximum(az, tnear[:, None]))
+    t_out = torch.minimum(torch.minimum(bx, by), torch.minimum(bz, tfar[:, None]))
+    hitk = t_in <= t_out
+    keyk = torch.where(hitk, t_in, BIG_KEY)
+    tk = min(entry_iters, k)
+    # Nearest first; equal entry distances (rays starting inside several
+    # boxes) keep the lower entry first, as the reference's top_k does.
+    tins, idx = torch.sort(keyk, dim=1, stable=True)
+    tins, idx = tins[:, :tk], idx[:, :tk].to(INT)
+    overflow = hitk.sum(dim=1) > tk
+    # Free phase 1's (n, K) tensors before the dispatches.
+    del ax, bx, ay, by, az, bz, t_in, t_out, hitk, keyk
+    mort = _morton_keys(tab, org, d)
+
+    dead = torch.full((n,), k1, dtype=INT, device=org.x.device)
+    best_t = tfar
+    best_p = torch.full((n,), -1, dtype=INT, device=org.x.device)
+    done = ~alive
+    for e in range(tk):
+        ok = (~done) & (tins[:, e] < best_t) & (tins[:, e] < BIG_KEY)
+        t_e, p_e = _entry_dispatch(tab, org, d, tnear, best_t, torch.where(ok, idx[:, e], dead),
+                                   mort, n_tris, any_hit, dual)
+        imp = (p_e >= 0) & ok
+        if not any_hit:
+            imp = imp & (t_e < best_t)
+            best_t = torch.where(imp, t_e, best_t)
+        best_p = torch.where(imp, p_e, best_p)
+        if any_hit:
+            done = done | imp
+
+    # ---- cleanup: lanes that crossed more than tk entries walk the
+    # whole table with the tightened tfar ----
+    pend = (~done) & overflow
+    t_e, p_e = _entry_dispatch(tab, org, d, tnear, best_t, torch.where(pend, k, dead), mort,
+                               n_tris, any_hit, dual)
+    imp = (p_e >= 0) & pend
+    if not any_hit:
+        imp = imp & (t_e < best_t)
+        best_t = torch.where(imp, t_e, best_t)
+    best_p = torch.where(imp, p_e, best_p)
+
+    prim = torch.where(alive, best_p, -1)
+    if any_hit:
+        return _any_hit_result(best_t, prim)
+    return (best_t, prim) + _hit_attribs(tab, org, d, best_t, prim, n_tris)
 
 
 def _hit_attribs(tab: PacketTable, org: V3, d: V3, t, prim, n_tris):
@@ -535,18 +675,26 @@ def _hit_attribs(tab: PacketTable, org: V3, d: V3, t, prim, n_tris):
 
 
 def intersect_packet(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                     n_tris=None, sort_rays=True, dual=False):
+                     n_tris=None, sort_rays=True, dual=False, two_phase=False, sort_hint=None):
     """Closest hit within [tnear, tfar): (t, prim, u, v, gn V3); a miss
     gives t = tfar, prim = -1. n_tris: the triangle count when the table
-    holds spheres (prim id >= n_tris), else None."""
-    return trace_packet_soa(tab, org, d, tnear, tfar, n_tris=n_tris,
-                            any_hit=False, sort_rays=sort_rays, dual=dual)
+    holds spheres (prim id >= n_tris), else None. two_phase=True takes
+    trace_two_phase for casts of TWO_PHASE_MIN_RAYS rays or more (its
+    dispatches sort within themselves: sort_rays and sort_hint are not
+    read there)."""
+    if two_phase and org.x.shape[0] >= TWO_PHASE_MIN_RAYS:
+        return trace_two_phase(tab, org, d, tnear, tfar, n_tris=n_tris, dual=dual)
+    return trace_packet_soa(tab, org, d, tnear, tfar, n_tris=n_tris, any_hit=False,
+                            sort_rays=sort_rays, dual=dual, sort_hint=sort_hint)
 
 
 def occluded_packet(tab: PacketTable, org: V3, d: V3, tnear, tfar,
-                    n_tris=None, sort_rays=True, dual=False):
+                    n_tris=None, sort_rays=True, dual=False, two_phase=False):
     """Whether any primitive blocks each ray within [tnear, tfar): bool."""
-    _, prim, _, _, _ = trace_packet_soa(
-        tab, org, d, tnear, tfar, n_tris=n_tris, any_hit=True,
-        sort_rays=sort_rays, dual=dual)
+    if two_phase and org.x.shape[0] >= TWO_PHASE_MIN_RAYS:
+        prim = trace_two_phase(tab, org, d, tnear, tfar, n_tris=n_tris, any_hit=True,
+                               dual=dual)[1]
+    else:
+        prim = trace_packet_soa(tab, org, d, tnear, tfar, n_tris=n_tris, any_hit=True,
+                                sort_rays=sort_rays, dual=dual)[1]
     return prim >= 0

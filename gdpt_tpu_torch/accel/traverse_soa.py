@@ -9,7 +9,9 @@ Counterpart of gdpt_tpu/accel/traverse_soa.py. All ray state lives in
 - packet table (every larger scene): the BVH walk of
   accel/packet_kernels.py over the table of accel/packet_trace.py: K3,
   or K4 (the dual walk) when the scene's view was built 16-wide with
-  dual=True.
+  dual=True; with two_phase=True casts of 4,096 rays or more take the
+  two-phase entry traversal (packet_trace.trace_two_phase) over the same
+  kernels, and packet_sort=False turns off every cast's ray sort.
 
 Each wrapper launches its hand-written CUDA kernel for CUDA tensors and
 takes its plain PyTorch version for CPU tensors. A BVH scene always has
@@ -54,11 +56,21 @@ class GeomSoA(NamedTuple):
     # Walk the table with the dual kernel (K4) instead of the solo one
     # (K3); static, and only ever set beside a 16-wide table.
     dual: bool = False
+    # Every cast of 4,096 rays or more takes the two-phase entry
+    # traversal (the reference's GDPT_TWO_PHASE=1); static.
+    two_phase: bool = False
+    # False: no cast sorts its rays (the reference's GDPT_PACKET_SORT=0);
+    # static.
+    packet_sort: bool = True
 
 
-def geom_soa_from_aos(geom, wide=32, dual=False) -> GeomSoA:
+def geom_soa_from_aos(geom, wide=32, dual=False, two_phase=False, packet_sort=True,
+                      premerge=False, entry_k=packet_trace.ENTRY_K) -> GeomSoA:
     """wide: supernode width of the packet table, 16 or 32. dual: walk
-    the table with the dual kernel (K4), which takes 16-wide tables only."""
+    the table with the dual kernel (K4), which takes 16-wide tables only.
+    two_phase, packet_sort: the casts' walk (see GeomSoA); premerge,
+    entry_k: the table's build (packet_trace.build_packet_table). All
+    four leave a brute-force scene as it is."""
     if dual and wide != 16:
         raise ValueError(f"dual=True needs a 16-wide packet table (wide=16), got wide={wide!r}")
     n_tris = geom.tri_v0.shape[0]
@@ -74,7 +86,8 @@ def geom_soa_from_aos(geom, wide=32, dual=False) -> GeomSoA:
             geom.bvh_miss, geom.bvh_prim_order, geom.tri_v0, geom.tri_e1,
             geom.tri_e2, geom.sph_center, geom.sph_radius)]
         packet = packet_trace.packet_table_to(
-            packet_trace.build_packet_table(*host, leaf_skip_from=skip, wide=wide), dev)
+            packet_trace.build_packet_table(*host, leaf_skip_from=skip, wide=wide,
+                                            premerge=premerge, entry_k=entry_k), dev)
     z1 = torch.zeros(1, dtype=geom.tri_v0.dtype, device=dev)
     v0 = soa.from_rows(geom.tri_v0)
     e1 = soa.from_rows(geom.tri_e1)
@@ -82,8 +95,9 @@ def geom_soa_from_aos(geom, wide=32, dual=False) -> GeomSoA:
     center = soa.from_rows(geom.sph_center) if n_sph else V3(z1, z1.clone(), z1.clone())
     radius = geom.sph_radius if n_sph else torch.ones_like(z1)
     tri, sph = bk.pack_soups(v0, e1, e2, center, radius, n_tris, n_sph)
-    return GeomSoA(v0, e1, e2, center, radius, tri, sph, packet,
-                   dual=bool(dual) and packet is not None)
+    table = packet is not None
+    return GeomSoA(v0, e1, e2, center, radius, tri, sph, packet, dual=bool(dual) and table,
+                   two_phase=bool(two_phase) and table, packet_sort=bool(packet_sort) or not table)
 
 
 class HitSoA(NamedTuple):
@@ -159,18 +173,21 @@ def _table_n_tris(static):
 
 
 def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
-                     sort_rays=True):
+                     sort_rays=True, sort_hint=None):
     """Closest hit within [tnear, tfar): (HitSoA, unnormalized geometric
     normal V3), both backends. tfar is a scalar or an (N,) tensor; a lane
     with tfar <= tnear (a retired one) runs no test and comes back a
     miss. A miss has prim -1 (t is BIG from the brute-force kernel, tfar
     from the walk). sort_rays=False skips the packet backend's
-    per-dispatch morton/octant sort."""
+    per-dispatch morton/octant sort (callers whose lanes are sorted
+    already: the pool-sorted wavefront); sort_hint is _morton_keys'
+    hint. The brute-force backend reads neither."""
     if static.use_brute_force:
         return intersect_brute_soa(static, g, org, d, tnear, tfar)
     t, prim, u, v, gn = packet_trace.intersect_packet(
         g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static),
-        sort_rays=sort_rays, dual=g.dual)
+        sort_rays=sort_rays and g.packet_sort, dual=g.dual, two_phase=g.two_phase,
+        sort_hint=sort_hint)
     hit = HitSoA(t, prim, u, v)
     if _sph_outside(static):
         hit, gn = _merge_spheres_closest(static, g, org, d, tnear, hit, gn)
@@ -182,7 +199,8 @@ def occluded_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
     if static.use_brute_force:
         return occluded_brute_soa(static, g, org, d, tnear, tfar)
     occ = packet_trace.occluded_packet(
-        g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static), dual=g.dual)
+        g.packet, org, d, tnear, tfar, n_tris=_table_n_tris(static), sort_rays=g.packet_sort,
+        dual=g.dual, two_phase=g.two_phase)
     if _sph_outside(static):
         _, sh = bk._sphere_test_rows(g.sph_soup, static.n_spheres, org, d, tnear, tfar)
         occ = occ | sh.any(dim=0)

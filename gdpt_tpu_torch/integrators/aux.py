@@ -23,15 +23,16 @@ AUX_KINDS = ("depth", "shading_normal", "mean_curvature", "ray_differential",
              "mipmap_level")
 
 
-def render_aux(scene: Scene, kind: str, packet_wide=32, packet_dual=False):
+def render_aux(scene: Scene, kind: str, packet_wide=32, packet_dual=False, **cast):
     """The AOV image of `kind` for a scene on its device: an (h, w, 3)
-    float32 numpy array. packet_wide and packet_dual pick a BVH scene's
-    table and walk, as in path_soa.render_soa."""
+    float32 numpy array. packet_wide, packet_dual and **cast (two_phase,
+    packet_sort, premerge, entry_k) pick a BVH scene's table and walk, as
+    in path_soa.render_soa."""
     if kind not in AUX_KINDS:
         raise ValueError(f"unknown aux integrator {kind}")
     static = scene.static
     w, h = static.width, static.height
-    sc = ps.scene_soa_from_aos(scene, packet_wide, packet_dual)
+    sc = ps.scene_soa_from_aos(scene, packet_wide, packet_dual, **cast)
     camera = scene.device.camera
     device = camera.sample_to_cam.device
     ys, xs = np.mgrid[0:h, 0:w]

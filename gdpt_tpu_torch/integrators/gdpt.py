@@ -327,7 +327,7 @@ def trace_gdpt(scene, static, casts, x, y, key) -> GdptSample:
 
 def render_gradpath(scene: Scene, spp=None, seed=0, return_aux=False, start_sample=0,
                     init_acc=None, on_chunk=None, device=None, return_stats=False,
-                    packet_wide=32, packet_dual=False):
+                    packet_wide=32, packet_dual=False, **cast):
     """GDPT render driver on `device` (CUDA unless "cpu" is given):
     accumulate primal + 4 gradient buffers, then screened-Poisson
     reconstruct (reference: src/render.cpp:257-370). Returns the (h, w, 3)
@@ -341,7 +341,9 @@ def render_gradpath(scene: Scene, spp=None, seed=0, return_aux=False, start_samp
     float64 on the host, as the reference's driver sums them.
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (6, n_pix, 3) float64 sample-sum array); on_chunk(acc, done)
-    fires after every pass."""
+    fires after every pass. packet_wide, packet_dual and **cast
+    (two_phase, packet_sort, premerge, entry_k) pick a BVH scene's table
+    and walk (path_soa.scene_soa_from_aos)."""
     from gdpt_tpu_torch.integrators import path_soa
     from gdpt_tpu_torch.integrators.gdpt_soa import _gdpt_finish
 
@@ -351,7 +353,7 @@ def render_gradpath(scene: Scene, spp=None, seed=0, return_aux=False, start_samp
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n_pix = w * h
-    casts = isect.Casts(path_soa.scene_soa_from_aos(scene, packet_wide, packet_dual).geom)
+    casts = isect.Casts(path_soa.scene_soa_from_aos(scene, packet_wide, packet_dual, **cast).geom)
     pix = torch.arange(n_pix, dtype=torch.int64, device=device)
     xs = (pix % w).to(REAL)
     ys = (pix // w).to(REAL)

@@ -16,12 +16,12 @@ component-tensor op. Cost per bounce is about 5x a plain path bounce
 primaries ride one 5n-lane cast and the probe/replay rays one 8n-lane
 cast.
 
-Ported: the banded sample loop (brute-force scenes, and checkpointed
-renders: ``on_chunk``, ``init_acc``, ``start_sample``) and the wavefront
-lane pool (BVH scenes) behind ``render_gradpath_soa``. Not yet, and
-raising NotImplementedError when asked for: the pool-sorted wavefront
-and sharding (``mesh=``); see ROADMAP.md. Its per-ray oracle is
-integrators/gdpt.py (trace_gdpt, render_gradpath).
+Ported: the banded sample loop (brute-force scenes, checkpointed
+renders: ``on_chunk``, ``init_acc``, ``start_sample``, and sharded
+renders: ``mesh=``) and the wavefront lane pool (BVH scenes), which can
+keep its lanes morton-sorted (``pool_sort=True``), behind
+``render_gradpath_soa``. Its per-ray oracle is integrators/gdpt.py
+(trace_gdpt, render_gradpath).
 
 Every tensor is made on the device the scene lives on.
 """
@@ -39,10 +39,14 @@ from gdpt_tpu_torch.core.soa import V3
 from gdpt_tpu_torch.integrators import path_soa as ps
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import poisson
+from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene import model as M
 from gdpt_tpu_torch.scene.build import Scene
 
 GDPT_MAX_DEPTH = 32  # reference: small_gdpt.cpp:15
+# The banded loop takes a BVH image of more pixels than this in equal
+# bands (the reference's PIX_CAP).
+PIX_CAP = 1 << 17
 
 # Offset order: x-1, x+1, y-1, y+1 (image space, y down).
 _OFFSETS = ((-1.0, 0.0), (1.0, 0.0), (0.0, -1.0), (0.0, 1.0))
@@ -149,11 +153,14 @@ def _init_gdpt_lanes(static, camera, sc: ps.SceneSoA, pixel, sample, seed, live)
     )
 
 
-def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s):
+def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s, pool_sort=False):
     """One shared GDPT bounce over per-lane state (lanes may sit at
     different depths: bounce/pixel/sample are per-lane, so both the
     banded sample loop and the wavefront pool run this same body).
-    s carries the scalar ray counter in s["rays"]."""
+    s carries the scalar ray counter in s["rays"]. pool_sort: the pool
+    is morton-sorted (_gdpt_pool_sort), so the base extension cast and
+    the 8n probe/replay cast (eight pool-ordered groups) skip their own
+    sort; the NEE shadow cast keeps it."""
     md = static.options.max_depth
     n_iters = GDPT_MAX_DEPTH if md < 0 else min(md, GDPT_MAX_DEPTH)
     n = s["prob"].shape[0]
@@ -255,7 +262,8 @@ def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s):
     survive = (~do_rr) | (u_rr <= rr_prob)
     # Inactive lanes become dead rays (tfar < tnear).
     nxt_hit, nxt_gn = trs.intersect_soa_gn(static, sc.geom, base_v.position, samp.dir_out,
-                                           eps_isect, torch.where(extend, BIG, -1.0))
+                                           eps_isect, torch.where(extend, BIG, -1.0),
+                                           sort_rays=not pool_sort)
     nxt = ps.shade_hit(static, sc, base_v.position, samp.dir_out, nxt_hit, nxt_gn)
     nxt_ok = nxt.valid > 0
     ok_base = (samp.valid > 0) & (pdf_base > 0) & nxt_ok
@@ -323,7 +331,8 @@ def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s):
     borg = _cat3([off["v"].position for off in s["offs"]] * 2)
     bdir = _cat3([a["dir_rec"] for a in off_a] + [a["o_samp"].dir_out for a in off_a])
     btfar = torch.cat([a["probe_tfar"] for a in off_a] + [a["rep_tfar"] for a in off_a])
-    bhit, bgn = trs.intersect_soa_gn(static, sc.geom, borg, bdir, eps_isect, btfar)
+    bhit, bgn = trs.intersect_soa_gn(static, sc.geom, borg, bdir, eps_isect, btfar,
+                                     sort_rays=not pool_sort)
 
     def part(i):
         sl = slice(i * n, (i + 1) * n)
@@ -440,7 +449,7 @@ def trace_gdpt_soa(static, camera, sc: ps.SceneSoA, xs, ys, ray_idx, seed, sampl
             state["rays"])
 
 
-def _gdpt_wavefront_body(static, camera, sc, used, st):
+def _gdpt_wavefront_body(static, camera, sc, used, st, pool_sort=False):
     """One wavefront iteration: harvest finished lanes into the per-pixel
     accumulator, refill them with the next (pixel, sample) work items
     (batched 5n-lane primary), then run the shared bounce.
@@ -494,9 +503,30 @@ def _gdpt_wavefront_body(static, camera, sc, used, st):
     # refill), i.e. how much of the full-width bounce cost is useful
     # work.
     occ = (lane["active"] > 0).to(REAL).mean()
-    lane = _gdpt_bounce(static, sc, used, st["seed"], lane)
+    lane = _gdpt_bounce(static, sc, used, st["seed"], lane, pool_sort)
     return dict(st, lane=lane, pending=pending2, next_item=next_item,
                 occ_sum=st["occ_sum"] + occ, iters=st["iters"] + 1)
+
+
+def _sort_lane_pool(st, tab, org: V3, d: V3, live):
+    """Morton-permute a lane pool of st["lane"] and st["pending"] by the
+    rays (org, d) (path_soa.pool_perm): pending permutes with the lanes
+    (it is per-lane bookkeeping), the lane dict's scalar ray count stays.
+    Shared by volpath_soa."""
+    perm = ps.pool_perm(tab, org, d, live)
+
+    def take(a):
+        return a[perm]
+
+    lane = {k: (v if k == "rays" else soa.tree_map(take, v)) for k, v in st["lane"].items()}
+    return dict(st, lane=lane, pending=take(st["pending"]))
+
+
+def _gdpt_pool_sort(st, tab):
+    """Morton-permute the 5-path lane pool: the key is the base vertex's
+    position and the incoming direction's octant."""
+    s = st["lane"]
+    return _sort_lane_pool(st, tab, s["base_v"].position, s["base_d"], s["active"] > 0)
 
 
 def _gdpt_shrink_pool(st, new_pool, keep):
@@ -539,10 +569,12 @@ def _gdpt_wavefront_state(static, camera, sc, total, seed, pool):
 
 
 def _gdpt_wavefront_accum(static, camera, sc, spp, seed, n_pix, k_iters=6,
-                          pool=1 << 17, compact=True):
+                          pool=1 << 17, compact=True, pool_sort=False):
     """Run the GDPT wavefront to completion; returns (acc (6,3,n) f64
     sample sums, total_rays). pool: lane-pool width asked for (cut to the
-    work, in whole dispatch quanta); compact: tail compaction. The
+    work, in whole dispatch quanta); compact: tail compaction; pool_sort:
+    morton-sort the pool before every chunk of k_iters iterations (BVH
+    scenes only; _gdpt_pool_sort). The
     iteration count and mean occupancy of the last run are left in
     _gdpt_wavefront_accum.last_iters and .last_occupancy."""
     total = n_pix * spp
@@ -567,10 +599,13 @@ def _gdpt_wavefront_accum(static, camera, sc, spp, seed, n_pix, k_iters=6,
         host_acc[...] += st["acc"].cpu().numpy().astype(np.float64)
         st["acc"].zero_()
 
+    pool_sort = pool_sort and sc.geom.packet is not None
     cur_pool = pool
     while True:
+        if pool_sort:
+            st = _gdpt_pool_sort(st, sc.geom.packet)
         for _ in range(k_iters):
-            st = _gdpt_wavefront_body(static, camera, sc, used, st)
+            st = _gdpt_wavefront_body(static, camera, sc, used, st, pool_sort)
         ni = st["next_item"]
         if ni >= total:
             # Queue drained: count lanes still carrying work (live, or
@@ -613,8 +648,8 @@ def _gdpt_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
 
 def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
                         return_stats=False, wavefront=None, pool=1 << 17, compact=True,
-                        packet_wide=32, packet_dual=False, start_sample=0,
-                        init_acc=None, on_chunk=None, mesh=None):
+                        pool_sort=False, packet_wide=32, packet_dual=False, start_sample=0,
+                        init_acc=None, on_chunk=None, mesh=None, **cast):
     """SoA GDPT render on the scene's device: accumulate primal + 4
     gradient buffers, then screened-Poisson reconstruct (reference:
     src/render.cpp:257-370). Returns the (h, w, 3) float32 numpy
@@ -623,27 +658,34 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
 
     wavefront=None takes the wavefront lane pool for BVH scenes whose work
     queue fits (n_pix * spp < 2^32) and the banded sample loop otherwise;
-    True or False picks one. pool and compact are the wavefront's lane
-    count and tail compaction. packet_wide (16 or 32) is the width of a
-    BVH scene's packet table; packet_dual=True walks a 16-wide table with
-    the dual kernel K4 in place of K3 (with width 32 it raises
-    ValueError).
+    True or False picks one. pool, compact and pool_sort are the
+    wavefront's lane count, tail compaction and pool sort. packet_wide (16
+    or 32) is the width of a BVH scene's packet table; packet_dual=True
+    walks a 16-wide table with the dual kernel K4 in place of K3 (with
+    width 32 it raises ValueError); **cast (two_phase, packet_sort,
+    premerge, entry_k): see path_soa.scene_soa_from_aos.
 
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (6, 3, n) float64 sample sums: primal, brute-force primal and
     the four one-sided gradients, before the Poisson solve);
     on_chunk(acc, done) fires after every pass. Given any of them, the
-    render takes the banded loop (path_soa.banded_for_resume)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (sharding) is not ported yet; see ROADMAP.md")
-    wavefront = ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk)
+    render takes the banded loop (path_soa.banded_for_resume).
+
+    mesh: a parallel/sharding.Mesh. The banded loop then splits each
+    band's rays, padded as the reference pads them (every band to the
+    first band's width, then to whole 128-lane groups per device), over
+    the mesh's devices, and counts a band's rays as the reference does:
+    the rays its padded lanes traced, scaled by its share of real lanes.
+    wavefront=True raises ValueError."""
+    wavefront = ps.banded_for_mesh(
+        ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk), mesh)
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
-    sc = ps.scene_soa_from_aos(scene, packet_wide, packet_dual)
-    camera = scene.device.camera
-    device = camera.sample_to_cam.device
+    # A sharded render solves the Poisson equation on the mesh's first device.
+    device = scene.device.camera.sample_to_cam.device if mesh is None else mesh.devices[0]
+    seed = int(seed) & ps._M32
 
     if wavefront is None:
         # BVH scenes: the wavefront pool keeps the 5-path lockstep at
@@ -651,28 +693,38 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
         # full-width drain iterations per band-sample.
         wavefront = not static.use_brute_force and n * spp < 2 ** 32
     if wavefront:
-        acc, total_rays = _gdpt_wavefront_accum(static, camera, sc, spp, seed, n,
-                                                pool=pool, compact=compact)
+        sc = ps.scene_soa_from_aos(scene, packet_wide, packet_dual, **cast)
+        acc, total_rays = _gdpt_wavefront_accum(static, scene.device.camera, sc, spp, seed, n,
+                                                pool=pool, compact=compact, pool_sort=pool_sort)
         return _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux,
                             return_stats, device)
-    ys, xs = np.mgrid[0:h, 0:w]
-    xs_d = torch.as_tensor(xs.ravel(), dtype=REAL, device=device)
-    ys_d = torch.as_tensor(ys.ravel(), dtype=REAL, device=device)
-    ray_idx = torch.arange(n, dtype=torch.int64, device=device)
 
     # About 5x the rays of a plain path sample per GDPT sample; BVH
     # scenes take one sample per pass, as the reference does.
     batch = max(1, (1 << 23) // n) if static.use_brute_force else 1
     # The 5-path state is large: big BVH images go through in equal
     # bands of pixels, as in the reference.
-    pix_cap = 1 << 17
-    if static.use_brute_force or n <= pix_cap:
+    if static.use_brute_force or n <= PIX_CAP:
         bands = [(0, n)]
     else:
-        nb = -(-n // pix_cap)
+        nb = -(-n // PIX_CAP)
         band = -(-n // nb)
         bands = [(lo, min(n, lo + band)) for lo in range(0, n, band)]
+    ys, xs = np.mgrid[0:h, 0:w]
 
+    def view(scene_d):
+        return scene_d.device.camera, ps.scene_soa_from_aos(scene_d, packet_wide, packet_dual,
+                                                            **cast)
+
+    def run(v, xs_d, ys_d, ray_idx, done, k):
+        out, nrays = _gdpt_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
+        return [c for buf in out for c in buf], nrays
+
+    # Sharded, every band is padded to the first band's width, as the
+    # reference pads it.
+    band_pass = sharding.pass_fn(mesh, scene, (xs.ravel().astype(np.float32),
+                                               ys.ravel().astype(np.float32), np.arange(n)),
+                                 view, run, width=bands[0][1] - bands[0][0])
     acc = (np.zeros((6, 3, n), np.float64) if init_acc is None
            else np.asarray(init_acc, np.float64).copy())
     total_rays = 0.0
@@ -680,13 +732,15 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
     while done < spp:
         k = min(batch, spp - done)
         for lo, hi in bands:
-            out, nrays = _gdpt_pass(static, camera, sc, xs_d[lo:hi], ys_d[lo:hi],
-                                    ray_idx[lo:hi], int(seed) & ps._M32, done, k)
+            out, nrays = band_pass(lo, hi, done, k)
+            if mesh is not None:
+                # The reference counts a band's padded lanes' rays scaled
+                # by its share of real lanes.
+                nrays = nrays * (hi - lo) / sharding.padded(mesh, bands[0][1] - bands[0][0])
             packet_kernels.check_overflow()
-            for i, buf in enumerate(out):
-                for c in range(3):
-                    acc[i, c, lo:hi] += buf[c].cpu().numpy().astype(np.float64)
-            total_rays += float(nrays)
+            for j, buf in enumerate(out):
+                acc[j // 3, j % 3, lo:hi] += buf
+            total_rays += nrays
         done += k
         if on_chunk is not None:
             on_chunk(acc, done)

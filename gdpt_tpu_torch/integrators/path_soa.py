@@ -12,8 +12,9 @@ ops/materials_soa.py (image textures mip-filtered by the ray
 differentials' footprint), mesh and sphere area lights and constant or
 image envmaps; integrators/gdpt_soa.py builds the gradient-domain render
 on the same pieces; the banded loop resumes a checkpointed render
-(start_sample, init_acc, on_chunk). Not yet: the pool-sorted wavefront
-and sharding (see ROADMAP.md).
+(start_sample, init_acc, on_chunk) and runs with its rays sharded over
+a mesh of devices (mesh=, parallel/sharding.py). The wavefront can keep
+its lane pool morton-sorted (pool_sort=True, _pool_sort).
 
 Every tensor is made on the device the scene lives on.
 """
@@ -24,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from gdpt_tpu_torch.accel import packet_kernels
+from gdpt_tpu_torch.accel import packet_kernels, packet_trace
 from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import distributions as gdist
 from gdpt_tpu_torch.core import soa
@@ -32,6 +33,7 @@ from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL, asarray
 from gdpt_tpu_torch.core.soa import V3
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import textures_soa as tsoa
+from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene import textures as tex
 from gdpt_tpu_torch.scene.build import (LIGHT_ENVMAP, SHAPE_MESH, SHAPE_SPHERE, Scene,
                                         SceneMemo)
@@ -178,22 +180,28 @@ def supports_soa(scene: Scene) -> bool:
 _SOA_MEMO = SceneMemo()
 
 
-def scene_soa_from_aos(scene: Scene, wide=32, dual=False) -> SceneSoA:
+def scene_soa_from_aos(scene: Scene, wide=32, dual=False, two_phase=False, packet_sort=True,
+                       premerge=False, entry_k=packet_trace.ENTRY_K) -> SceneSoA:
     """The render's view of `scene`, built once per scene and table
-    width: the host-side prep (packet table, alias tables, footprint
+    build: the host-side prep (packet table, alias tables, footprint
     constants) is pure in these and takes seconds on a large scene.
-    wide: the packet table's supernode width, 16 or 32; dual: walk it
-    with the dual kernel K4 (16-wide only) instead of K3. The dual view
-    is the 16-wide view with its static flag set: the same tables."""
+    wide: the packet table's supernode width, 16 or 32; premerge and
+    entry_k: its build switches (packet_trace.build_packet_table). dual:
+    walk it with the dual kernel K4 (16-wide only) instead of K3;
+    two_phase: casts of 4,096 rays or more take the two-phase entry
+    traversal; packet_sort=False: no cast sorts its rays. The walk's
+    switches are static flags of the view over the same tables."""
     if dual and wide != 16:
         raise ValueError(f"packet_dual=True needs packet_wide=16, got {wide!r}")
-    sc = _SOA_MEMO.get(scene.device, wide, lambda: _scene_soa_from_aos(scene, wide))
-    if dual and sc.geom.packet is not None:
-        sc = sc._replace(geom=sc.geom._replace(dual=True))
+    build = (wide, bool(premerge), int(entry_k))
+    sc = _SOA_MEMO.get(scene.device, build, lambda: _scene_soa_from_aos(scene, *build))
+    if sc.geom.packet is not None and (dual or two_phase or not packet_sort):
+        sc = sc._replace(geom=sc.geom._replace(dual=bool(dual), two_phase=bool(two_phase),
+                                               packet_sort=bool(packet_sort)))
     return sc
 
 
-def _scene_soa_from_aos(scene: Scene, wide) -> SceneSoA:
+def _scene_soa_from_aos(scene: Scene, wide, premerge, entry_k) -> SceneSoA:
     dev = scene.device
     device = dev.geom.tri_v0.device
 
@@ -216,7 +224,7 @@ def _scene_soa_from_aos(scene: Scene, wide) -> SceneSoA:
     else:
         env_img3 = torch.zeros((1, 3), dtype=REAL, device=device)
     return SceneSoA(
-        geom=trs.geom_soa_from_aos(dev.geom, wide=wide),
+        geom=trs.geom_soa_from_aos(dev.geom, wide=wide, premerge=premerge, entry_k=entry_k),
         tri_n0=soa.from_rows(put(n0)),
         tri_n1=soa.from_rows(put(n1)),
         tri_n2=soa.from_rows(put(n2)),
@@ -767,7 +775,7 @@ _M32 = 0xFFFFFFFF
 LANE_QUANTUM = 1024
 
 
-def _wavefront_body(static, camera, sc, st):
+def _wavefront_body(static, camera, sc, st, pool_sort=False):
     """One wavefront iteration: regenerate dead lanes with the next
     (pixel, sample) work items, trace pending rays, collect emitter
     or envmap radiance with carried-pdf MIS, NEE, sample the next bounce, RR.
@@ -778,6 +786,10 @@ def _wavefront_body(static, camera, sc, st):
     slowest path. This is the wavefront analog of the reference's
     per-thread serial loop (src/render.cpp:82-117) — sample regeneration
     replaces tile scheduling.
+
+    pool_sort: render_soa_wavefront keeps the pool morton-sorted
+    (_pool_sort), so the extension cast skips its own sort; NEE's shadow
+    casts, whose directions differ, keep theirs.
 
     The work queue counts (pixel, sample) items in uint32 arithmetic
     carried in int64 (masked to 32 bits, as core/soa.py's RNG). The
@@ -833,7 +845,8 @@ def _wavefront_body(static, camera, sc, st):
     # --- trace pending rays (primary tnear = 0, bounce tnear = eps) ---
     tnear = torch.where(bounce == 0, 0.0, eps_isect)
     tfar = torch.where(alive, BIG, -1.0)
-    hit, gn_raw = trs.intersect_soa_gn(static, sc.geom, org, d, tnear, tfar)
+    hit, gn_raw = trs.intersect_soa_gn(static, sc.geom, org, d, tnear, tfar,
+                                       sort_rays=not pool_sort)
     v = shade_hit(static, sc, org, d, hit, gn_raw,
                   ray_radius=radius, ray_spread=spread)
     rays = st["rays"] + alive.to(REAL).sum()
@@ -950,6 +963,26 @@ _POOL_KEYS = ("org", "d", "tp", "pdf_prev", "eta_scale", "rr_prev",
               "alive")
 
 
+def pool_perm(tab, org: V3, d: V3, live):
+    """The permutation of a wavefront pool sort: a stable argsort of the
+    lanes' ray morton/octant keys, dead lanes keyed 2^30 (to the back).
+    Shared by the gradpath and volpath pools."""
+    keys = torch.where(live, packet_trace._morton_keys(tab, org, d), 2 ** 30)
+    return torch.argsort(keys, stable=True)
+
+
+def _pool_sort(st, tab):
+    """Morton/octant-permute the wavefront lane pool (pool_perm). A
+    lane's identity (pixel, sample) rides with its state, so the
+    estimate is unchanged; only which rays share a warp in the walk
+    changes."""
+    perm = pool_perm(tab, st["org"], st["d"], st["alive"] > 0)
+    out = dict(st)
+    for k in _POOL_KEYS:
+        out[k] = soa.tree_map(lambda a: a[perm], st[k])
+    return out
+
+
 def _compact_take_order(keep, new_pool):
     """Stable keep-first permutation, sliced to the new pool width."""
     return torch.argsort((~keep).to(torch.int8), stable=True)[:new_pool]
@@ -1031,16 +1064,19 @@ def _wavefront_state(n_pix, pool, total, seed, device):
 
 
 def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
-                         pool=None, k_iters=8, compact=True,
-                         packet_wide=32, packet_dual=False):
+                         pool=None, k_iters=8, compact=True, pool_sort=False,
+                         packet_wide=32, packet_dual=False, **cast):
     """Wavefront path render: fixed lane pool + sample regeneration.
 
     Produces the same estimate as the banded loop (identical RNG streams
     per (pixel, sample)); accumulation happens on the device in f32,
     drained into a host f64 buffer every 64 spp-equivalents. k_iters
     iterations run between host reads of the queue position; compact
-    turns the tail compaction on. packet_wide and packet_dual choose
-    the packet table's width and the walk (see scene_soa_from_aos). The
+    turns the tail compaction on; pool_sort=True morton-sorts the pool
+    before every chunk of k_iters iterations (_pool_sort; BVH scenes
+    only) and the extension casts then skip their own sort. packet_wide,
+    packet_dual and **cast (two_phase, packet_sort, premerge, entry_k)
+    choose the packet table and the walk (see scene_soa_from_aos). The
     iteration count and mean occupancy of the last render are left in
     render_soa_wavefront.last_iters and .last_occupancy.
     """
@@ -1055,9 +1091,10 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
         raise ValueError(
             f"wavefront work queue: n_pix*spp = {total} >= 2^32; "
             "use render_soa (banded loop) for renders this large")
-    sc = scene_soa_from_aos(scene, packet_wide, packet_dual)
+    sc = scene_soa_from_aos(scene, packet_wide, packet_dual, **cast)
     camera = scene.device.camera
     device = camera.sample_to_cam.device
+    pool_sort = pool_sort and sc.geom.packet is not None
 
     pool = _pool_width(total, pool)
     st = _wavefront_state(n_pix, pool, total, seed, device)
@@ -1079,8 +1116,10 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
 
     cur_pool = pool
     while True:
+        if pool_sort:
+            st = _pool_sort(st, sc.geom.packet)
         for _ in range(k_iters):
-            st = _wavefront_body(static, camera, sc, st)
+            st = _wavefront_body(static, camera, sc, st, pool_sort)
         ni = int(st["next_item"])
         if ni >= total:
             n_alive = int((st["alive"] > 0).sum())
@@ -1133,9 +1172,21 @@ def banded_for_resume(wavefront, start_sample, init_acc, on_chunk):
     return False
 
 
+def banded_for_mesh(wavefront, mesh):
+    """The `wavefront` choice of a renderer given a mesh: a sharded
+    render takes the banded loop, as the reference's always does (None
+    resolves to False; True raises ValueError)."""
+    if mesh is None:
+        return wavefront
+    if wavefront:
+        raise ValueError("mesh= (a sharded render) takes the banded loop; "
+                         "wavefront=True cannot shard")
+    return False
+
+
 def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None,
-               packet_wide=32, packet_dual=False, start_sample=0, init_acc=None,
-               on_chunk=None):
+               pool_sort=False, packet_wide=32, packet_dual=False, start_sample=0,
+               init_acc=None, on_chunk=None, mesh=None, **cast):
     """SoA render loop for the path integrator on the scene's device.
     Returns an (h, w, 3) float32 numpy image (and the traced ray count).
 
@@ -1143,20 +1194,31 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     work queue fits (n_pix * spp < 2^32) and the banded loop otherwise;
     True or False picks one. The banded loop runs passes of samples, each
     summed in f32 on the device and accumulated in float64 on the host.
-    packet_wide (16 or 32) is the width of a BVH scene's packet table;
-    packet_dual=True walks a 16-wide table with the dual kernel K4 in
-    place of K3 (with width 32 it raises ValueError).
+    pool_sort is the wavefront's (render_soa_wavefront). packet_wide (16
+    or 32) is the width of a BVH scene's packet table; packet_dual=True
+    walks a 16-wide table with the dual kernel K4 in place of K3 (with
+    width 32 it raises ValueError); **cast (two_phase, packet_sort,
+    premerge, entry_k) are the walk's and the table's other switches
+    (scene_soa_from_aos).
 
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires
     after every pass for checkpointing. Given any of them, the render
     takes the banded loop (banded_for_resume).
+
+    mesh: a parallel/sharding.Mesh. The banded loop then runs each pass
+    with its rays, padded to whole 128-lane groups per device (padded
+    lanes trace pixel 0 and count in the ray total, as the reference's
+    do), split over the mesh's devices, each with its own copy of the
+    scene; wavefront=True raises ValueError.
     """
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
-    wavefront = banded_for_resume(wavefront, start_sample, init_acc, on_chunk)
+    wavefront = banded_for_mesh(banded_for_resume(wavefront, start_sample, init_acc, on_chunk),
+                                mesh)
+    walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, **cast)
     if wavefront is None:
         # BVH scenes: the wavefront pool keeps every dispatch at ~full
         # occupancy (sample regeneration); the banded loop pays
@@ -1165,30 +1227,34 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
         wavefront = not static.use_brute_force and n * spp < 2 ** 32
     if wavefront:
         return render_soa_wavefront(scene, spp, seed=seed, return_stats=return_stats,
-                                    packet_wide=packet_wide, packet_dual=packet_dual)
-    sc = scene_soa_from_aos(scene, packet_wide, packet_dual)
-    camera = scene.device.camera
-    device = camera.sample_to_cam.device
+                                    pool_sort=pool_sort, **walk)
     ys, xs = np.mgrid[0:h, 0:w]
-    xs_d = torch.as_tensor(xs.ravel(), dtype=REAL, device=device)
-    ys_d = torch.as_tensor(ys.ravel(), dtype=REAL, device=device)
-    ray_idx = torch.arange(n, dtype=torch.int64, device=device)
-
+    seed = int(seed) & _M32
     # Brute scenes are throughput-bound: big sample batches per pass.
     # BVH scenes take one sample per pass, as the reference does.
     batch = max(1, (1 << 26) // n) if static.use_brute_force else 1
+
+    def view(scene_d):
+        return scene_d.device.camera, scene_soa_from_aos(scene_d, packet_wide, packet_dual,
+                                                         **cast)
+
+    def run(v, xs_d, ys_d, ray_idx, done, k):
+        return _soa_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
+
+    one_pass = sharding.pass_fn(mesh, scene, (xs.ravel().astype(np.float32),
+                                              ys.ravel().astype(np.float32), np.arange(n)),
+                                view, run)
     acc = (np.zeros((3, n), np.float64) if init_acc is None
            else np.asarray(init_acc, np.float64).copy())
     total_rays = 0.0
     done = int(start_sample)
     while done < spp:
         k = min(batch, spp - done)
-        out, nrays = _soa_pass(static, camera, sc, xs_d, ys_d, ray_idx,
-                               int(seed) & 0xFFFFFFFF, done, k)
+        out, nrays = one_pass(0, n, done, k)
         packet_kernels.check_overflow()
         for c in range(3):
-            acc[c] += out[c].cpu().numpy().astype(np.float64)
-        total_rays += float(nrays)
+            acc[c] += out[c]
+        total_rays += nrays
         done += k
         if on_chunk is not None:
             on_chunk(acc, done)

@@ -17,12 +17,18 @@ integrators/volpath.py, driven by render_samples.
 Brute-force scenes go through the banded loops, BVH
 scenes (above 128 primitives) through the packet table and the wavefront
 renderers; packet_wide and packet_dual choose the table's width and the
-walk: the solo kernel K3, or on a 16-wide table the dual kernel K4.
+walk: the solo kernel K3, or on a 16-wide table the dual kernel K4. The
+reference's other GDPT_* ray-casting switches are arguments here too:
+two_phase (the two-phase entry traversal), packet_sort (each cast's ray
+sort), premerge and entry_k (the table's build) and pool_sort (the
+wavefront pools' morton sort). Sharded renders over a mesh of devices
+are parallel/sharding.py's.
 """
 
 import numpy as np
 import torch
 
+from gdpt_tpu_torch.accel.packet_trace import ENTRY_K
 from gdpt_tpu_torch.core import rng
 from gdpt_tpu_torch.core.dtypes import REAL, resolve_device
 from gdpt_tpu_torch.integrators import aux
@@ -33,26 +39,28 @@ MAX_RAYS_PER_PASS = 1 << 20
 
 
 def _render_pass(scene: Scene, trace, casts, xs, ys, pix_idx, sample0, n_samples, spp,
-                 seed):
+                 seed, acc=None):
     """n_samples samples of every pixel as one batch of lanes (sample
     major), each lane's key folded from PRNGKey(seed) by
     pix_idx * spp + sample, as gdpt_tpu/integrators/render.py:_render_pass
     keys its fori_loop's samples; the samples are summed in f32 in sample
-    order, as that loop sums them."""
+    order onto `acc` (zeros if None), as that loop sums them."""
     n_pix = xs.shape[0]
     sample = sample0 + torch.arange(n_samples, dtype=torch.int64, device=xs.device)
     ray_idx = (pix_idx[None, :] * spp + sample[:, None]).reshape(-1)
     key = rng.ray_key(rng.prng_key(seed, ray_idx.shape[0], xs.device), ray_idx)
     out = trace(scene.device, scene.static, casts, xs.repeat(n_samples),
                 ys.repeat(n_samples), key).reshape(n_samples, n_pix, 3)
-    acc = torch.zeros((n_pix, 3), dtype=REAL, device=xs.device)
+    if acc is None:
+        acc = torch.zeros((n_pix, 3), dtype=REAL, device=xs.device)
     for s in range(n_samples):
         acc = acc + out[s]
     return acc
 
 
 def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, init_acc=None,
-                   on_chunk=None, return_stats=False, packet_wide=32, packet_dual=False):
+                   on_chunk=None, return_stats=False, packet_wide=32, packet_dual=False,
+                   **cast):
     """Monte Carlo accumulation of a per-ray integrator over the scene on
     its device; returns an (h, w, 3) float32 numpy image (non-finite
     pixels 0), with return_stats also the live rays cast.
@@ -63,7 +71,9 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
     on the device and the passes accumulated in float64 on the host.
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (n_pix, 3) float64 sample-sum array); on_chunk(acc, done)
-    fires after every pass."""
+    fires after every pass. packet_wide, packet_dual and **cast
+    (two_phase, packet_sort, premerge, entry_k) pick a BVH scene's table
+    and walk (path_soa.scene_soa_from_aos)."""
     from gdpt_tpu_torch.integrators import path_soa
     from gdpt_tpu_torch.ops import intersect as isect
 
@@ -72,7 +82,7 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
     spp = spp if spp is not None else static.options.samples_per_pixel
     n_pix = w * h
     device = scene.device.camera.sample_to_cam.device
-    casts = isect.Casts(path_soa.scene_soa_from_aos(scene, packet_wide, packet_dual).geom)
+    casts = isect.Casts(path_soa.scene_soa_from_aos(scene, packet_wide, packet_dual, **cast).geom)
     pix_idx = torch.arange(n_pix, dtype=torch.int64, device=device)
     xs = (pix_idx % w).to(REAL)
     ys = (pix_idx // w).to(REAL)
@@ -98,15 +108,24 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
 
 
 def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
-           packet_wide=32, packet_dual=False, return_aux=False):
+           packet_wide=32, packet_dual=False, two_phase=False, packet_sort=True,
+           premerge=False, entry_k=ENTRY_K, pool_sort=False, return_aux=False):
     """Render `scene` on `device`; returns an (h, w, 3) float32 numpy
     image (for "gradpath" the reconstruction), with return_aux ("gradpath"
     only) also the dict of its primal, primal_bf, gx and gy images, and
-    with return_stats also the number of rays traced. packet_dual=True
-    needs packet_wide=16 and raises ValueError otherwise."""
+    with return_stats also the number of rays traced.
+
+    The ray-casting switches of a BVH scene, each the argument for one of
+    the reference's GDPT_* environment variables and off by default as
+    there: packet_wide (16 or 32) and packet_dual (K4 on a 16-wide table;
+    with width 32 it raises ValueError), two_phase (casts of 4,096 rays or
+    more take the two-phase entry traversal), packet_sort=False (no cast
+    sorts its rays), premerge and entry_k (the packet table's build) and
+    pool_sort (the SoA wavefronts keep their lane pools morton-sorted)."""
     device = resolve_device(device)
     integrator = scene.static.options.integrator
-    walk = dict(packet_wide=packet_wide, packet_dual=packet_dual)
+    walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, two_phase=two_phase,
+                packet_sort=packet_sort, premerge=premerge, entry_k=entry_k)
     if return_aux and integrator != "gradpath":
         raise ValueError(f"return_aux: integrator {integrator!r} has no auxiliary buffers")
     if integrator in aux.AUX_KINDS:
@@ -121,7 +140,7 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
             return render_samples(scene_to(scene, device), path.trace_path, spp=spp,
                                   seed=seed, return_stats=return_stats, **walk)
         return path_soa.render_soa(scene_to(scene, device), spp=spp, seed=seed,
-                                   return_stats=return_stats, **walk)
+                                   return_stats=return_stats, pool_sort=pool_sort, **walk)
     if integrator == "gradpath":
         from gdpt_tpu_torch.integrators import gdpt_soa
 
@@ -131,8 +150,8 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
             return gdpt.render_gradpath(scene, spp=spp, seed=seed, return_aux=return_aux,
                                         device=device, return_stats=return_stats, **walk)
         return gdpt_soa.render_gradpath_soa(scene_to(scene, device), spp=spp, seed=seed,
-                                            return_aux=return_aux,
-                                            return_stats=return_stats, **walk)
+                                            return_aux=return_aux, return_stats=return_stats,
+                                            pool_sort=pool_sort, **walk)
     if integrator == "volpath":
         from gdpt_tpu_torch.integrators import volpath_soa
 
@@ -142,6 +161,7 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
             return render_samples(scene_to(scene, device), volpath.trace_fn(scene.static),
                                   spp=spp, seed=seed, return_stats=return_stats, **walk)
         return volpath_soa.render_volpath_soa(scene_to(scene, device), spp=spp, seed=seed,
-                                              return_stats=return_stats, **walk)
+                                              return_stats=return_stats, pool_sort=pool_sort,
+                                              **walk)
     raise NotImplementedError(
         f"integrator {integrator!r} is not ported yet; see ROADMAP.md")

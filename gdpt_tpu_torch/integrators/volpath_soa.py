@@ -19,8 +19,10 @@ of a pass in lockstep), BVH scenes the wavefront lane pool
 (`_vol_wavefront_accum`); both call the one bounce, `_vol_bounce`, whose
 RNG streams depend only on (pixel, sample, bounce, slot), so the two
 drivers give the same estimate; a checkpointed render resumes on the
-banded loop. Not ported: the rungs 1-5, the pool sort and sharding (see
-ROADMAP.md).
+banded loop, and a sharded one (mesh=, parallel/sharding.py) runs the
+banded loop with its rays split over the mesh's devices. The wavefront
+can keep its pool morton-sorted (pool_sort=True, _vol_pool_sort). The
+rungs 1-5 are integrators/volpath.py.
 """
 
 import numpy as np
@@ -35,6 +37,7 @@ from gdpt_tpu_torch.integrators import gdpt_soa as gs
 from gdpt_tpu_torch.integrators import path_soa as ps
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import media_soa as meds
+from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene.build import Scene
 
 HARD_CAP = 64
@@ -93,12 +96,14 @@ def _loop_cap(static):
     return HARD_CAP if md < 0 else min(md, HARD_CAP)
 
 
-def _vol_bounce(static, sc: ps.SceneSoA, media, seed, s):
+def _vol_bounce(static, sc: ps.SceneSoA, media, seed, s, pool_sort=False):
     """One volumetric bounce over a lane dict with per-lane bounce
     indices (s["it"]) and per-lane (pixel, sample) RNG identity, shared
     by the banded loop (lanes in lockstep) and the wavefront pool (lanes
     at mixed depths) (reference hot loop: src/vol_path_tracing.h:
-    1309-1614). seed is a Python int; s["active"] a bool mask."""
+    1309-1614). seed is a Python int; s["active"] a bool mask. pool_sort:
+    the pool is morton-sorted (_vol_pool_sort), so the main cast skips
+    its own sort."""
     used = static.used_material_kinds
     max_depth = static.options.max_depth
     max_null = static.options.max_null_collisions
@@ -309,7 +314,7 @@ def _vol_bounce(static, sc: ps.SceneSoA, media, seed, s):
     # Inactive lanes become dead rays (tfar < tnear): the casts skip them.
     org, d, medium = s["org"], s["d"], s["medium"]
     hit, gn_raw = trs.intersect_soa_gn(static, sc.geom, org, d, 0.0,
-                                       torch.where(active, BIG, -1.0))
+                                       torch.where(active, BIG, -1.0), sort_rays=not pool_sort)
     v = ps.shade_hit(static, sc, org, d, hit, gn_raw)
     v_ok = v.valid > 0
     in_medium = medium >= 0
@@ -489,7 +494,7 @@ def trace_volpath_soa(static, camera, sc: ps.SceneSoA, media, ray_idx, seed, sam
     return state["radiance"], state["rays"]
 
 
-def _vol_wavefront_body(static, camera, sc, media, st):
+def _vol_wavefront_body(static, camera, sc, media, st, pool_sort=False):
     """One wavefront iteration: harvest finished lanes into the
     per-pixel accumulator, refill them with the next (pixel, sample) work
     items, then run the shared volumetric bounce.
@@ -532,10 +537,17 @@ def _vol_wavefront_body(static, camera, sc, media, st):
         next_item = next_item + n_issue
     else:
         lane, pending2 = dict(s), pah
-    lane = _vol_bounce(static, sc, media, st["seed"], lane)
+    lane = _vol_bounce(static, sc, media, st["seed"], lane, pool_sort)
     return dict(st, lane=lane, pending=pending2, next_item=next_item,
                 occ_sum=st["occ_sum"] + lane["active"].to(REAL).mean(),
                 iters=st["iters"] + 1)
+
+
+def _vol_pool_sort(st, tab):
+    """Morton-permute the volumetric lane pool by its rays (see
+    gdpt_soa._sort_lane_pool)."""
+    s = st["lane"]
+    return gs._sort_lane_pool(st, tab, s["org"], s["d"], s["active"])
 
 
 def _vol_wavefront_state(static, camera, total, seed, pool):
@@ -562,13 +574,14 @@ def _vol_wavefront_state(static, camera, total, seed, pool):
 
 
 def _vol_wavefront_accum(static, camera, sc, media, spp, seed, n_pix, k_iters=6,
-                         pool=1 << 17, compact=True):
+                         pool=1 << 17, compact=True, pool_sort=False):
     """Run the volumetric wavefront to completion; returns (acc (3,
     n_pix) f64 sample sums, total rays). pool: the lane-pool width asked
     for (cut to the work, in whole dispatch quanta); compact: tail
-    compaction. The iteration count, mean occupancy and last pool width
-    of the last run are left in _vol_wavefront_accum.last_iters,
-    .last_occupancy and .last_pool."""
+    compaction; pool_sort: morton-sort the pool before every chunk of
+    k_iters iterations (BVH scenes only; _vol_pool_sort). The iteration
+    count, mean occupancy and last pool width of the last run are left
+    in _vol_wavefront_accum.last_iters, .last_occupancy and .last_pool."""
     total = n_pix * spp
     if total >= 2 ** 32:
         raise ValueError(
@@ -588,10 +601,13 @@ def _vol_wavefront_accum(static, camera, sc, media, spp, seed, n_pix, k_iters=6,
         host_acc[...] += st["acc"].cpu().numpy().astype(np.float64)
         st["acc"].zero_()
 
+    pool_sort = pool_sort and sc.geom.packet is not None
     cur_pool = pool
     while True:
+        if pool_sort:
+            st = _vol_pool_sort(st, sc.geom.packet)
         for _ in range(k_iters):
-            st = _vol_wavefront_body(static, camera, sc, media, st)
+            st = _vol_wavefront_body(static, camera, sc, media, st, pool_sort)
         ni = st["next_item"]
         if ni >= total:
             # Queue drained (see gdpt_soa._gdpt_shrink_pool): keep live
@@ -634,37 +650,44 @@ def _vol_pass(static, camera, sc, media, ray_idx, seed, sample0, n_samples):
 
 
 def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None,
-                       pool=1 << 17, compact=True, packet_wide=32, packet_dual=False,
-                       start_sample=0, init_acc=None, on_chunk=None, mesh=None):
+                       pool=1 << 17, compact=True, pool_sort=False, packet_wide=32,
+                       packet_dual=False, start_sample=0, init_acc=None, on_chunk=None,
+                       mesh=None, **cast):
     """SoA volumetric render on the scene's device. Returns an (h, w, 3)
     float32 numpy image (and, with return_stats, the traced ray count);
     non-finite pixels become 0.
 
     wavefront=None takes the wavefront lane pool for BVH scenes whose
     work queue fits (n_pix * spp < 2^32) and the banded sample loop
-    otherwise; True or False picks one. pool and compact are the
-    wavefront's lane count and tail compaction. packet_wide (16 or 32)
-    is the width of a BVH scene's packet table; packet_dual=True walks a
-    16-wide table with the dual kernel K4 in place of K3 (with width 32
-    it raises ValueError). The banded loop sums passes of samples in f32
-    on the device and accumulates them in float64 on the host.
+    otherwise; True or False picks one. pool, compact and pool_sort are
+    the wavefront's lane count, tail compaction and pool sort.
+    packet_wide (16 or 32) is the width of a BVH scene's packet table;
+    packet_dual=True walks a 16-wide table with the dual kernel K4 in
+    place of K3 (with width 32 it raises ValueError); **cast (two_phase,
+    packet_sort, premerge, entry_k): see path_soa.scene_soa_from_aos. The
+    banded loop sums passes of samples in f32 on the device and
+    accumulates them in float64 on the host.
 
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires
     after every pass. Given any of them, the render takes the banded loop
-    (path_soa.banded_for_resume)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (sharding) is not ported yet; see ROADMAP.md")
-    wavefront = ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk)
+    (path_soa.banded_for_resume).
+
+    mesh: a parallel/sharding.Mesh. The banded loop then splits each
+    pass's rays, padded to whole 128-lane groups per device (padded lanes
+    trace pixel 0 and count in the ray total, as the reference's do),
+    over the mesh's devices; wavefront=True raises ValueError."""
+    wavefront = ps.banded_for_mesh(
+        ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk), mesh)
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
-    sc = ps.scene_soa_from_aos(scene, packet_wide, packet_dual)
-    media = meds.media_soa(scene.device.media)
-    camera = scene.device.camera
-    device = camera.sample_to_cam.device
     seed = int(seed) & ps._M32
+
+    def views(scene_d):
+        return (ps.scene_soa_from_aos(scene_d, packet_wide, packet_dual, **cast),
+                meds.media_soa(scene_d.device.media))
 
     if wavefront is None:
         # BVH scenes: the pool keeps the null-collision loop and the
@@ -672,10 +695,15 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
         # instead of paying full-width drain iterations.
         wavefront = not static.use_brute_force and n * spp < 2 ** 32
     if wavefront:
-        acc, total_rays = _vol_wavefront_accum(static, camera, sc, media, spp, seed, n,
-                                               pool=pool, compact=compact)
+        acc, total_rays = _vol_wavefront_accum(static, scene.device.camera, *views(scene), spp,
+                                               seed, n, pool=pool, compact=compact,
+                                               pool_sort=pool_sort)
     else:
-        ray_idx = torch.arange(n, dtype=torch.int64, device=device)
+        def run(v, ray_idx, done, k):
+            return _vol_pass(static, *v, ray_idx, seed, done, k)
+
+        one_pass = sharding.pass_fn(mesh, scene, (np.arange(n),),
+                                    lambda s: (s.device.camera, *views(s)), run)
         batch = max(1, (1 << 24) // n) if static.use_brute_force else 1
         acc = (np.zeros((3, n), np.float64) if init_acc is None
                else np.asarray(init_acc, np.float64).copy())
@@ -683,11 +711,11 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
         done = int(start_sample)
         while done < spp:
             k = min(batch, spp - done)
-            out, nrays = _vol_pass(static, camera, sc, media, ray_idx, seed, done, k)
+            out, nrays = one_pass(0, n, done, k)
             packet_kernels.check_overflow()
             for c in range(3):
-                acc[c] += out[c].cpu().numpy().astype(np.float64)
-            total_rays += float(nrays)
+                acc[c] += out[c]
+            total_rays += nrays
             done += k
             if on_chunk is not None:
                 on_chunk(acc, done)

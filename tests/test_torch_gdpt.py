@@ -215,8 +215,13 @@ def test_what_is_not_ported_raises(what):
         with pytest.raises(ValueError, match="2\\^32"):
             tgdpt.render_gradpath_soa(scene, spp=2 ** 24, wavefront=True)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgdpt.render_gradpath_soa(scene, mesh=object())
+        # Sharding raised NotImplementedError before it was ported
+        # (tests/test_torch_sharding.py holds it to the reference); a
+        # sharded render takes the banded loop, so wavefront=True raises.
+        from gdpt_tpu_torch.parallel import sharding
+
+        with pytest.raises(ValueError, match="banded"):
+            tgdpt.render_gradpath_soa(scene, mesh=sharding.make_mesh(["cpu"]), wavefront=True)
 
 
 @pytest.mark.parametrize("what", ["on_chunk", "init_acc", "start_sample", "integrator"])

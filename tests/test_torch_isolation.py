@@ -60,7 +60,7 @@ def test_slice_modules_are_covered():
                    "utils/profiling.py", "utils/host_parallel.py", "core/rng.py",
                    "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
                    "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
-                   "integrators/path.py", "integrators/gdpt.py"):
+                   "integrators/path.py", "integrators/gdpt.py", "parallel/sharding.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
@@ -73,13 +73,15 @@ NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.
                "cli.py", "integrators/aux.py", "utils/checkpoint.py", "core/rng.py",
                "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
                "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
-               "integrators/path.py", "integrators/gdpt.py"]
+               "integrators/path.py", "integrators/gdpt.py", "accel/packet_trace.py",
+               "integrators/path_soa.py", "integrators/volpath_soa.py", "parallel/sharding.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_gradpath_modules_read_no_environment_variable(module):
-    """The reference picks its table width, dual walk, pool and wavefront
-    through GDPT_* environment variables; the port takes arguments."""
+    """The reference picks its table width and build, dual and two-phase
+    walks, ray sorts, pool, pool sort and wavefront through GDPT_*
+    environment variables; the port takes arguments."""
     tree = ast.parse((ROOT / "gdpt_tpu_torch" / module).read_text())
     for node in ast.walk(tree):
         assert not (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")), \

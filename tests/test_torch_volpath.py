@@ -183,10 +183,12 @@ def test_carried_scene_is_the_port_scene(kind):
 @pytest.mark.parametrize("what", ["mesh", "queue", "version 1", "version 2", "version 3",
                                   "version 4", "version 5"])
 def test_what_is_not_ported_raises(what):
-    """Sharding and an oversized wavefront queue raise. Versions 1-5, which
-    raised NotImplementedError before the per-ray rungs were ported, now
-    render (tests/test_torch_volpath_rungs*.py hold them to the
-    reference)."""
+    """An oversized wavefront queue raises, and so does a sharded render
+    asked for the wavefront (sharding, which raised NotImplementedError
+    before it was ported, takes the banded loop; tests/test_torch_sharding.py
+    holds it to the reference). Versions 1-5, which raised
+    NotImplementedError before the per-ray rungs were ported, now render
+    (tests/test_torch_volpath_rungs*.py hold them to the reference)."""
     scene = port_scene("homog")
     if what.startswith("version"):
         scene = port_scene("homog", version=int(what[-1]), width=6, height=6, spp=1)
@@ -196,8 +198,10 @@ def test_what_is_not_ported_raises(what):
         with pytest.raises(ValueError, match="2\\^32"):
             tvol.render_volpath_soa(scene, spp=2 ** 24, wavefront=True)
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tvol.render_volpath_soa(scene, mesh=object())
+        from gdpt_tpu_torch.parallel import sharding
+
+        with pytest.raises(ValueError, match="banded"):
+            tvol.render_volpath_soa(scene, mesh=sharding.make_mesh(["cpu"]), wavefront=True)
 
 
 @pytest.mark.parametrize("what", ["on_chunk", "init_acc", "start_sample"])
