@@ -229,7 +229,26 @@ Phases, each fatal on failure:
      depth 6, K1) and render_samples_sharded with path.trace_path on the
      cbox (4 spp), each equal to its unsharded banded render bit for bit
      with its ray count (no lane padded at 512x512); a 30x30 sharded
-     render (124 padded lanes) on cuda against the CPU at the gate.
+     render (124 padded lanes) on cuda against the CPU at the gate;
+ 43. the reference's XLA walks in plain PyTorch on phase 7's tables and
+     phase 8's rays (262,144 bounce rays closest, 262,144 shadow rays any
+     hit, 65,536 camera rays closest): the packed walk over bvh_nodes48,
+     the per-lane walk over the BVH arrays, the super16 walk (its table
+     built from the same BVH; L and rows printed) and the per-ray
+     traverse.intersect_bvh / occluded_bvh, each held against K3 on the
+     32-wide table, the packed and super16 walks also against K4 on the
+     16-wide one: t of a hit equal to the kernel's (within an ulp), the
+     hit and any-hit masks equal but for rays that graze a box (counted
+     and printed, held to phase 8's bounds), prim equal but on a tie;
+     each walk's wall (CUDA events), steps (mean, max), host reads and
+     peak device memory; then traverse.intersect_brute / occluded_brute
+     against K1 / K2 on phase 2's cbox rays (t and the masks equal);
+ 44. render.render of the icosphere box's `path` at 512x512, 1 spp,
+     with packet=False (the packed walk) and with max_table_mb=0 (the
+     super16 walk), counts zeroed just before each render and read just
+     after (no packet kernel launched, the walk's host reads counted):
+     each image at the gate against the default render, rays within
+     0.1%, walls and rays printed.
 
 Prints one "kernels" JSON line (every row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
@@ -240,7 +259,10 @@ phase 34, and under "perray" their launches per sample of each per-ray
 oracle (phases 36-38) and the time and bound of each batch of phase 39,
 and K3's and K4's rows under "two_phase" each phase 40 cast's wall
 (wall_ms, not the kernel's own time), the single-phase wall, kernel
-launches a cast and root-walk share),
+launches a cast and root-walk share, and K1's to K4's rows under
+"oracles" each phase 43 walk held against that kernel: its wall_ms
+(the plain PyTorch walk's, not a kernel time), steps, host reads, peak
+memory and the rays that differ),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -290,6 +312,8 @@ SHARD_PATH_SPP = 4          # phase 42: the cbox through render_soa_sharded / re
 SHARD_GRAD_SPP = 2          # phase 42: the icosphere box gradpath, banded and sharded,
 SHARD_GRAD_DEPTH = 5        # at the cbox_gdpt golden's depth, cut from unbounded
 SHARD_GRID = dict(spp=2, max_depth=6)  # phase 42: the grid scene volpath, depth cut from unbounded
+WALK_CAMERA = 65_536        # phase 43: the camera rays of phase 8 walked by the XLA walks
+WALK_SPP = 1                # phase 44: the icosphere box path with packet=False / max_table_mb=0
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -2626,6 +2650,25 @@ def _dispatch_lanes(pt, fn):
         pt._entry_dispatch = real
 
 
+def _ties(pk, geo9, rays, idx, prims, t_ref, n_tris=None):
+    """How many of the rays `idx` are ties: each cast's primitive (prims,
+    one (N,) tensor per cast) is hit at the ray's t_ref."""
+    import torch
+
+    if not idx.numel():
+        return 0
+    o, d = torch.stack(rays[:3], 1)[idx], torch.stack(rays[3:6], 1)[idx]
+    tn = rays[6][idx][:, None]
+    tie = torch.ones(idx.numel(), dtype=torch.bool, device=idx.device)
+    for prim in prims:
+        p = prim[idx]
+        geo = geo9[p.clamp_min(0).long()][:, None, :]
+        tt, hit = pk._prim_hits(geo, p[:, None], tuple(o.T[:, :, None]), tuple(d.T[:, :, None]),
+                                tn, torch.full_like(tn, 3e37), n_tris)
+        tie = tie & hit[:, 0] & (tt[:, 0] == t_ref[idx])
+    return int(tie.sum())
+
+
 def _compare_two_phase(pk, tab, rays, got, ref, any_hit, label):
     """A two-phase cast against the single-phase cast of the same rays:
     no ray may differ in t or in the any-hit mask, and a ray whose prim
@@ -2642,20 +2685,12 @@ def _compare_two_phase(pk, tab, rays, got, ref, any_hit, label):
         return 0, 0.0
     bad_t = int((got[0].view(torch.int32) != ref[0].view(torch.int32)).sum())
     diff = torch.nonzero(got[1] != ref[1]).squeeze(1)
-    ties = 0
-    if diff.numel():
-        o, d = torch.stack(rays[:3], 1)[diff], torch.stack(rays[3:6], 1)[diff]
-        for prim in (got[1][diff], ref[1][diff]):
-            geo = tab.geo9[prim.clamp_min(0).long()][:, None, :]
-            tt, hit = pk._prim_hits(geo, prim[:, None], tuple(o.T[:, :, None]),
-                                    tuple(d.T[:, :, None]), rays[6][diff][:, None],
-                                    torch.full_like(rays[6][diff][:, None], 3e37), None)
-            ties += int((hit[:, 0] & (tt[:, 0] == ref[0][diff])).sum())
+    ties = _ties(pk, tab.geo9, rays, diff, (got[1], ref[1]), ref[0])
     err = float((got[0] - ref[0]).abs().max()) if got[0].numel() else 0.0
     print(f"  two-phase closest {label}: {got[0].numel()} rays, t differs on {bad_t}, prim on "
-          f"{diff.numel()} ({ties // 2 if diff.numel() else 0} of them ties), hits "
+          f"{diff.numel()} ({ties} of them ties), hits "
           f"{float((ref[1] >= 0).float().mean()):.4f}")
-    if bad_t or 2 * diff.numel() != ties:
+    if bad_t or diff.numel() != ties:
         raise AssertionError(f"the two-phase walk differs from single-phase on {label}")
     return diff.numel(), err
 
@@ -2964,6 +2999,252 @@ def _sharding_phase(card, ctx):
     _phase_done(42, t_phase)
 
 
+def _compare_walk(pk, geo9, rays, got, ref, any_hit, label, n_tris=None):
+    """A walk's cast against a packet kernel's on the same rays: t of a
+    ray that both hit equal within an ulp, a differing prim only on a tie
+    (both primitives hit at that t), the hit (or any-hit) masks equal but
+    on rays that graze a box in one tree and not in the other: they are
+    counted, and as in phase 8 held to 0.1% of the rays, those that are
+    not a re-hit of the ray's own wall within 2 tnear to 0.01%. Returns
+    {"rays": n, "mask_differs": ..., "grazing_off_wall": ..., "t_ulp1": ...,
+    "prim_ties": ..., "max_abs_err": ...}."""
+    import torch
+
+    n = rays[0].shape[0]
+    if any_hit:
+        diff = torch.nonzero(got != ref).squeeze(1)
+        near = 0
+    else:
+        (gt, gp), (rt, rp) = got, ref
+        gh, rh = gp >= 0, rp >= 0
+        diff = torch.nonzero(gh != rh).squeeze(1)
+        # A ray hit in one cast and not the other: a graze; near the
+        # ray's own origin when the hit's t is under 2 tnear.
+        t_hit = torch.where(gh, gt, rt)[diff]
+        near = int((t_hit < 2.0 * rays[6][diff]).sum())
+    out = {"rays": n, "mask_differs": int(diff.numel()),
+           "grazing_off_wall": int(diff.numel()) - near,
+           "walk_only": int(got[diff].sum()) if any_hit else int(gh[diff].sum())}
+    if diff.numel() and diff.numel() <= 20:
+        print(f"  {label}: rays {diff.tolist()} differ in the hit mask")
+    if not any_hit:
+        both = gh & rh
+        du = (gt.view(torch.int32).long() - rt.view(torch.int32).long()).abs()
+        off = both & (du > 1)
+        out["t_ulp1"] = int((both & (du == 1)).sum())
+        out["t_differs"] = int(off.sum())
+        pdiff = torch.nonzero(both & ~off & (gp != rp)).squeeze(1)
+        out["prim_ties"] = _ties(pk, geo9, rays, pdiff, (gp, rp), rt, n_tris)
+        out["prim_not_tie"] = int(pdiff.numel()) - out["prim_ties"]
+        out["max_abs_err"] = float((gt - rt)[both].abs().max()) if bool(both.any()) else 0.0
+    print(f"  {label}: {n} rays, the {'any-hit' if any_hit else 'hit'} mask differs on "
+          f"{out['mask_differs']} ({out['walk_only']} hit by the walk alone, "
+          f"{out['grazing_off_wall']} off the ray's own wall)"
+          + ("" if any_hit else f", t differs by one ulp on {out['t_ulp1']} and by more on "
+             f"{out['t_differs']}, prim on {out['prim_ties']} ties and "
+             f"{out['prim_not_tie']} others"))
+    if (out["mask_differs"] > n // 1000 or out["grazing_off_wall"] > n // 10000
+            or out.get("t_differs", 0) or out.get("prim_not_tie", 0)):
+        raise AssertionError(f"the walk disagrees with the kernel on {label}")
+    return out
+
+
+def _walk_phases(card, ctx):
+    """Phases 43-44: the reference's XLA walks (plain PyTorch) on the
+    icosphere box at full width, held against K3, K4 and K1/K2, then the
+    icosphere box's path rendered through them. Returns {kernel row:
+    {walk on ray set: numbers}} for the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.accel import super16 as s16
+    from gdpt_tpu_torch.accel import traverse as ttr
+    from gdpt_tpu_torch.accel import traverse_soa as trs
+    from gdpt_tpu_torch.core.soa import V3
+    from gdpt_tpu_torch.integrators import path_soa, render
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.scene.build import scene_to
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    scene = ctx["scene"]
+    scene_dev = scene_to(scene, dev)
+    st = scene_dev.static
+    tab32 = path_soa.scene_soa_from_aos(scene_dev).geom.packet
+    tab16 = path_soa.scene_soa_from_aos(scene_dev, wide=16).geom.packet
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = path_soa.scene_soa_from_aos(scene_dev, packet=False).geom
+    torch.cuda.synchronize()
+    t_packed = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gs = path_soa.scene_soa_from_aos(scene_dev, max_table_mb=0).geom
+    torch.cuda.synchronize()
+    t_sup = time.perf_counter() - t0
+    sup = gs.sup16
+    if gp.bvh_nodes48 is None or gp.packet is not None or sup is None or gs.packet is not None:
+        raise AssertionError("the views of packet=False and max_table_mb=0 hold the wrong tables")
+    print(f"phase 43: icosphere box views: packed table {tuple(gp.bvh_nodes48.shape)} "
+          f"({gp.bvh_nodes48.numel() * 4 / 1e6:.1f} MB) and BVH arrays in {t_packed:.2f} s; "
+          f"super16 table {tuple(sup.table.shape)} int32 ({sup.table.numel() * 4 / 1e6:.1f} MB), "
+          f"L = {sup.leaf}, stack {sup.stack_n}, in {t_sup:.2f} s")
+    geom = scene_dev.device.geom
+    cam = tuple(c[:WALK_CAMERA].contiguous() for c in ctx["cam"])
+    sets = (("bounce", ctx["bounce"], False), ("shadow", ctx["shadow"], True),
+            ("camera", cam, False))
+
+    def walks(any_hit):
+        """name -> fn(o, d, tnear, tfar) returning (result, per-lane steps)."""
+        def packed(o, d, tn, tf):
+            hit, _, steps = trs.intersect_bvh_packed(st, gp, o, d, tn, tf, count_steps=True)
+            return (hit.prim_id >= 0 if any_hit else (hit.t, hit.prim_id)), steps
+
+        def per_lane(o, d, tn, tf):
+            hit, steps = trs.intersect_bvh_soa(st, gp, o, d, tn, tf, count_steps=True)
+            return (hit.prim_id >= 0 if any_hit else (hit.t, hit.prim_id)), steps
+
+        def super16(o, d, tn, tf):
+            s = s16._traverse(sup, o, d, tn, tf, any_hit=any_hit, count_steps=True)
+            return (s["prim"] >= 0 if any_hit else (s["t"], s["prim"])), s["steps"]
+
+        def per_ray(o, d, tn, tf):
+            oo, dd = torch.stack(tuple(o), 1), torch.stack(tuple(d), 1)
+            if any_hit:
+                return ttr.occluded_bvh(geom, oo, dd, tn, tf, count_steps=True)
+            hit, steps = ttr.intersect_bvh(geom, oo, dd, tn, tf, count_steps=True)
+            return (hit.t, hit.prim_id), steps
+
+        return (("packed", packed, trs.HOST_READS, "intersect_bvh_packed"),
+                ("per_lane", per_lane, trs.HOST_READS, "intersect_bvh_soa"),
+                ("super16", super16, s16.HOST_READS, "super16"),
+                ("traverse", per_ray, ttr.HOST_READS,
+                 "occluded_bvh" if any_hit else "intersect_bvh"))
+
+    rows = {k: {} for k in ("K1", "K2", "K3 closest", "K3 any hit", "K4 closest",
+                            "K4 any hit")}
+    for set_name, r, any_hit in sets:
+        o3, d3 = V3(*r[:3]), V3(*r[3:6])
+        n = r[0].shape[0]
+        kernels = {}
+        for kname, tab, dual in (("K3", tab32, False), ("K4", tab16, True)):
+            t, prim = pk.trace_packets(tab, *r, any_hit=any_hit, dual=dual)
+            kernels[kname] = prim >= 0 if any_hit else (t, prim)
+        torch.cuda.synchronize()
+        for name, fn, reads, key in walks(any_hit):
+            out = []
+            before = reads[key]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ms = _events_ms(lambda: out.append(fn(o3, d3, r[6], r[7])), 1)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+            got, steps = out[0]
+            host_reads = reads[key] - before
+            sf = steps.float()
+            print(f"phase 43: {name} walk, {set_name} rays ({n}, "
+                  f"{'any hit' if any_hit else 'closest'}): wall {ms:.1f} ms (CUDA events, "
+                  f"one eager call), steps mean {float(sf.mean()):.1f} max {int(steps.max())}, "
+                  f"{host_reads} host reads, peak device memory {peak:.1f} MB on {card}")
+            nums = {"wall_ms": ms, "steps_mean": float(sf.mean()), "steps_max": int(steps.max()),
+                    "host_reads": host_reads, "peak_mb": peak}
+            for kname in (("K3", "K4") if name in ("packed", "super16") else ("K3",)):
+                tab = tab32 if kname == "K3" else tab16
+                cmp = _compare_walk(pk, tab.geo9, r, got, kernels[kname], any_hit,
+                                    f"{name} walk vs {kname} on the {tab.width}-wide table, "
+                                    f"{set_name} rays")
+                row = f"{kname} {'any hit' if any_hit else 'closest'}"
+                rows[row][f"{name} walk, {set_name} rays"] = dict(nums, **cmp)
+
+    # traverse's brute-force casts against K1 / K2 on phase 2's cbox rays.
+    cbox = scene_to(presets.cornell_box(512, 512, spp=SPP_MAIN), dev)
+    sc = path_soa.scene_soa_from_aos(cbox)
+    cst = cbox.static
+    soups = (sc.geom.tri_soup, sc.geom.sph_soup, cst.n_tris, cst.n_spheres)
+    org, d = _camera_rays(cbox, dev)
+    n = org.x.shape[0]
+    big = torch.full((n,), bk.BIG, device=dev)
+    hit = bk.intersect_brute(*soups, *org, *d, big, 0.0)
+    pos, rd, dl, tfar, _ = _secondary_rays(org, d, hit[0], hit[1], cst.shadow_epsilon)
+    cgeom = cbox.device.geom
+    eps, seps = cst.intersection_epsilon, cst.shadow_epsilon
+    sph9 = torch.cat([cgeom.sph_center, cgeom.sph_radius[:, None],
+                      torch.zeros((cst.n_spheres, 5), device=dev)], 1)
+    geo9 = torch.cat([torch.cat([cgeom.tri_v0, cgeom.tri_e1, cgeom.tri_e2], 1), sph9])
+    for set_name, (o, dd, tn, tf), any_hit in (
+            ("camera", (tuple(org), tuple(d), 0.0, big), False),
+            ("bounce", (pos, rd, eps, big), False),
+            ("shadow", (pos, dl, seps, tfar), True)):
+        oo, ddd = torch.stack(o, 1), torch.stack(dd, 1)
+        out = []
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if any_hit:
+            ms = _events_ms(lambda: out.append(ttr.occluded_brute(cgeom, oo, ddd, tn, tf)), 1)
+            ref = bk.occluded_brute(*soups, *o, *dd, tf, tn) > 0
+        else:
+            ms = _events_ms(lambda: out.append(ttr.intersect_brute(cgeom, oo, ddd, tn, tf)), 1)
+            ref = bk.intersect_brute(*soups, *o, *dd, tf, tn)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e6
+        got = out[0] if any_hit else (out[0].t, out[0].prim_id)
+        ref = ref if any_hit else (torch.where(ref[1] >= 0, ref[0], tf), ref[1])
+        kname = "K2" if any_hit else "K1"
+        tn_lanes = torch.full((n,), float(tn), device=dev)
+        rays = (*o, *dd, tn_lanes, tf)
+        cmp = _compare_walk(pk, geo9, rays, got, ref, any_hit,
+                            f"traverse brute force vs {kname}, cbox {set_name} rays",
+                            cst.n_tris if cst.n_spheres else None)
+        if cmp["mask_differs"] or cmp.get("prim_not_tie", 0):
+            raise AssertionError(f"traverse's brute force differs from {kname} on the cbox's "
+                                 f"{set_name} rays")
+        print(f"phase 43: traverse.{'occluded' if any_hit else 'intersect'}_brute, cbox "
+              f"{set_name} rays ({n}): wall {ms:.1f} ms (CUDA events, one eager call), peak "
+              f"device memory {peak:.1f} MB, equal to {kname} on {card}")
+        rows[kname][f"traverse brute force, cbox {set_name} rays"] = dict(
+            cmp, wall_ms=ms, peak_mb=peak)
+    t_phase = _phase_done(43, t_phase)
+
+    # ---- phase 44: the icosphere box path through the two switches ----
+    st1 = dataclasses.replace(scene.static, options=dataclasses.replace(
+        scene.static.options, samples_per_pixel=WALK_SPP))
+    one = scene._replace(static=st1)
+    outs = {}
+    for label, route, reads, key in (
+            ("default", {}, None, None),
+            ("packet=False", dict(packet=False), trs.HOST_READS, "intersect_bvh_packed"),
+            ("max_table_mb=0", dict(max_table_mb=0), s16.HOST_READS, "super16")):
+        for k in pk.LAUNCHES:
+            pk.LAUNCHES[k] = 0
+        before = reads[key] if reads else 0
+        t0 = time.perf_counter()
+        img, rays = render.render(one, seed=0, device="cuda", return_stats=True, **route)
+        wall = time.perf_counter() - t0
+        launches = dict(pk.LAUNCHES)
+        walked = reads[key] - before if reads else 0
+        outs[label] = (img, rays)
+        print(f"phase 44: icosphere box path 512x512 spp {WALK_SPP}, {label}: wall {wall:.3f} s, "
+              f"rays {rays:.0f}, {rays / wall / 1e6:.3f} Mrays/s, packet kernel launches "
+              f"{sum(launches.values())}, walk host reads {walked} on {card}")
+        if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not img.mean() > 0:
+            raise AssertionError(f"the {label} image is not finite, not 512x512x3 or black")
+        if reads and (sum(launches.values()) or not walked):
+            raise AssertionError(f"{label}: the render did not take its walk ({launches}, "
+                                 f"{walked} host reads)")
+    ib, nb = outs["default"]
+    for label in ("packet=False", "max_table_mb=0"):
+        ia, na = outs[label]
+        _gate_cuda_vs_cpu(ia, ib, float(ib.mean()), 44, "icosphere box path",
+                          what=f"{label} vs the default")
+        if abs(na - nb) > 1e-3 * nb:
+            raise AssertionError(f"{label}: rays {na} against {nb}")
+    _phase_done(44, t_phase)
+    return rows
+
+
 def _phase_done(phase, since):
     now = time.perf_counter()
     print(f"phase {phase}: done in {now - since:.1f} s")
@@ -3027,6 +3308,7 @@ def main():
     perray = _perray_phases(card, ctx)
     two_phase = _variant_phases(card, ctx)
     _sharding_phase(card, ctx)
+    oracles = _walk_phases(card, ctx)
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
@@ -3042,6 +3324,9 @@ def main():
                              {"ms": v[0], "bound_ms": v[1]}) for k, v in perray[name].items()}
     for row, name in zip(rows[2:6], ("K3 closest", "K3 any hit", "K4 closest", "K4 any hit")):
         row["two_phase"] = two_phase[name]
+    for row, name in zip(rows[:6], ("K1", "K2", "K3 closest", "K3 any hit", "K4 closest",
+                                    "K4 any hit")):
+        row["oracles"] = oracles[name]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,7 +13,8 @@ and on request the dual kernel K4, in accel/packet_kernels.py
 tensors).
 
 The table lives in device memory and is read through the cache; there
-is no size cap. Its width (16 or 32 children per supernode) is a build
+is no size cap unless the caller sets one (max_bytes, the reference's
+GDPT_MAX_TABLE_MB). Its width (16 or 32 children per supernode) is a build
 argument, recorded in ``PacketTable.width`` and read from there by
 everything downstream.
 
@@ -82,7 +83,8 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
                        sph_center=None, sph_radius=None,
                        leaf_skip_from=None,
                        prim_of_ref=None, ref_bbox_min=None,
-                       ref_bbox_max=None, wide=32, premerge=False, entry_k=ENTRY_K):
+                       ref_bbox_max=None, wide=32, premerge=False, entry_k=ENTRY_K,
+                       max_bytes=None):
     """Host-side collapse of the binary miss-link BVH into the packet
     table (numpy; the result holds CPU tensors). wide: supernode width,
     32 (two rows per supernode, 24-prim leaf groups) or 16 (one row,
@@ -93,6 +95,8 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
     before sibling leaves share rows (the reference's
     GDPT_EXPAND_PREMERGE=1), not at W slots after it. entry_k: the
     target size of the two-phase entry frontier (GDPT_ENTRY_K).
+    max_bytes: the reference's cap (GDPT_MAX_TABLE_MB << 20); a table
+    of more bytes is not built and None comes back. None: no cap.
 
     Mirrors super16.build_super16's collapse (maximal 16-subtree
     frontier expansion over the DFS/miss-link layout) but with fixed
@@ -325,6 +329,8 @@ def build_packet_table(bvh_bbox_min, bvh_bbox_max, first, count, miss,
         group_bbox.append((np.full(3, 3e38, np.float32),
                            np.full(3, -3e38, np.float32)))
     n_rows = n_super * S + len(leaf_groups) * S_LEAF
+    if max_bytes is not None and n_rows * 128 * 4 > max_bytes:
+        return None
     if n_rows >= 1 << _CHAIN_SHIFT:
         raise ValueError(f"build_packet_table: {n_rows} rows do not fit the "
                          f"{_CHAIN_SHIFT}-bit row field of a child ref")

@@ -26,8 +26,8 @@ AUX_KINDS = ("depth", "shading_normal", "mean_curvature", "ray_differential",
 def render_aux(scene: Scene, kind: str, packet_wide=32, packet_dual=False, **cast):
     """The AOV image of `kind` for a scene on its device: an (h, w, 3)
     float32 numpy array. packet_wide, packet_dual and **cast (two_phase,
-    packet_sort, premerge, entry_k) pick a BVH scene's table and walk, as
-    in path_soa.render_soa."""
+    packet_sort, premerge, entry_k, packet, max_table_mb) pick a BVH
+    scene's table and walk, as in path_soa.render_soa."""
     if kind not in AUX_KINDS:
         raise ValueError(f"unknown aux integrator {kind}")
     static = scene.static

@@ -342,8 +342,8 @@ def render_gradpath(scene: Scene, spp=None, seed=0, return_aux=False, start_samp
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (6, n_pix, 3) float64 sample-sum array); on_chunk(acc, done)
     fires after every pass. packet_wide, packet_dual and **cast
-    (two_phase, packet_sort, premerge, entry_k) pick a BVH scene's table
-    and walk (path_soa.scene_soa_from_aos)."""
+    (two_phase, packet_sort, premerge, entry_k, packet, max_table_mb)
+    pick a BVH scene's table and walk (path_soa.scene_soa_from_aos)."""
     from gdpt_tpu_torch.integrators import path_soa
     from gdpt_tpu_torch.integrators.gdpt_soa import _gdpt_finish
 

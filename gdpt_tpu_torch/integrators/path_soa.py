@@ -181,7 +181,8 @@ _SOA_MEMO = SceneMemo()
 
 
 def scene_soa_from_aos(scene: Scene, wide=32, dual=False, two_phase=False, packet_sort=True,
-                       premerge=False, entry_k=packet_trace.ENTRY_K) -> SceneSoA:
+                       premerge=False, entry_k=packet_trace.ENTRY_K, packet=True,
+                       max_table_mb=None) -> SceneSoA:
     """The render's view of `scene`, built once per scene and table
     build: the host-side prep (packet table, alias tables, footprint
     constants) is pure in these and takes seconds on a large scene.
@@ -190,18 +191,28 @@ def scene_soa_from_aos(scene: Scene, wide=32, dual=False, two_phase=False, packe
     walk it with the dual kernel K4 (16-wide only) instead of K3;
     two_phase: casts of 4,096 rays or more take the two-phase entry
     traversal; packet_sort=False: no cast sorts its rays. The walk's
-    switches are static flags of the view over the same tables."""
+    switches are static flags of the view over the same tables.
+    packet=False and max_table_mb (the reference's GDPT_PACKET=0 and
+    GDPT_MAX_TABLE_MB) pick the reference's XLA walks instead of the
+    table (traverse_soa.geom_soa_from_aos); both are in the memo's key,
+    as they change what is built, and on a BVH scene left without a
+    table the walk's switches raise ValueError."""
     if dual and wide != 16:
         raise ValueError(f"packet_dual=True needs packet_wide=16, got {wide!r}")
-    build = (wide, bool(premerge), int(entry_k))
+    build = (wide, bool(premerge), int(entry_k), bool(packet),
+             None if max_table_mb is None else int(max_table_mb))
     sc = _SOA_MEMO.get(scene.device, build, lambda: _scene_soa_from_aos(scene, *build))
+    if sc.geom.packet is None and not scene.static.use_brute_force:
+        trs.refuse_without_table(packet_dual=dual, two_phase=two_phase,
+                                 packet_sort=not packet_sort)
     if sc.geom.packet is not None and (dual or two_phase or not packet_sort):
         sc = sc._replace(geom=sc.geom._replace(dual=bool(dual), two_phase=bool(two_phase),
                                                packet_sort=bool(packet_sort)))
     return sc
 
 
-def _scene_soa_from_aos(scene: Scene, wide, premerge, entry_k) -> SceneSoA:
+def _scene_soa_from_aos(scene: Scene, wide, premerge, entry_k, packet,
+                        max_table_mb) -> SceneSoA:
     dev = scene.device
     device = dev.geom.tri_v0.device
 
@@ -224,7 +235,8 @@ def _scene_soa_from_aos(scene: Scene, wide, premerge, entry_k) -> SceneSoA:
     else:
         env_img3 = torch.zeros((1, 3), dtype=REAL, device=device)
     return SceneSoA(
-        geom=trs.geom_soa_from_aos(dev.geom, wide=wide, premerge=premerge, entry_k=entry_k),
+        geom=trs.geom_soa_from_aos(dev.geom, wide=wide, premerge=premerge, entry_k=entry_k,
+                                   packet=packet, max_table_mb=max_table_mb),
         tri_n0=soa.from_rows(put(n0)),
         tri_n1=soa.from_rows(put(n1)),
         tri_n2=soa.from_rows(put(n2)),
@@ -1075,8 +1087,9 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
     turns the tail compaction on; pool_sort=True morton-sorts the pool
     before every chunk of k_iters iterations (_pool_sort; BVH scenes
     only) and the extension casts then skip their own sort. packet_wide,
-    packet_dual and **cast (two_phase, packet_sort, premerge, entry_k)
-    choose the packet table and the walk (see scene_soa_from_aos). The
+    packet_dual and **cast (two_phase, packet_sort, premerge, entry_k,
+    packet, max_table_mb) choose the packet table and the walk (see
+    scene_soa_from_aos). The
     iteration count and mean occupancy of the last render are left in
     render_soa_wavefront.last_iters and .last_occupancy.
     """
@@ -1094,6 +1107,8 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
     sc = scene_soa_from_aos(scene, packet_wide, packet_dual, **cast)
     camera = scene.device.camera
     device = camera.sample_to_cam.device
+    if sc.geom.packet is None and not scene.static.use_brute_force:
+        trs.refuse_without_table(pool_sort=pool_sort)
     pool_sort = pool_sort and sc.geom.packet is not None
 
     pool = _pool_width(total, pool)
@@ -1198,8 +1213,8 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     or 32) is the width of a BVH scene's packet table; packet_dual=True
     walks a 16-wide table with the dual kernel K4 in place of K3 (with
     width 32 it raises ValueError); **cast (two_phase, packet_sort,
-    premerge, entry_k) are the walk's and the table's other switches
-    (scene_soa_from_aos).
+    premerge, entry_k, packet, max_table_mb) are the walk's and the
+    table's other switches (scene_soa_from_aos).
 
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires

@@ -20,8 +20,13 @@ renderers; packet_wide and packet_dual choose the table's width and the
 walk: the solo kernel K3, or on a 16-wide table the dual kernel K4. The
 reference's other GDPT_* ray-casting switches are arguments here too:
 two_phase (the two-phase entry traversal), packet_sort (each cast's ray
-sort), premerge and entry_k (the table's build) and pool_sort (the
-wavefront pools' morton sort). Sharded renders over a mesh of devices
+sort), premerge and entry_k (the table's build), pool_sort (the
+wavefront pools' morton sort), and packet and max_table_mb, which take
+the reference's XLA walks in plain PyTorch instead of the table
+(packet=False: the packed or the per-lane BVH walk; max_table_mb: the
+super16 walk when the table is over that many MiB). The reference reads
+its switches from the environment, and only on its packet route; here
+each is an argument of every renderer. Sharded renders over a mesh of devices
 are parallel/sharding.py's.
 """
 
@@ -72,8 +77,8 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
     start_sample/init_acc resume an interrupted accumulation (init_acc is
     the raw (n_pix, 3) float64 sample-sum array); on_chunk(acc, done)
     fires after every pass. packet_wide, packet_dual and **cast
-    (two_phase, packet_sort, premerge, entry_k) pick a BVH scene's table
-    and walk (path_soa.scene_soa_from_aos)."""
+    (two_phase, packet_sort, premerge, entry_k, packet, max_table_mb)
+    pick a BVH scene's table and walk (path_soa.scene_soa_from_aos)."""
     from gdpt_tpu_torch.integrators import path_soa
     from gdpt_tpu_torch.ops import intersect as isect
 
@@ -109,7 +114,8 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
 
 def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
            packet_wide=32, packet_dual=False, two_phase=False, packet_sort=True,
-           premerge=False, entry_k=ENTRY_K, pool_sort=False, return_aux=False):
+           premerge=False, entry_k=ENTRY_K, pool_sort=False, return_aux=False, packet=True,
+           max_table_mb=None):
     """Render `scene` on `device`; returns an (h, w, 3) float32 numpy
     image (for "gradpath" the reconstruction), with return_aux ("gradpath"
     only) also the dict of its primal, primal_bf, gx and gy images, and
@@ -120,12 +126,21 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     there: packet_wide (16 or 32) and packet_dual (K4 on a 16-wide table;
     with width 32 it raises ValueError), two_phase (casts of 4,096 rays or
     more take the two-phase entry traversal), packet_sort=False (no cast
-    sorts its rays), premerge and entry_k (the packet table's build) and
-    pool_sort (the SoA wavefronts keep their lane pools morton-sorted)."""
+    sorts its rays), premerge and entry_k (the packet table's build),
+    pool_sort (the SoA wavefronts keep their lane pools morton-sorted),
+    packet=False (GDPT_PACKET=0: no table; the casts take the packed walk,
+    or the per-lane walk where the BVH holds spheres) and max_table_mb
+    (GDPT_MAX_TABLE_MB: a table over that many MiB is not built and the
+    casts walk super16; None, the default, is no cap). The reference
+    reads GDPT_PACKET_WIDE, GDPT_PACKET_DUAL, GDPT_TWO_PHASE and the table
+    switches only on its packet route; packet_dual, two_phase, pool_sort
+    or packet_sort=False on a BVH scene left without a table raise
+    ValueError."""
     device = resolve_device(device)
     integrator = scene.static.options.integrator
     walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, two_phase=two_phase,
-                packet_sort=packet_sort, premerge=premerge, entry_k=entry_k)
+                packet_sort=packet_sort, premerge=premerge, entry_k=entry_k, packet=packet,
+                max_table_mb=max_table_mb)
     if return_aux and integrator != "gradpath":
         raise ValueError(f"return_aux: integrator {integrator!r} has no auxiliary buffers")
     if integrator in aux.AUX_KINDS:

@@ -601,6 +601,8 @@ def _vol_wavefront_accum(static, camera, sc, media, spp, seed, n_pix, k_iters=6,
         host_acc[...] += st["acc"].cpu().numpy().astype(np.float64)
         st["acc"].zero_()
 
+    if sc.geom.packet is None and not static.use_brute_force:
+        trs.refuse_without_table(pool_sort=pool_sort)
     pool_sort = pool_sort and sc.geom.packet is not None
     cur_pool = pool
     while True:
@@ -664,8 +666,8 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
     packet_wide (16 or 32) is the width of a BVH scene's packet table;
     packet_dual=True walks a 16-wide table with the dual kernel K4 in
     place of K3 (with width 32 it raises ValueError); **cast (two_phase,
-    packet_sort, premerge, entry_k): see path_soa.scene_soa_from_aos. The
-    banded loop sums passes of samples in f32 on the device and
+    packet_sort, premerge, entry_k, packet, max_table_mb): see
+    path_soa.scene_soa_from_aos. The banded loop sums passes of samples in f32 on the device and
     accumulates them in float64 on the host.
 
     start_sample/init_acc resume an interrupted accumulation (init_acc is

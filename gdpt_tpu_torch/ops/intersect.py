@@ -9,8 +9,9 @@ that kind.
 
 The casts are the port's kernels, through accel/traverse_soa.py: K1 (or
 K3 / K4 on a BVH scene's packet table) for closest hits, K2 (or the
-walk's any-hit mode) for `occluded`. The reference's per-ray walks of
-accel/traverse.py are not ported. A lane that is not live gets
+walk's any-hit mode) for `occluded`. The reference casts through its
+per-ray walks of accel/traverse.py, which the port keeps as the
+kernels' oracle (accel/traverse.py). A lane that is not live gets
 tfar = tnear, so the kernel tests nothing for it, and only live lanes
 count as rays.
 """
@@ -21,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from gdpt_tpu_torch.accel import traverse_soa as trs
+from gdpt_tpu_torch.accel.traverse import sphere_uv
 from gdpt_tpu_torch.core import math as gm
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import INT, REAL
@@ -104,15 +106,6 @@ def _mesh_shading(scene, tri_id, bary, geom_normal):
     frame = gm.frame_from_tangent(tangent, bitangent, shading_normal)
     inv_uv_size = torch.maximum(gm.length(dpdu), gm.length(dpdv))
     return uv, frame, mean_curvature, inv_uv_size
-
-
-def sphere_uv(center, radius, p):
-    """Spherical coordinates as uv (reference: src/shapes/sphere.inl:94-101):
-    u = azimuth / 2pi, v = elevation / pi, y up."""
-    n = (p - center) / L(radius)
-    elevation = torch.arccos(torch.clamp(n[:, 1], -1.0, 1.0))
-    azimuth = torch.atan2(n[:, 2], n[:, 0])
-    return azimuth / (2.0 * math.pi), elevation / math.pi
 
 
 def _sphere_shading(scene, sph_id, position):

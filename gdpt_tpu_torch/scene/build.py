@@ -4,9 +4,10 @@ Counterpart of gdpt_tpu/scene/build.py (reference: src/scene.cpp:4-53):
 the same DeviceScene and SceneStatic fields, built on the host in numpy
 and held as CPU tensors; ``scene_to`` carries a scene to a device, as
 model weights are carried. Scenes above BRUTE_FORCE_THRESHOLD primitives
-(or built with force_bvh) get a host BVH (accel/bvh.py) in the
-Geometry.bvh_* fields; the packet table over it is made per render, on
-the scene's device (accel/traverse_soa.geom_soa_from_aos).
+(accel/traverse.py, or built with force_bvh) get a host BVH
+(accel/bvh.py) in the Geometry.bvh_* fields; the packet table over it
+is made per render, on the scene's device
+(accel/traverse_soa.geom_soa_from_aos).
 """
 
 from dataclasses import dataclass
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from gdpt_tpu_torch.accel import bvh as gbvh
+from gdpt_tpu_torch.accel.traverse import Geometry, use_brute_force
 from gdpt_tpu_torch.core import spectrum as gspec
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.distributions import TableDist1D, TableDist2D, make_table_dist_1d, make_table_dist_2d
@@ -29,34 +31,6 @@ SHAPE_SPHERE = 1
 
 LIGHT_AREA = 0
 LIGHT_ENVMAP = 1
-
-# Scenes of at most this many primitives are ray cast by brute force
-# (gdpt_tpu/accel/traverse.py:292).
-BRUTE_FORCE_THRESHOLD = 128
-
-
-def use_brute_force(n_prims: int) -> bool:
-    return n_prims <= BRUTE_FORCE_THRESHOLD
-
-
-class Geometry(NamedTuple):
-    """Flattened scene geometry (gdpt_tpu/accel/traverse.py:25). The BVH
-    fields (accel/bvh.BVHArrays) stay empty in the brute-force regime."""
-
-    tri_v0: torch.Tensor       # (T, 3)
-    tri_e1: torch.Tensor
-    tri_e2: torch.Tensor
-    tri_shape_id: torch.Tensor  # (T,)
-    sph_center: torch.Tensor    # (S, 3)
-    sph_radius: torch.Tensor    # (S,)
-    sph_shape_id: torch.Tensor  # (S,)
-    bvh_bbox_min: torch.Tensor
-    bvh_bbox_max: torch.Tensor
-    bvh_first: torch.Tensor
-    bvh_count: torch.Tensor
-    bvh_miss: torch.Tensor
-    bvh_prim_order: torch.Tensor
-
 
 class MaterialTable(NamedTuple):
     kind: torch.Tensor  # (m,)

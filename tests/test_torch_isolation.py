@@ -60,12 +60,27 @@ def test_slice_modules_are_covered():
                    "utils/profiling.py", "utils/host_parallel.py", "core/rng.py",
                    "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
                    "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
-                   "integrators/path.py", "integrators/gdpt.py", "parallel/sharding.py"):
+                   "integrators/path.py", "integrators/gdpt.py", "parallel/sharding.py",
+                   "accel/traverse.py", "accel/super16.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
                                         "packet_visit.cuh", "packet_group.cuh",
                                         "bvh_builder.cpp"}
+
+
+# Reference modules whose counterpart in the port has another name.
+RENAMED = {"accel/pallas_intersect.py": "accel/brute_kernels.py",
+           "accel/native/__init__.py": "accel/native_build.py"}
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module of gdpt_tpu has its port in gdpt_tpu_torch, at the same
+    path or at the one RENAMED gives."""
+    ported = {str(p.relative_to(ROOT / "gdpt_tpu_torch")) for p in SOURCES[:-1]}
+    for path in sorted((ROOT / "gdpt_tpu").rglob("*.py")):
+        name = str(path.relative_to(ROOT / "gdpt_tpu"))
+        assert RENAMED.get(name, name) in ported, name
 
 
 NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
@@ -74,14 +89,16 @@ NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.
                "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
                "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
                "integrators/path.py", "integrators/gdpt.py", "accel/packet_trace.py",
-               "integrators/path_soa.py", "integrators/volpath_soa.py", "parallel/sharding.py"]
+               "integrators/path_soa.py", "integrators/volpath_soa.py", "parallel/sharding.py",
+               "accel/traverse.py", "accel/super16.py"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
 def test_gradpath_modules_read_no_environment_variable(module):
-    """The reference picks its table width and build, dual and two-phase
-    walks, ray sorts, pool, pool sort and wavefront through GDPT_*
-    environment variables; the port takes arguments."""
+    """The reference picks its table width, build and cap, the packet
+    route, dual and two-phase walks, ray sorts, pool, pool sort and
+    wavefront through GDPT_* environment variables; the port takes
+    arguments."""
     tree = ast.parse((ROOT / "gdpt_tpu_torch" / module).read_text())
     for node in ast.walk(tree):
         assert not (isinstance(node, ast.Attribute) and node.attr in ("environ", "getenv")), \

@@ -58,15 +58,42 @@ def test_build_scene_leaf_by_leaf():
     assert dataclasses.asdict(js.static) == dataclasses.asdict(ts.static)
 
 
+PORT_ONLY = ("tri_soup", "sph_soup", "dual", "two_phase", "packet_sort")
+# The XLA walks' tables, which the port builds only for the view whose
+# casts read them (traverse_soa.geom_soa_from_aos); the reference builds
+# the BVH arrays and bvh_nodes48 for every view.
+WALK_TABLES = ("bvh_bmin", "bvh_bmax", "bvh_first", "bvh_count", "bvh_miss", "bvh_prim_order",
+               "bvh_nodes48", "sup16")
+
+
 def test_scene_soa_leaf_by_leaf():
     js, ts = jpresets.cornell_box(16, 16), tpresets.cornell_box(16, 16)
     jsc, tsc = jpath.scene_soa_from_aos(js), tpath.scene_soa_from_aos(ts)
-    _assert_tree(jsc, tsc, extra=("tri_soup", "sph_soup", "dual", "two_phase", "packet_sort"))
+    _assert_tree(jsc, tsc, extra=PORT_ONLY + WALK_TABLES)
     # The port's static walk flags (the reference reads env switches).
     assert (tsc.geom.dual, tsc.geom.two_phase, tsc.geom.packet_sort) == (False, False, True)
     tri, sph = jpli.pack_soups(jsc.geom, js.static.n_tris, js.static.n_spheres)
     _assert_leaf(tri, tsc.geom.tri_soup, "tri_soup")
     _assert_leaf(sph, tsc.geom.sph_soup, "sph_soup")
+    # The default route of a brute-force scene builds none of the walks'
+    # tables, where the reference holds placeholder BVH arrays.
+    assert all(getattr(tsc.geom, f) is None for f in WALK_TABLES)
+    assert jsc.geom.bvh_first.shape == (0,) and jsc.geom.bvh_bmin.x.shape == (1,)
+    assert jsc.geom.bvh_nodes48 is None and jsc.geom.sup16 is None
+
+
+def test_scene_soa_leaf_by_leaf_without_the_table():
+    """packet=False: the port's view of a BVH scene (the reference's tree
+    carried across, so both hold one BVH) equals the reference's default
+    view on the CPU leaf for leaf, its BVH arrays and packed table
+    included, and holds no packet table and no super16 table."""
+    js = jpresets.cornell_box(16, 16, force_bvh=True)
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(js.device)]
+    ts = convert.scene_from_numpy(leaves, dataclasses.asdict(js.static), device="cpu")
+    jsc, tsc = jpath.scene_soa_from_aos(js), tpath.scene_soa_from_aos(ts, packet=False)
+    assert jsc.geom.packet is None and jsc.geom.bvh_nodes48 is not None
+    _assert_tree(jsc, tsc, extra=PORT_ONLY)
+    assert tsc.geom.packet is None and tsc.geom.sup16 is None
 
 
 def test_convert_renders_same_image():
