@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   1. print the card and its power limit; build the native sources of
-     gdpt_tpu_torch/csrc (four CUDA files, one C++ file; one compiler
+     gdpt_tpu_torch/csrc (five CUDA files, one C++ file; one compiler
      process each, started together; timed); read every timed kernel's
      registers and local memory from the built libraries;
   2. hold K1 (closest hit) and K2 (any hit) against their plain PyTorch
@@ -248,9 +248,23 @@ Phases, each fatal on failure:
      super16 walk), counts zeroed just before each render and read just
      after (no packet kernel launched, the walk's host reads counted):
      each image at the gate against the default render, rays within
-     0.1%, walls and rays printed.
+     0.1%, walls and rays printed;
+ 45. the measurement entry points: the FMA-peak kernel
+     (csrc/fma_peak.cu) held against its plain version (CPU) at rtol
+     1e-5 on 4,096 values and on 4,096 values of its timed 2^22-value
+     block, its f32 rate printed beside the published 67 TFLOP/s (over
+     105% of it fails); tools/speed_of_light.measure_kernels for the cbox
+     and the icosphere box at 2^20 rays (FMA peak, K1, K2, K3 counted),
+     each chained cast (8 casts in a CUDA graph) held to one eager cast;
+     the icosphere box's visit floor (K3's counts, K5's prices); the
+     bench's bench_config for cbox_512_path at 4 spp (its cut in
+     detail.reduced, its rays those of one render.render of the same
+     scene, K1 and K2 counted) and for icosphere_box_gradpath on phase
+     7's scene (its rays phase 15's, K3 counted); examples/small_gdpt at
+     64x48, 2 spp; entry() and dryrun_multichip(4) on cuda:0.
 
-Prints one "kernels" JSON line (every row also carries its kernel's
+Prints one "kernels" JSON line (the FMA-peak kernel's row last; every
+row also carries its kernel's
 registers and local bytes, K1's and K2's phase 20's time per sample of
 each render, K1's and K3 closest's launches per volpath sample of phases
 24 and 26, under "rungs" K1's, K2's and K3's launches per sample of
@@ -314,6 +328,7 @@ SHARD_GRAD_DEPTH = 5        # at the cbox_gdpt golden's depth, cut from unbounde
 SHARD_GRID = dict(spp=2, max_depth=6)  # phase 42: the grid scene volpath, depth cut from unbounded
 WALK_CAMERA = 65_536        # phase 43: the camera rays of phase 8 walked by the XLA walks
 WALK_SPP = 1                # phase 44: the icosphere box path with packet=False / max_table_mb=0
+FMA_CHECK = 4096            # phase 45: values the FMA-peak kernel is held to its plain version on
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -323,7 +338,8 @@ KERNEL_ENTRIES = (
     ("K3 any hit", "packet_trace_kernelILi32ELb1ELb0E"),
     ("K4 closest", "packet_trace_dual_kernelILb0ELb0E"),
     ("K4 any hit", "packet_trace_dual_kernelILb1ELb0E"),
-    ("K5 super32", "visit_microbench_kernelILi4E"), ("K5 leaf24", "visit_microbench_kernelILi9E"))
+    ("K5 super32", "visit_microbench_kernelILi4E"), ("K5 leaf24", "visit_microbench_kernelILi9E"),
+    ("fma_peak", "fma_peak_kernel"))
 
 
 def _card():
@@ -1111,6 +1127,7 @@ def _gradpath_phases(card, ctx):
             launches["packet_dual_intersect"] + launches["packet_dual_occluded"]:
         raise AssertionError(f"the gradpath main path did not go through K3 alone: {launches}")
     grad_launches = launches
+    ctx["grad_rays"] = rays  # phase 45's bench row casts these rays again
     imgs = [torch.as_tensor(aux[k], device=dev) for k in ("primal", "gx", "gy")]
     solve = lambda: poisson.screened_poisson_solve(*imgs, st.options.gdpt_alpha)  # noqa: E731
     solve()
@@ -1795,6 +1812,26 @@ def _cli(cli, argv, phase, card):
 
 
 @contextlib.contextmanager
+def _timed_calls(mod, name):
+    """Wraps mod.name so that each call's wall seconds are appended to the
+    list it yields."""
+    times, fn = [], getattr(mod, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            times.append(time.perf_counter() - t0)
+
+    setattr(mod, name, timed)
+    try:
+        yield times
+    finally:
+        setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
 def _keep_gradpath_sums(gdpt_soa):
     """Keeps the (6, 3, n) sample sums and spp that the gradient-domain
     render hands its Poisson solve (gdpt_soa._gdpt_finish)."""
@@ -1844,12 +1881,13 @@ def _file_phases(card):
 
     from gdpt_tpu_torch import cli
     from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import bvh
     from gdpt_tpu_torch.accel import packet_kernels as pk
     from gdpt_tpu_torch.core import image as gimage
     from gdpt_tpu_torch.core import transform as xf
     from gdpt_tpu_torch.integrators import aux, gdpt_soa, path_soa, render, volpath_soa
+    from gdpt_tpu_torch.scene import loaders, parser, presets, xml_writer
     from gdpt_tpu_torch.scene import model as M
-    from gdpt_tpu_torch.scene import parser, presets, xml_writer
     from gdpt_tpu_torch.scene.build import scene_to
     from gdpt_tpu_torch.utils import checkpoint
 
@@ -1894,10 +1932,14 @@ def _file_phases(card):
               f" MB of XML and binary PLY")
         for k in pk.LAUNCHES:
             pk.LAUNCHES[k] = 0
-        with _keep_gradpath_sums(gdpt_soa) as sums:
+        with _keep_gradpath_sums(gdpt_soa) as sums, \
+                _timed_calls(loaders, "load_ply") as t_ply, _timed_calls(bvh, "build_bvh") as t_bvh:
             [(ico, recon)] = _cli(cli, [ico_xml, "-o", os.path.join(tmp, "ico.exr"),
                                         "--device", "cuda"], 29, card)
         launches = dict(pk.LAUNCHES)
+        print(f"phase 29: of the parse, the PLY reader (loaders.load_ply, {len(t_ply)} call) took "
+              f"{sum(t_ply):.3f} s and the BVH build (bvh.build_bvh, {len(t_bvh)} call) "
+              f"{sum(t_bvh):.3f} s on the card's host")
         st = ico.static
         m_recon, m_primal = float(recon.mean()), float((sums["acc"][0] / sums["spp"]).mean())
         print(f"phase 29: {st.n_tris} triangles ({ico.bvh_builder} BVH), gradpath spp "
@@ -3245,6 +3287,161 @@ def _walk_phases(card, ctx):
     return rows
 
 
+def _zero_counts(*counters):
+    for d in counters:
+        for k in d:
+            d[k] = 0
+
+
+def _bench_row(bench, name, make, spp, sol, reduced=()):
+    """bench_config's row (as printed, parsed back) and its rays."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.bench_config(name, make, spp, sol=sol, device="cuda", reduced=reduced)
+    row = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"phase 45: bench row {json.dumps(row)}")
+    return row, bench.bench_config.last_rays
+
+
+def _measurement_phase(card, ctx):
+    """Phase 45: the measurement entry points (the FMA-peak kernel, the
+    speed of light, the visit floor, the bench, the example and the entry
+    points). Returns the FMA-peak kernel's row for the JSON line."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch import bench, entry
+    from gdpt_tpu_torch.accel import brute_kernels as bk
+    from gdpt_tpu_torch.accel import packet_kernels as pk
+    from gdpt_tpu_torch.examples import small_gdpt
+    from gdpt_tpu_torch.integrators import render
+    from gdpt_tpu_torch.scene import presets
+    from gdpt_tpu_torch.tools import fma_peak as fp
+    from gdpt_tpu_torch.tools import speed_of_light as sol_tool
+    from gdpt_tpu_torch.tools import visit_microbench as vm
+
+    t_phase = time.perf_counter()
+    # ---- the FMA-peak kernel against its plain version (CPU only) ----
+    small = fp.block(FMA_CHECK, "cuda")
+    got = fp.fma_peak(small)
+    t0 = time.perf_counter()
+    ref = fp.fma_peak_plain(small.cpu())
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    x = fp.block(fp.N, "cuda")
+    full = fp.fma_peak(x)
+    idx = torch.linspace(0, fp.N - 1, FMA_CHECK).long()
+    ref_full = fp.fma_peak_plain(x[idx.cuda()].cpu())
+    err, bits = 0.0, 0
+    for g, r in [*zip(got, ref), *((f[idx.cuda()], r) for f, r in zip(full, ref_full))]:
+        g = g.cpu()
+        bits += int((g.view(torch.int32) != r.view(torch.int32)).sum())
+        err = max(err, float((g - r).abs().max()))
+        if not torch.allclose(g, r, rtol=1e-5, atol=0.0):
+            raise AssertionError("the FMA-peak kernel disagrees with its plain version")
+    ms = fp.time_ms(x)
+    peak = fp.flops(fp.N) / (ms * 1e-3) / 1e9
+    print(f"phase 45: FMA-peak kernel against its plain version on {FMA_CHECK} values and "
+          f"{FMA_CHECK} of the {fp.N} of the timed block, {fp.STEPS} steps: max abs err "
+          f"{err:.3g}, {bits} values differ in any bit; {ms:.3f} ms a launch, f32 peak "
+          f"{peak:.1f} GFLOP/s measured against {fp.PUBLISHED_GFLOPS:.0f} published "
+          f"({peak / fp.PUBLISHED_GFLOPS:.3f}); the plain version {plain_ms:.1f} ms for "
+          f"{FMA_CHECK} values on the host's CPU, on {card}")
+    if peak > 1.05 * fp.PUBLISHED_GFLOPS:
+        raise AssertionError(f"the measured f32 peak {peak:.0f} GFLOP/s is over 105% of the "
+                             f"published {fp.PUBLISHED_GFLOPS:.0f}")
+
+    # ---- the speed of light: measure_kernels, chained casts held to one cast ----
+    _zero_counts(fp.LAUNCHES, bk.LAUNCHES, pk.LAUNCHES)
+    kept = []
+    rows = sol_tool.measure_kernels(only={"cbox_512_path", "icosphere_box_gradpath"},
+                                    m=1 << 20, keep=kept, out=lambda s: print(f"phase 45: {s}"))
+    sol_launches = {**fp.LAUNCHES, **bk.LAUNCHES, **pk.LAUNCHES}
+    print(f"phase 45: measure_kernels launched {sol_launches}")
+    if not (sol_launches["fma_peak"] and sol_launches["intersect"] and sol_launches["occluded"]
+            and sol_launches["packet_intersect"] and sol_launches["packet_occluded"]):
+        raise AssertionError(f"measure_kernels did not launch every kernel: {sol_launches}")
+    for label, last, cast in kept:
+        one = cast()
+        same = all(torch.equal(a, b) for a, b in zip(last, one))
+        print(f"phase 45: chained {label} cast ({last[0].shape[0]} rays) equal to one cast: "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"the chained {label} cast differs from one cast")
+
+    # ---- the visit floor of the icosphere box (K3 counts, K5 prices) ----
+    _zero_counts(vm.LAUNCHES)
+    floor = sol_tool.visit_row(ctx["scene_dev"], out=lambda s: print(f"phase 45: {s}"))
+    print(f"phase 45: visit floor {json.dumps(floor)} on {card}")
+    if not (vm.LAUNCHES["super32"] and vm.LAUNCHES["leaf24"]) or not floor["visits_per_ray_inc"]:
+        raise AssertionError("the visit floor did not run K5 or counted no visits")
+
+    # ---- the bench: the cbox (cut to 4 spp) and the icosphere box stand-in ----
+    cbox = lambda: presets.cornell_box(width=512, height=512, spp=bench.CBOX_SPP,  # noqa: E731
+                                       max_depth=6)
+    want = {"spp", "wall_s", "spp_per_sec", "mean_radiance", "res", "platform"}
+    _zero_counts(bk.LAUNCHES, pk.LAUNCHES)
+    row, rays = _bench_row(bench, "cbox_512_path", cbox, SPP_MAIN, rows,
+                           reduced=(f"spp: {SPP_MAIN} of {bench.CBOX_SPP}",))
+    launches = {**bk.LAUNCHES, **pk.LAUNCHES}
+    _, ref_rays = render.render(presets.cornell_box(512, 512, spp=SPP_MAIN, max_depth=6),
+                                spp=SPP_MAIN, seed=0, device="cuda", return_stats=True)
+    print(f"phase 45: cbox bench row: launches {launches}, rays {rays:.0f}, render.render "
+          f"{ref_rays:.0f}")
+    if (not want <= set(row["detail"]) or "mfu_est" not in row["detail"] or rays != ref_rays
+            or not (launches["intersect"] and launches["occluded"])
+            or row["detail"].get("reduced") != [f"spp: {SPP_MAIN} of {bench.CBOX_SPP}"]):
+        raise AssertionError("the cbox bench row lacks a key, its cut, its kernels or its rays")
+    box = ctx["scene"]
+    grad = box._replace(static=dataclasses.replace(box.static, options=dataclasses.replace(
+        box.static.options, integrator="gradpath")))
+    cfg = {c.name: c for c in bench.CONFIGS}["icosphere_box_gradpath"]
+    _zero_counts(bk.LAUNCHES, pk.LAUNCHES)
+    row, rays = _bench_row(bench, cfg.name, lambda: grad, cfg.spp, rows, cfg.reduced)
+    launches = {**bk.LAUNCHES, **pk.LAUNCHES}
+    print(f"phase 45: icosphere box bench row: launches {launches}, rays {rays:.0f}, phase 15 "
+          f"{ctx['grad_rays']:.0f}")
+    if (not want <= set(row["detail"]) or rays != ctx["grad_rays"]
+            or not (launches["packet_intersect"] and launches["packet_occluded"])):
+        raise AssertionError("the icosphere box bench row lacks a key, its kernels or its rays")
+
+    # ---- the example and the entry points ----
+    _zero_counts(bk.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        t0 = time.perf_counter()
+        recon, aux = small_gdpt.main(["2", "--width", "64", "--height", "48"])
+        wall = time.perf_counter() - t0
+        written = sorted(os.listdir(tmp))
+    print(f"phase 45: small_gdpt 64x48 2 spp in {wall:.2f} s: mean recon {recon.mean():.6f}, "
+          f"primal {aux['primal'].mean():.6f}, wrote {written}, launches {dict(bk.LAUNCHES)}")
+    if (recon.shape != (48, 64, 3) or not np.isfinite(recon).all() or len(written) != 4
+            or not bk.LAUNCHES["intersect"]):
+        raise AssertionError("the small_gdpt example failed")
+    _zero_counts(bk.LAUNCHES)
+    fn, args = entry.entry()
+    out = fn(*args)
+    print(f"phase 45: entry(): {tuple(out.shape)} on {out.device}, mean "
+          f"{float(out.mean()):.6f}, launches {dict(bk.LAUNCHES)}")
+    if out.shape != (1024, 3) or not bool(torch.isfinite(out).all()) or not bk.LAUNCHES["intersect"]:
+        raise AssertionError("entry() failed")
+    t0 = time.perf_counter()
+    entry.dryrun_multichip(4)
+    print(f"phase 45: dryrun_multichip(4) on [cuda:0] * 4 passed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _phase_done(45, t_phase)
+    row = _kernel_row("fma_peak (speed-of-light f32 peak)", "gdpt_tpu_torch/csrc/fma_peak.cu",
+                      "tools/speed_of_light.py:353 (measure_vpu_peak, an XLA loop, not a "
+                      "pallas_call)", sol_launches["fma_peak"], err, ms, plain_ms, 20 * fp.N,
+                      fp.flops(fp.N))
+    row["plain_on"] = f"the host's CPU, {FMA_CHECK} of the {fp.N} values"
+    return row
+
+
 def _phase_done(phase, since):
     now = time.perf_counter()
     print(f"phase {phase}: done in {now - since:.1f} s")
@@ -3286,11 +3483,11 @@ def main():
     t0 = time.perf_counter()
     libs = native_build.build_all(
         ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
-         "visit_microbench.cu", "bvh_builder.cpp"], verbose=True)
+         "visit_microbench.cu", "fma_peak.cu", "bvh_builder.cpp"], verbose=True)
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     resources = {}
-    for lib in libs[:4]:
+    for lib in libs[:5]:
         resources.update(_resource_usage(lib))
     use = {entry: [v for k, v in resources.items() if entry in k] for _, entry in KERNEL_ENTRIES}
     use = {entry: v[0] if v else (None, None) for entry, v in use.items()}
@@ -3309,6 +3506,7 @@ def main():
     two_phase = _variant_phases(card, ctx)
     _sharding_phase(card, ctx)
     oracles = _walk_phases(card, ctx)
+    rows.append(_measurement_phase(card, ctx))
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):

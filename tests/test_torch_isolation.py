@@ -61,12 +61,14 @@ def test_slice_modules_are_covered():
                    "core/math.py", "ops/microfacet.py", "ops/materials.py", "ops/lights.py",
                    "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
                    "integrators/path.py", "integrators/gdpt.py", "parallel/sharding.py",
-                   "accel/traverse.py", "accel/super16.py"):
+                   "accel/traverse.py", "accel/super16.py", "bench.py", "entry.py",
+                   "examples/small_gdpt.py", "tools/speed_of_light.py",
+                   "tools/wavefront_visits.py", "tools/fma_peak.py"):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
                                         "packet_visit.cuh", "packet_group.cuh",
-                                        "bvh_builder.cpp"}
+                                        "bvh_builder.cpp", "fma_peak.cu"}
 
 
 # Reference modules whose counterpart in the port has another name.
@@ -81,6 +83,42 @@ def test_every_reference_module_has_a_counterpart():
     for path in sorted((ROOT / "gdpt_tpu").rglob("*.py")):
         name = str(path.relative_to(ROOT / "gdpt_tpu"))
         assert RENAMED.get(name, name) in ported, name
+
+
+# The reference's scripts around its package and their counterparts in the
+# port (tools/wavefront_visits.py: capture_pool_rays only).
+SCRIPTS = {"bench.py": "bench.py", "__graft_entry__.py": "entry.py",
+           "examples/small_gdpt_tpu.py": "examples/small_gdpt.py",
+           "tools/speed_of_light.py": "tools/speed_of_light.py",
+           "tools/wavefront_visits.py": "tools/wavefront_visits.py",
+           "tools/visit_microbench.py": "tools/visit_microbench.py"}
+# Reference scripts with no counterpart yet; ROADMAP.md names each with
+# why it waits.
+WAITS = ["ab_dual_kernel.py", "ab_wide_kernel.py", "bench_ab.py", "chain_sweep.py",
+         "env_lookup_bench.py", "kernel_sweep.py", "make_goldens.py", "occl_ab.py",
+         "occupancy_report.py", "profile_nee.py", "profile_render.py",
+         "profile_wavefront.py", "render_gallery.py", "render_sponza_gdpt.py",
+         "sheen_outlier.py", "trace_decompose.py", "validate.py", "validate_disney.py",
+         "visit_count.py", "wide_visit_count.py"]
+
+
+def test_every_reference_script_has_a_counterpart_or_waits():
+    """Every root-level script of the reference that imports gdpt_tpu has
+    its counterpart in gdpt_tpu_torch, or waits in WAITS, which ROADMAP.md
+    repeats name by name."""
+    ported = {str(p.relative_to(ROOT / "gdpt_tpu_torch")) for p in SOURCES[:-1]}
+    scripts = [ROOT / "bench.py", ROOT / "__graft_entry__.py",
+               *sorted((ROOT / "examples").glob("*.py")), *sorted((ROOT / "tools").glob("*.py"))]
+    uses = [str(p.relative_to(ROOT)) for p in scripts if "gdpt_tpu" in p.read_text()]
+    assert uses and set(SCRIPTS) <= set(uses)
+    for name in uses:
+        if name in SCRIPTS:
+            assert SCRIPTS[name] in ported, name
+        else:
+            assert name.startswith("tools/") and name[len("tools/"):] in WAITS, name
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    for name in WAITS:
+        assert f"tools/{name}" in roadmap, name
 
 
 NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.py",
@@ -130,7 +168,7 @@ def test_a_header_change_rebuilds_the_cuda_sources(tmp_path, monkeypatch):
     monkeypatch.setattr(native_build, "CSRC", csrc)
     before = {s: native_build.library_path(s)
               for s in ("packet_trace.cu", "packet_trace_dual.cu", "visit_microbench.cu",
-                        "brute_intersect.cu", "bvh_builder.cpp")}
+                        "brute_intersect.cu", "bvh_builder.cpp", "fma_peak.cu")}
     with open(csrc / "packet_visit.cuh", "a") as f:
         f.write("// changed\n")
     after = {s: native_build.library_path(s) for s in before}
@@ -147,7 +185,7 @@ def test_a_nested_header_change_rebuilds_its_users(tmp_path, monkeypatch):
     shutil.copytree(native_build.CSRC, csrc)
     monkeypatch.setattr(native_build, "CSRC", csrc)
     sources = ("packet_trace.cu", "packet_trace_dual.cu", "visit_microbench.cu",
-               "brute_intersect.cu", "bvh_builder.cpp")
+               "brute_intersect.cu", "bvh_builder.cpp", "fma_peak.cu")
     before = {s: native_build.library_path(s) for s in sources}
     with open(csrc / "packet_group.cuh", "a") as f:
         f.write("// changed\n")
@@ -231,6 +269,33 @@ def test_perray_oracles_default_to_cuda(integrator, monkeypatch):
     assert render.render(scene, device="cpu").shape == (4, 4, 3)
 
 
+def test_measurement_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The bench's _render and its main, entry(), dryrun_multichip() and
+    the small_gdpt example raise (or, the bench's main, exit 2) without a
+    card unless the CPU is asked for; the FMA peak is measured on a card
+    only."""
+    from gdpt_tpu_torch import bench, entry
+    from gdpt_tpu_torch.examples import small_gdpt
+    from gdpt_tpu_torch.tools import fma_peak
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = presets.cornell_box(4, 4, spp=1, max_depth=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench._render(scene, 1)
+    assert bench.main(["--only", "cbox_512_path"]) == 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(2)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        small_gdpt.main(["1", "--width", "8", "--height", "6"])
+    assert not list(tmp_path.iterdir())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fma_peak.main(["fma_peak"])
+    assert bench._render(scene, 1, device="cpu")[0].shape == (4, 4, 3)
+
+
 def test_render_on_cpu_when_asked():
     img = render.render(presets.cornell_box(8, 8, spp=1, max_depth=3), device="cpu")
     assert img.shape == (8, 8, 3) and img.dtype == np.float32
@@ -269,6 +334,12 @@ def test_cuda_tensors_never_reach_a_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="cuda or cpu"):
         brute_kernels.intersect_brute(torch.zeros((9, 1), device="meta"),
                                       torch.zeros((4, 1), device="meta"), 1, 0, *(meta,) * 7, 0.0)
+    from gdpt_tpu_torch.tools import fma_peak
+
+    monkeypatch.setattr(fma_peak, "_lib", None)
+    monkeypatch.setattr(fma_peak, "fma_peak_plain", None)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fma_peak.fma_peak(meta)
 
 
 def test_package_runs_with_jax_unimportable():
