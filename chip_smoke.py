@@ -261,7 +261,32 @@ Phases, each fatal on failure:
      detail.reduced, its rays those of one render.render of the same
      scene, K1 and K2 counted) and for icosphere_box_gradpath on phase
      7's scene (its rays phase 15's, K3 counted); examples/small_gdpt at
-     64x48, 2 spp; entry() and dryrun_multichip(4) on cuda:0.
+     64x48, 2 spp; entry() and dryrun_multichip(4) on cuda:0;
+ 46. the stage profilers and cast A/B tools of gdpt_tpu_torch/tools, each
+     stage row with its wall, its device operations and device time from
+     one torch.profiler run, and K1-K4's launches and share: profile_render
+     (a banded sample replayed stage by stage, 8 bounces, then 2^20-ray
+     probes) on the 512x512 BVH material box (tools/stand_ins.py
+     material_box_bvh) and on the cbox: bounce 1's live lanes equal the
+     primary hits, every stage launches;
+ 47. profile_wavefront (the wavefront body stage by stage on a pool of
+     262,144 lanes after 24 iterations) and profile_nee on the material
+     box: the stages' summed device time within the body's wall;
+ 48. trace_decompose on the icosphere box's captured pool rays: sort, the
+     sorted cast, the pre-sorted cast, K3 alone (closest, any hit), the
+     unsort and the hit attributes; the pre-sorted cast, unsorted, equal to
+     the sorted cast bit for bit;
+ 49. ab_dual_kernel (K4 against K3 on the 16-wide table: equal hits
+     first), ab_wide_kernel (32- against 16-wide: equal masks, prims but
+     on ties), chain_sweep (1-16 chained casts, eager and one CUDA graph,
+     time = C + K x cast fitted; K3 and K4) on the icosphere box's pool,
+     bounce and shadow rays, and occl_ab on the icosphere box (K3 any hit)
+     and the cbox (K2): compacted shadow casts equal full-width ones on
+     every live ray;
+ 50. occupancy_report (banded against wavefront) for the icosphere box's
+     path (2 spp) and gradpath (1 spp) and the grid scene's volpath (1
+     spp): each row's rays equal, and its mean within 1e-5, to those of a
+     render.render of the same scene, integrator and loop.
 
 Prints one "kernels" JSON line (the FMA-peak kernel's row last; every
 row also carries its kernel's
@@ -276,7 +301,9 @@ and K3's and K4's rows under "two_phase" each phase 40 cast's wall
 launches a cast and root-walk share, and K1's to K4's rows under
 "oracles" each phase 43 walk held against that kernel: its wall_ms
 (the plain PyTorch walk's, not a kernel time), steps, host reads, peak
-memory and the rays that differ),
+memory and the rays that differ; K3's rows under "decompose" phase 48's
+stages (wall, device time, launches), K3's and K4's closest-hit rows
+under "chain" phase 49's fits of eager and graph chains),
 then the card's name and power limit, and
 last {"ok": true, "device": {...}}. Exits non-zero, printing no result,
 without a CUDA device or without the gdpt_tpu_torch package beside it.
@@ -329,6 +356,11 @@ SHARD_GRID = dict(spp=2, max_depth=6)  # phase 42: the grid scene volpath, depth
 WALK_CAMERA = 65_536        # phase 43: the camera rays of phase 8 walked by the XLA walks
 WALK_SPP = 1                # phase 44: the icosphere box path with packet=False / max_table_mb=0
 FMA_CHECK = 4096            # phase 45: values the FMA-peak kernel is held to its plain version on
+TOOL_POOL = 1 << 18         # phases 47-49: the captured wavefront pool, the reference tools' default
+TOOL_BOUNCES = 8            # phase 46: bounces replayed, the material box's depth
+OCC_SPP_PATH = 2            # phase 50: occupancy_report's spp (the reference's defaults),
+OCC_SPP_GDPT = 1
+OCC_SPP_VOL = 1             # and the grid scene's volpath, cut from its 2
 # The kernel behind each row of the kernels line, in its order: a part of
 # its mangled name (K3 and K4 as timed, without counts; K5 super32 = mode
 # 4, leaf24 = mode 9).
@@ -3442,6 +3474,151 @@ def _measurement_phase(card, ctx):
     return row
 
 
+def _stage_line(r):
+    """A stage row of the tools as one line: wall, launches (and the
+    device operations the profiler recorded of them), device time, the
+    hand kernels' share."""
+    return (f"{r['wall_ms']:.3f} ms wall, {r['launches']} launches ({r['device_ops']} "
+            f"recorded), device {r['device_ms']:.3f} ms, K1-K4 {r['hand_ms']:.3f} ms in "
+            f"{r['hand_launches']}")
+
+
+def _check_stage_rows(phase, rows):
+    """Every stage launched, and the wrappers' K1-K4 launches are among
+    its launches; prints how many rows the profiler recorded in part
+    (their device time is a lower bound)."""
+    timed = [r for r in rows if "wall_ms" in r and r.get("launches") is not None]
+    if any(not r["launches"] or r["launches"] < r["hand_launches"] for r in timed):
+        raise AssertionError(f"phase {phase}: a stage launched nothing on the card")
+    short = [r.get("stage", r.get("label")) for r in timed if r["device_ops"] < r["launches"]]
+    print(f"phase {phase}: {len(timed) - len(short)} of {len(timed)} stage rows recorded whole "
+          f"by the profiler" + (f"; in part: {short}" if short else ""))
+
+
+def _tool_phases(card, box_dev):
+    """Phases 46-50: the stage profilers and the cast A/B tools of
+    gdpt_tpu_torch/tools on their stand-in scenes (box_dev: phase 7's
+    icosphere box on the card). Returns what K3's and K4's rows of the
+    kernels line gain: phase 48's decomposition and phase 49's chain fits."""
+    import torch
+
+    from gdpt_tpu_torch.integrators import render
+    from gdpt_tpu_torch.tools import (ab_dual_kernel, ab_wide_kernel, chain_sweep, occl_ab,
+                                      occupancy_report, profile_nee, profile_render,
+                                      profile_wavefront, stand_ins, trace_decompose)
+
+    def emit(phase):
+        return lambda line: print(f"phase {phase}: {line}")
+
+    mat, info = stand_ins.load("material_box_bvh", device="cuda")
+    cbox, _ = stand_ins.load("cbox", device="cuda")
+
+    # ---- phase 46: profile_render, bounce by bounce ----
+    t_phase = time.perf_counter()
+    for label, scene in (("material_box_bvh", mat), ("cbox", cbox)):
+        rows = profile_render.profile(scene, bounces=TOOL_BOUNCES)
+        for r in rows:
+            print(f"phase 46: {label} bounce {r['bounce']} {r['stage']} "
+                  f"({r.get('live', r.get('rays'))} lanes): {_stage_line(r)}")
+        profile_render.print_rows(rows, out=emit(46))
+        hits = rows[1]["hits"]
+        live1 = [r["live"] for r in rows if r["bounce"] == 1]
+        print(f"phase 46: {label}: {hits} primary hits of {rows[0]['live']}, bounce 1 live "
+              f"{live1[0] if live1 else 0}, on {card}")
+        if not live1 or live1[0] != hits or not 0 < hits <= rows[0]["live"]:
+            raise AssertionError(f"{label}: bounce 1's live lanes are not the primary hits")
+        _check_stage_rows(46, rows)
+    t_phase = _phase_done(46, t_phase)
+
+    # ---- phase 47: profile_wavefront and profile_nee on the material box ----
+    rows = profile_wavefront.profile(mat, pool=TOOL_POOL)
+    for r in rows:
+        if "wall_ms" in r:
+            print(f"phase 47: wavefront {r['stage']}: {_stage_line(r)}")
+    profile_wavefront.print_rows(rows, out=emit(47))
+    by = {r["stage"]: r for r in rows}
+    stages = by["sum"]["device_ms"]
+    print(f"phase 47: the material box's wavefront iteration ({TOOL_POOL} lanes): body "
+          f"{by['body']['launches']} launches (PR 8's 12,142 a path iteration at 4 spp), "
+          f"device {by['body']['device_ms']:.3f} ms of {by['body']['wall_ms']:.3f} ms wall "
+          f"({by['body']['device_ms'] / by['body']['wall_ms']:.3f} busy); the stages' device "
+          f"time {stages:.3f} ms, on {card}")
+    if stages > by["body"]["wall_ms"]:
+        raise AssertionError("the wavefront stages' device time exceeds the body's wall")
+    _check_stage_rows(47, [r for r in rows if r["stage"] != "sum"])
+    rows = profile_nee.profile(mat, pool=TOOL_POOL)
+    _check_stage_rows(47, rows)
+    for r in rows:
+        if "wall_ms" in r:
+            print(f"phase 47: nee {r['stage']}: {_stage_line(r)}"
+                  + (f" ({r['live_shadow']} live shadow rays)" if "live_shadow" in r else ""))
+        else:
+            print(f"phase 47: nee pool {r['pool']}")
+    t_phase = _phase_done(47, t_phase)
+
+    # ---- phase 48: trace_decompose on the icosphere box's pool rays ----
+    rows = trace_decompose.decompose(box_dev, pool=TOOL_POOL)
+    trace_decompose.print_rows(rows, out=emit(48))
+    by = {r["stage"]: r for r in rows}
+    if by["check"]["rays_differing"]:
+        raise AssertionError("the pre-sorted cast differs from the sorted cast")
+    _check_stage_rows(48, rows)
+    decompose = {k: {key: by[k][key] for key in ("wall_ms", "device_ms", "launches",
+                                                 "device_ops")}
+                 for k in ("sort", "trace_sorted", "trace_presorted", "kernel", "kernel_any_hit",
+                           "unsort", "hit_attribs")}
+    print(f"phase 48: {by['rays']['rays']} pool rays: sort {by['sort']['device_ms']:.3f}, walk "
+          f"{by['kernel']['device_ms']:.3f}, unsort {by['unsort']['device_ms']:.3f}, attributes "
+          f"{by['hit_attribs']['device_ms']:.3f} ms of device time; the whole cast "
+          f"{by['trace_sorted']['device_ms']:.3f} ms device, {by['trace_sorted']['wall_ms']:.3f} "
+          f"ms wall; the pre-sorted cast equal bit for bit, on {card}")
+    t_phase = _phase_done(48, t_phase)
+
+    # ---- phase 49: the cast A/B tools ----
+    for tool in (ab_dual_kernel, ab_wide_kernel):
+        rows = tool.ab(box_dev, pool=TOOL_POOL)
+        for r in rows:
+            print(f"phase 49: {tool.__name__.rsplit('.', 1)[1]} {json.dumps(r)}")
+        _check_stage_rows(49, rows)
+    chain = {}
+    for dual in (False, True):
+        rows = chain_sweep.sweep(box_dev, dual=dual, pool=TOOL_POOL)
+        for r in rows:
+            print(f"phase 49: chain_sweep {'K4' if dual else 'K3'} {json.dumps(r)}")
+        if not rows[0]["hit_frac"] > 0:
+            raise AssertionError("chain_sweep: the cast hit nothing")
+        fits = {r["fit"]: r for r in rows if "fit" in r}
+        chain["K4 closest" if dual else "K3 closest"] = {
+            "hit_frac": rows[0]["hit_frac"], "rays": rows[0]["rays"],
+            "eager_C_ms": fits["eager"]["C_ms"], "eager_cast_ms": fits["eager"]["cast_ms"],
+            "graph_C_ms": fits["graph"]["C_ms"], "graph_cast_ms": fits["graph"]["cast_ms"]}
+    for label, scene in (("icosphere_box", box_dev), ("cbox", cbox)):
+        rows = occl_ab.ab(scene, pool=TOOL_POOL)
+        for r in rows:
+            print(f"phase 49: occl_ab {label} {json.dumps(r)}")
+        _check_stage_rows(49, rows)
+    t_phase = _phase_done(49, t_phase)
+
+    # ---- phase 50: occupancy_report against render.render ----
+    grid, _ = stand_ins.load("volpath_grid6", device="cuda")
+    for name, scene, spp in (("sponza", box_dev, OCC_SPP_PATH), ("volpath6", grid, OCC_SPP_VOL)):
+        rows = occupancy_report.run(scene, name, spp_path=spp, spp_gdpt=OCC_SPP_GDPT,
+                                    out=emit(50))
+        for r in rows:
+            img, rays = render.render(_with_integrator(scene, r["integrator"]), spp=r["spp"],
+                                      seed=0, device="cuda", return_stats=True,
+                                      wavefront=r["mode"] == "wavefront")
+            mean = float(img.mean())
+            print(f"phase 50: {name} {r['integrator']} {r['mode']}: render.render rays "
+                  f"{rays:.0f}, mean {mean:.6f}; the tool's {r['rays']:.0f}, {r['mean']}")
+            # The wavefront's scatter-add sums in no fixed order on the card.
+            if rays != r["rays"] or abs(round(mean, 5) - r["mean"]) > 1e-5 * abs(mean) + 1e-5:
+                raise AssertionError(f"occupancy_report's {name} {r['integrator']} "
+                                     f"{r['mode']} row disagrees with render.render")
+    _phase_done(50, t_phase)
+    return decompose, chain
+
+
 def _phase_done(phase, since):
     now = time.perf_counter()
     print(f"phase {phase}: done in {now - since:.1f} s")
@@ -3507,6 +3684,7 @@ def main():
     _sharding_phase(card, ctx)
     oracles = _walk_phases(card, ctx)
     rows.append(_measurement_phase(card, ctx))
+    decompose, chain = _tool_phases(card, ctx["scene_dev"])
     if len(rows) != len(KERNEL_ENTRIES):
         raise AssertionError(f"{len(rows)} kernel rows for {len(KERNEL_ENTRIES)} entries")
     for row, (name, entry) in zip(rows, KERNEL_ENTRIES):
@@ -3525,6 +3703,11 @@ def main():
     for row, name in zip(rows[:6], ("K1", "K2", "K3 closest", "K3 any hit", "K4 closest",
                                     "K4 any hit")):
         row["oracles"] = oracles[name]
+    rows[2]["decompose"] = {k: decompose[k] for k in ("sort", "trace_sorted", "trace_presorted",
+                                                      "kernel", "unsort", "hit_attribs")}
+    rows[3]["decompose"] = {k: decompose[k] for k in ("sort", "kernel_any_hit")}
+    rows[2]["chain"] = chain["K3 closest"]
+    rows[4]["chain"] = chain["K4 closest"]
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -115,7 +115,7 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
 def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
            packet_wide=32, packet_dual=False, two_phase=False, packet_sort=True,
            premerge=False, entry_k=ENTRY_K, pool_sort=False, return_aux=False, packet=True,
-           max_table_mb=None):
+           max_table_mb=None, wavefront=None):
     """Render `scene` on `device`; returns an (h, w, 3) float32 numpy
     image (for "gradpath" the reconstruction), with return_aux ("gradpath"
     only) also the dict of its primal, primal_bf, gx and gy images, and
@@ -135,7 +135,10 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     reads GDPT_PACKET_WIDE, GDPT_PACKET_DUAL, GDPT_TWO_PHASE and the table
     switches only on its packet route; packet_dual, two_phase, pool_sort
     or packet_sort=False on a BVH scene left without a table raise
-    ValueError."""
+    ValueError. wavefront (GDPT_WAVEFRONT) picks the SoA renderers' loop:
+    None, the default, the wavefront lane pool for BVH scenes and the
+    banded loop otherwise; True or False the one named. An integrator the
+    reference does not know raises its ValueError."""
     device = resolve_device(device)
     integrator = scene.static.options.integrator
     walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, two_phase=two_phase,
@@ -155,7 +158,8 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
             return render_samples(scene_to(scene, device), path.trace_path, spp=spp,
                                   seed=seed, return_stats=return_stats, **walk)
         return path_soa.render_soa(scene_to(scene, device), spp=spp, seed=seed,
-                                   return_stats=return_stats, pool_sort=pool_sort, **walk)
+                                   return_stats=return_stats, pool_sort=pool_sort,
+                                   wavefront=wavefront, **walk)
     if integrator == "gradpath":
         from gdpt_tpu_torch.integrators import gdpt_soa
 
@@ -166,7 +170,7 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
                                         device=device, return_stats=return_stats, **walk)
         return gdpt_soa.render_gradpath_soa(scene_to(scene, device), spp=spp, seed=seed,
                                             return_aux=return_aux, return_stats=return_stats,
-                                            pool_sort=pool_sort, **walk)
+                                            pool_sort=pool_sort, wavefront=wavefront, **walk)
     if integrator == "volpath":
         from gdpt_tpu_torch.integrators import volpath_soa
 
@@ -177,6 +181,5 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
                                   spp=spp, seed=seed, return_stats=return_stats, **walk)
         return volpath_soa.render_volpath_soa(scene_to(scene, device), spp=spp, seed=seed,
                                               return_stats=return_stats, pool_sort=pool_sort,
-                                              **walk)
-    raise NotImplementedError(
-        f"integrator {integrator!r} is not ported yet; see ROADMAP.md")
+                                              wavefront=wavefront, **walk)
+    raise ValueError(f"unknown integrator: {integrator}")

@@ -217,8 +217,8 @@ def _pool_shadow_rays(scene, sc, org, d, alive, tnear):
     return v.position, dl, tfar, int(need.sum())
 
 
-def chained_ms(cast, reps=3):
-    """Least ms of SOL_CHAIN_K casts captured as one CUDA graph, over
+def chained_ms(cast, reps=3, k=SOL_CHAIN_K):
+    """Least ms of k (SOL_CHAIN_K) casts captured as one CUDA graph, over
     `reps` replays each timed by CUDA events, and the graph's last cast's
     output (from the last replay)."""
     side = torch.cuda.Stream()
@@ -229,7 +229,7 @@ def chained_ms(cast, reps=3):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(SOL_CHAIN_K):
+        for _ in range(k):
             last = cast()
     graph.replay()
     best = float("inf")

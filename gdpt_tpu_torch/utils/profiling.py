@@ -68,3 +68,116 @@ def device_trace(logdir):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+# The hand-written ray-casting kernels, by a part of each kernel's name as
+# the profiler records it: K1, K2 (accel/brute_kernels.py), K3 and K4
+# (accel/packet_kernels.py).
+HAND_KERNELS = ("intersect_brute_kernel", "occluded_brute_kernel", "packet_trace_kernel",
+                "packet_trace_dual_kernel")
+
+
+def _hand_launches():
+    from gdpt_tpu_torch.accel import brute_kernels, packet_kernels
+
+    return sum(brute_kernels.LAUNCHES.values()) + sum(packet_kernels.LAUNCHES.values())
+
+
+# The CUDA API calls that put an operation on the device.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def device_stats(prof):
+    """From a torch.profiler run: the device operations launched
+    (`launches`: kernel launches, copies and fills, counted from the
+    host's runtime calls), the device operations the profiler recorded
+    (`device_ops`), their summed device time (`device_ms`) and the hand
+    kernels' share of it (`hand_ms`). The profiler can lose some or all
+    of a run's device records while its host records stay whole:
+    device_ops < launches says so."""
+    import torch
+
+    averages = prof.key_averages()
+    # A scheduled profiler also puts its step on the device's timeline as
+    # an annotation spanning the step's kernels ("ProfilerStep#n"): not
+    # an operation.
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.key.startswith("ProfilerStep")
+              and not getattr(e, "is_user_annotation", False)]
+    dev_us = [(e.key, getattr(e, "self_device_time_total", 0), e.count) for e in events]
+    return {
+        "launches": sum(e.count for e in averages
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and any(e.key.startswith(c) for c in LAUNCH_CALLS)),
+        "device_ops": sum(count for _, _, count in dev_us),
+        "device_ms": sum(us for _, us, _ in dev_us) / 1e3,
+        "hand_ms": sum(us for key, us, _ in dev_us
+                       if any(name in key for name in HAND_KERNELS)) / 1e3,
+    }
+
+
+def stage_profile(fn, *args, device, reps=3, setup=None):
+    """Time one stage as the reference's tools time a jitted stage: a
+    warm call, then the least wall of `reps` calls, each between
+    synchronizes. Returns (the last call's output, row), row holding
+    `wall_ms` and, on the card, from one more call under torch.profiler
+    (the active step of a profiler run whose warm-up step makes one call
+    too):
+    `launches`, `device_ops`, `device_ms`, `hand_ms` (device_stats) and
+    `hand_launches` (the K1-K4 wrappers' LAUNCHES counted in that call);
+    on the CPU those five are None. In the eager port a stage's wall is
+    mostly host launches, so the device time is the stage's own split.
+
+    setup: a function returning the call's arguments, called before every
+    call outside its timing (a stage that updates its inputs in place
+    gets fresh copies); else `args` are passed to every call."""
+    import torch
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def call_args():
+        return setup() if setup is not None else args
+
+    out = fn(*call_args())
+    best = float("inf")
+    for _ in range(reps):
+        a = call_args()
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        sync()
+        best = min(best, time.perf_counter() - t0)
+    row = {"wall_ms": best * 1e3, "launches": None, "device_ops": None, "device_ms": None,
+           "hand_ms": None, "hand_launches": None}
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile, schedule
+
+        # The call is profiled in the active step of a profiler run whose
+        # warm-up step (a warm call, and the arguments' setup) runs while
+        # CUPTI starts. A run that recorded fewer device operations than
+        # were launched is taken again, up to four times; the most
+        # complete one is kept.
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+                fn(*call_args())
+                a = call_args()
+                sync()
+                before = _hand_launches()
+                prof.step()
+                fn(*a)
+                sync()
+                hand = _hand_launches() - before
+                prof.step()
+            stats = device_stats(prof)
+            if row["device_ops"] is None or stats["device_ops"] > row["device_ops"]:
+                row.update(stats, hand_launches=hand)
+            if stats["device_ops"] >= stats["launches"]:
+                break
+    return out, row

@@ -63,7 +63,8 @@ def test_slice_modules_are_covered():
                    "integrators/path.py", "integrators/gdpt.py", "parallel/sharding.py",
                    "accel/traverse.py", "accel/super16.py", "bench.py", "entry.py",
                    "examples/small_gdpt.py", "tools/speed_of_light.py",
-                   "tools/wavefront_visits.py", "tools/fma_peak.py"):
+                   "tools/wavefront_visits.py", "tools/fma_peak.py", "tools/stand_ins.py",
+                   *(f"tools/{name}" for name in TOOLS)):
         assert f"gdpt_tpu_torch/{module}" in names
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
@@ -87,19 +88,20 @@ def test_every_reference_module_has_a_counterpart():
 
 # The reference's scripts around its package and their counterparts in the
 # port (tools/wavefront_visits.py: capture_pool_rays only).
+TOOLS = ["profile_render.py", "profile_wavefront.py", "profile_nee.py", "trace_decompose.py",
+         "occupancy_report.py", "ab_dual_kernel.py", "ab_wide_kernel.py", "chain_sweep.py",
+         "occl_ab.py"]
 SCRIPTS = {"bench.py": "bench.py", "__graft_entry__.py": "entry.py",
            "examples/small_gdpt_tpu.py": "examples/small_gdpt.py",
            "tools/speed_of_light.py": "tools/speed_of_light.py",
            "tools/wavefront_visits.py": "tools/wavefront_visits.py",
-           "tools/visit_microbench.py": "tools/visit_microbench.py"}
+           "tools/visit_microbench.py": "tools/visit_microbench.py",
+           **{f"tools/{name}": f"tools/{name}" for name in TOOLS}}
 # Reference scripts with no counterpart yet; ROADMAP.md names each with
 # why it waits.
-WAITS = ["ab_dual_kernel.py", "ab_wide_kernel.py", "bench_ab.py", "chain_sweep.py",
-         "env_lookup_bench.py", "kernel_sweep.py", "make_goldens.py", "occl_ab.py",
-         "occupancy_report.py", "profile_nee.py", "profile_render.py",
-         "profile_wavefront.py", "render_gallery.py", "render_sponza_gdpt.py",
-         "sheen_outlier.py", "trace_decompose.py", "validate.py", "validate_disney.py",
-         "visit_count.py", "wide_visit_count.py"]
+WAITS = ["bench_ab.py", "env_lookup_bench.py", "kernel_sweep.py", "make_goldens.py",
+         "render_gallery.py", "render_sponza_gdpt.py", "sheen_outlier.py", "validate.py",
+         "validate_disney.py", "visit_count.py", "wide_visit_count.py"]
 
 
 def test_every_reference_script_has_a_counterpart_or_waits():
@@ -128,7 +130,8 @@ NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.
                "ops/media.py", "ops/intersect.py", "integrators/volpath.py",
                "integrators/path.py", "integrators/gdpt.py", "accel/packet_trace.py",
                "integrators/path_soa.py", "integrators/volpath_soa.py", "parallel/sharding.py",
-               "accel/traverse.py", "accel/super16.py"]
+               "accel/traverse.py", "accel/super16.py", "tools/stand_ins.py",
+               *(f"tools/{name}" for name in TOOLS)]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
