@@ -591,8 +591,20 @@ def _brute_phases(card):
         k2_err = max(k2_err, _compare_k2(bk.occluded_brute(*soups, *pos, *dl, s_far, seps),
                                          bk.occluded_brute_plain(*soups, *pos, *dl, s_far, seps),
                                          f"shadow rays, {what}", s_far > seps))
+    # A per-ray tnear, 0 or the epsilon by lane, as the wavefront casts
+    # primary and bounce rays together.
+    lane = _dead_lanes(n, 0.5, "lanes", dev, seed=7)
+    k1_err = max(k1_err, _compare_k1(
+        bk.intersect_brute(*soups, *pos, *rd, big, torch.where(lane, 0.0, eps)),
+        bk.intersect_brute_plain(*soups, *pos, *rd, big, torch.where(lane, 0.0, eps)),
+        "bounce rays, per-ray tnear"))
+    k2_err = max(k2_err, _compare_k2(
+        bk.occluded_brute(*soups, *pos, *dl, tfar, torch.where(lane, 0.0, seps)),
+        bk.occluded_brute_plain(*soups, *pos, *dl, tfar, torch.where(lane, 0.0, seps)),
+        "shadow rays, per-ray tnear", live))
     torch.cuda.synchronize()
-    print("phase 2: K1 and K2 equal their plain versions bit for bit")
+    print("phase 2: K1 and K2 equal their plain versions bit for bit (a scalar and a per-ray "
+          "tnear)")
 
     # ---- phase 3: the brute-force main path on cuda ----
     for k in bk.LAUNCHES:
@@ -3475,24 +3487,30 @@ def _measurement_phase(card, ctx):
 
 
 def _stage_line(r):
-    """A stage row of the tools as one line: wall, launches (and the
-    device operations the profiler recorded of them), device time, the
-    hand kernels' share."""
-    return (f"{r['wall_ms']:.3f} ms wall, {r['launches']} launches ({r['device_ops']} "
-            f"recorded), device {r['device_ms']:.3f} ms, K1-K4 {r['hand_ms']:.3f} ms in "
-            f"{r['hand_launches']}")
+    """A stage row of the tools as one line: wall, launches, device time
+    where the profiler recorded the stage whole, the hand kernels' share,
+    and the stage's span between CUDA events."""
+    from gdpt_tpu_torch.utils.profiling import device_note
+
+    return f"{r['wall_ms']:.3f} ms wall, {device_note(r)}"
 
 
 def _check_stage_rows(phase, rows):
-    """Every stage launched, and the wrappers' K1-K4 launches are among
-    its launches; prints how many rows the profiler recorded in part
-    (their device time is a lower bound)."""
+    """Every stage launched, the wrappers' K1-K4 launches are among its
+    launches, and every row has its CUDA-event span; prints which rows
+    the profiler did not record whole (their device time is None)."""
     timed = [r for r in rows if "wall_ms" in r and r.get("launches") is not None]
-    if any(not r["launches"] or r["launches"] < r["hand_launches"] for r in timed):
+    if any(not r["launches"] or r["launches"] < r["hand_launches"] or not r["event_ms"] > 0
+           for r in timed):
         raise AssertionError(f"phase {phase}: a stage launched nothing on the card")
-    short = [r.get("stage", r.get("label")) for r in timed if r["device_ops"] < r["launches"]]
+    short = [r.get("stage", r.get("label")) for r in timed if not r["whole"]]
     print(f"phase {phase}: {len(timed) - len(short)} of {len(timed)} stage rows recorded whole "
-          f"by the profiler" + (f"; in part: {short}" if short else ""))
+          f"by the profiler" + (f"; not whole (device time not measured): {short}"
+                                if short else ""))
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.3f} ms"
 
 
 def _tool_phases(card, box_dev):
@@ -3537,13 +3555,20 @@ def _tool_phases(card, box_dev):
             print(f"phase 47: wavefront {r['stage']}: {_stage_line(r)}")
     profile_wavefront.print_rows(rows, out=emit(47))
     by = {r["stage"]: r for r in rows}
-    stages = by["sum"]["device_ms"]
+    body = by["body"]
+    # Each stage's device time where the profiler recorded it whole, else
+    # its CUDA-event span, an upper bound on it: no lost record lowers the
+    # sum.
+    parts = [by[k] for k in by["sum"]["parts"]]
+    stages = sum(r["device_ms"] if r["whole"] else r["event_ms"] for r in parts)
+    busy = ("" if body["device_ms"] is None else
+            f" ({body['device_ms'] / body['wall_ms']:.3f} busy)")
     print(f"phase 47: the material box's wavefront iteration ({TOOL_POOL} lanes): body "
-          f"{by['body']['launches']} launches (PR 8's 12,142 a path iteration at 4 spp), "
-          f"device {by['body']['device_ms']:.3f} ms of {by['body']['wall_ms']:.3f} ms wall "
-          f"({by['body']['device_ms'] / by['body']['wall_ms']:.3f} busy); the stages' device "
-          f"time {stages:.3f} ms, on {card}")
-    if stages > by["body"]["wall_ms"]:
+          f"{body['launches']} launches (phase 23 counts 12,142 a path iteration at 4 spp), device "
+          f"{_ms(body['device_ms'])} of {body['wall_ms']:.3f} ms wall{busy}; the stages' device "
+          f"time at most {stages:.3f} ms ({sum(not r['whole'] for r in parts)} of {len(parts)} "
+          f"by their event span), on {card}")
+    if stages > body["wall_ms"]:
         raise AssertionError("the wavefront stages' device time exceeds the body's wall")
     _check_stage_rows(47, [r for r in rows if r["stage"] != "sum"])
     rows = profile_nee.profile(mat, pool=TOOL_POOL)
@@ -3563,15 +3588,22 @@ def _tool_phases(card, box_dev):
     if by["check"]["rays_differing"]:
         raise AssertionError("the pre-sorted cast differs from the sorted cast")
     _check_stage_rows(48, rows)
-    decompose = {k: {key: by[k][key] for key in ("wall_ms", "device_ms", "launches",
-                                                 "device_ops")}
+    # device_ms is the profiler's, None where it did not record the stage
+    # whole; event_ms the CUDA-event span, the device time of the walk and
+    # of the unsort (one and two launches).
+    decompose = {k: {key: by[k][key] for key in ("wall_ms", "event_ms", "device_ms",
+                                                 "launches", "device_ops")}
                  for k in ("sort", "trace_sorted", "trace_presorted", "kernel", "kernel_any_hit",
                            "unsort", "hit_attribs")}
-    print(f"phase 48: {by['rays']['rays']} pool rays: sort {by['sort']['device_ms']:.3f}, walk "
-          f"{by['kernel']['device_ms']:.3f}, unsort {by['unsort']['device_ms']:.3f}, attributes "
-          f"{by['hit_attribs']['device_ms']:.3f} ms of device time; the whole cast "
-          f"{by['trace_sorted']['device_ms']:.3f} ms device, {by['trace_sorted']['wall_ms']:.3f} "
-          f"ms wall; the pre-sorted cast equal bit for bit, on {card}")
+    print(f"phase 48: {by['rays']['rays']} pool rays, CUDA-event spans: sort "
+          f"{by['sort']['event_ms']:.3f}, walk {by['kernel']['event_ms']:.3f}, unsort "
+          f"{by['unsort']['event_ms']:.3f}, attributes {by['hit_attribs']['event_ms']:.3f}, the "
+          f"whole cast {by['trace_sorted']['event_ms']:.3f} ms; profiler device time: sort "
+          f"{_ms(by['sort']['device_ms'])}, walk {_ms(by['kernel']['device_ms'])}, unsort "
+          f"{_ms(by['unsort']['device_ms'])}, attributes {_ms(by['hit_attribs']['device_ms'])}, "
+          f"the whole cast {_ms(by['trace_sorted']['device_ms'])} "
+          f"({by['trace_sorted']['wall_ms']:.3f} ms wall); the pre-sorted cast equal bit for "
+          f"bit, on {card}")
     t_phase = _phase_done(48, t_phase)
 
     # ---- phase 49: the cast A/B tools ----

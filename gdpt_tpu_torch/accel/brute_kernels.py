@@ -11,11 +11,14 @@ CPU. For CUDA tensors it launches the kernel or raises: there is no
 fallback. LAUNCHES counts kernel launches, one per call that reached a
 kernel, so a run can show that its main path went through them.
 
-Both kernels take a per-ray tfar and look for hits within [tnear, tfar);
-a lane with tfar <= tnear is dead and gets a miss. The plain versions
-repeat the kernels' arithmetic operation for operation (broadcast over
-(primitives, rays); argmin takes the first minimum, which is the
-kernel's lowest-index tie rule), so the two agree bit for bit.
+Both kernels take a per-ray tfar and a tnear, a scalar for every ray or
+an (N,) tensor (the wavefront casts primary rays from 0 and bounce rays
+from the intersection epsilon in one launch), and look for hits within
+[tnear, tfar); a lane with tfar <= tnear is dead and gets a miss. The
+plain versions repeat the kernels' arithmetic operation for operation
+(broadcast over (primitives, rays); argmin takes the first minimum,
+which is the kernel's lowest-index tie rule), so the two agree bit for
+bit.
 """
 
 import ctypes
@@ -45,17 +48,29 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.gdpt_intersect_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, f,
+        lib.gdpt_intersect_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, f,
                                              p, p, p, p, p, p, p, p]
         lib.gdpt_intersect_brute.restype = i
-        lib.gdpt_occluded_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, i, f,
+        lib.gdpt_occluded_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, f,
                                             p, p]
         lib.gdpt_occluded_brute.restype = i
         _lib = lib
     return _lib
 
 
-def _check(tri_soup, sph_soup, n_tris, n_sph, rays):
+def _tnear(tnear):
+    """tnear as an f32-rounded Python float, or as the (N,) tensor it is."""
+    if isinstance(tnear, torch.Tensor) and tnear.dim():
+        return tnear
+    return float(np.float32(tnear))
+
+
+def _check(tri_soup, sph_soup, n_tris, n_sph, rays, tnear):
+    """(N, device, tnear (_tnear)); a per-ray tnear is checked as a ray
+    component."""
+    tnear = _tnear(tnear)
+    if isinstance(tnear, torch.Tensor):
+        rays = (*rays, tnear)
     n = rays[0].shape[0]
     dev = rays[0].device
     if not (0 <= n_tris <= MAX_PRIMS and 0 <= n_sph <= MAX_PRIMS):
@@ -72,7 +87,7 @@ def _check(tri_soup, sph_soup, n_tris, n_sph, rays):
             raise ValueError("ray components must all be (N,)")
     if n >= 2 ** 31:
         raise ValueError("brute kernels take fewer than 2^31 rays")
-    return n, dev
+    return n, dev, tnear
 
 
 def _raise_on(err, what):
@@ -82,6 +97,13 @@ def _raise_on(err, what):
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _tnear_args(tnear):
+    """The kernels' (per-ray tnear pointer or null, scalar tnear)."""
+    if isinstance(tnear, torch.Tensor):
+        return _ptr(tnear), 0.0
+    return ctypes.c_void_p(None), tnear
 
 
 def _tri_test_rows(tri_soup, n_tris, o, d, tnear, tfar):
@@ -139,7 +161,7 @@ def _sphere_test_rows(sph_soup, n_sph, o, d, tnear, tfar):
 def intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
                           ox, oy, oz, dx, dy, dz, tfar, tnear):
     """K1's contract in plain PyTorch: (t, prim, u, v, gx, gy, gz)."""
-    tnear = float(np.float32(tnear))
+    tnear = _tnear(tnear)
     n = ox.shape[0]
     dev = ox.device
     o, d = (ox, oy, oz), (dx, dy, dz)
@@ -182,7 +204,7 @@ def intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
 def occluded_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
                          ox, oy, oz, dx, dy, dz, tfar, tnear):
     """K2's contract in plain PyTorch: blocked (N,) float32 0/1."""
-    tnear = float(np.float32(tnear))
+    tnear = _tnear(tnear)
     o, d = (ox, oy, oz), (dx, dy, dz)
     blocked = torch.zeros(ox.shape[0], dtype=torch.bool, device=ox.device)
     if n_tris:
@@ -194,10 +216,11 @@ def occluded_brute_plain(tri_soup, sph_soup, n_tris, n_sph,
 
 def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, tfar, tnear):
     """Closest hit of every ray within [tnear, tfar) over all primitives
-    (K1). Returns (t, prim, u, v, gx, gy, gz); a miss, and every lane with
-    tfar <= tnear, gives t = BIG, prim = -1, u = v = 0, g = (0, 0, 1)."""
+    (K1); tnear a scalar or an (N,) tensor. Returns (t, prim, u, v, gx,
+    gy, gz); a miss, and every lane with tfar <= tnear, gives t = BIG,
+    prim = -1, u = v = 0, g = (0, 0, 1)."""
     rays = (ox, oy, oz, dx, dy, dz, tfar)
-    n, dev = _check(tri_soup, sph_soup, n_tris, n_sph, rays)
+    n, dev, tnear = _check(tri_soup, sph_soup, n_tris, n_sph, rays, tnear)
     if dev.type == "cpu":
         return intersect_brute_plain(tri_soup, sph_soup, n_tris, n_sph, *rays, tnear)
     if dev.type != "cuda":
@@ -206,11 +229,12 @@ def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, t
     f = lambda: torch.empty(n, dtype=REAL, device=dev)  # noqa: E731
     t, u, v, gx, gy, gz = f(), f(), f(), f(), f(), f()
     prim = torch.empty(n, dtype=INT, device=dev)
+    lane_tnear, tnear = _tnear_args(tnear)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gdpt_intersect_brute(
-            _ptr(tri_soup), n_tris, _ptr(sph_soup), n_sph, *map(_ptr, rays), n,
-            float(tnear), _ptr(t), _ptr(prim), _ptr(u), _ptr(v),
+            _ptr(tri_soup), n_tris, _ptr(sph_soup), n_sph, *map(_ptr, rays), lane_tnear, n,
+            tnear, _ptr(t), _ptr(prim), _ptr(u), _ptr(v),
             _ptr(gx), _ptr(gy), _ptr(gz), ctypes.c_void_p(stream))
     LAUNCHES["intersect"] += n > 0
     _raise_on(err, "intersect_brute_kernel")
@@ -218,21 +242,23 @@ def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, t
 
 
 def occluded_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, tfar, tnear):
-    """Any hit within [tnear, tfar) per ray (K2); a lane with tfar <=
-    tnear is dead and gives 0. Returns blocked (N,) float32 0/1."""
+    """Any hit within [tnear, tfar) per ray (K2; tnear a scalar or an (N,)
+    tensor); a lane with tfar <= tnear is dead and gives 0. Returns
+    blocked (N,) float32 0/1."""
     rays = (ox, oy, oz, dx, dy, dz, tfar)
-    n, dev = _check(tri_soup, sph_soup, n_tris, n_sph, rays)
+    n, dev, tnear = _check(tri_soup, sph_soup, n_tris, n_sph, rays, tnear)
     if dev.type == "cpu":
         return occluded_brute_plain(tri_soup, sph_soup, n_tris, n_sph, *rays, tnear)
     if dev.type != "cuda":
         raise ValueError(f"brute kernels run on cuda or cpu tensors, not {dev}")
     lib = _load()
     blocked = torch.empty(n, dtype=REAL, device=dev)
+    lane_tnear, tnear = _tnear_args(tnear)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gdpt_occluded_brute(
-            _ptr(tri_soup), n_tris, _ptr(sph_soup), n_sph, *map(_ptr, rays), n,
-            float(tnear), _ptr(blocked), ctypes.c_void_p(stream))
+            _ptr(tri_soup), n_tris, _ptr(sph_soup), n_sph, *map(_ptr, rays), lane_tnear, n,
+            tnear, _ptr(blocked), ctypes.c_void_p(stream))
     LAUNCHES["occluded"] += n > 0
     _raise_on(err, "occluded_brute_kernel")
     return blocked

@@ -386,45 +386,25 @@ def _per_ray(tfar, n, dev):
     return torch.full((n,), float(tfar), dtype=REAL, device=dev)
 
 
-def _tnear_groups(tnear, tfar):
-    """[(scalar tnear, tfar)] casts that make up one cast with this tnear:
-    K1 and K2 take one tnear a launch, so a per-lane tnear (the wavefront
-    casts primary rays from 0 and bounce rays from the intersection
-    epsilon) takes a cast per distinct value, each with the other lanes
-    dead (tfar -1). Returns the lane mask of each cast, None for all."""
-    if not (isinstance(tnear, torch.Tensor) and tnear.dim()):
-        return [(tnear, tfar, None)]
-    vals = torch.unique(tnear).tolist()
-    if len(vals) == 1:
-        return [(vals[0], tfar, None)]
-    return [(v, torch.where(tnear == v, tfar, -1.0), tnear == v) for v in vals]
-
-
 def intersect_brute_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
     """Closest hit within [tnear, tfar) over every primitive (K1) and the
     unnormalized geometric normal of the hit primitive. tnear and tfar
-    are scalars or (N,) tensors (_tnear_groups); a lane with tfar <= tnear
-    runs no test and gets a miss (t = BIG, prim -1, normal (0, 0, 1))."""
+    are scalars or (N,) tensors; a lane with tfar <= tnear runs no test
+    and gets a miss (t = BIG, prim -1, normal (0, 0, 1))."""
     tfar = _per_ray(tfar, org.x.shape[0], org.x.device)
-    out = None
-    for tn, tf, lanes in _tnear_groups(tnear, tfar):
-        got = bk.intersect_brute(g.tri_soup, g.sph_soup, static.n_tris, static.n_spheres,
-                                 org.x, org.y, org.z, d.x, d.y, d.z, tf, tn)
-        out = got if out is None else tuple(torch.where(lanes, a, b) for a, b in zip(got, out))
-    t, prim, u, v, gx, gy, gz = out
+    t, prim, u, v, gx, gy, gz = bk.intersect_brute(
+        g.tri_soup, g.sph_soup, static.n_tris, static.n_spheres,
+        org.x, org.y, org.z, d.x, d.y, d.z, tfar, tnear)
     return HitSoA(t, prim, u, v), V3(gx, gy, gz)
 
 
 def occluded_brute_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
     """Any hit within [tnear, tfar) per ray (K2); f32 0/1 mask. tnear and
-    tfar are scalars or (N,) tensors (_tnear_groups); a lane with tfar <=
-    tnear gives 0."""
-    out = None
-    for tn, tf, lanes in _tnear_groups(tnear, _per_ray(tfar, org.x.shape[0], org.x.device)):
-        got = bk.occluded_brute(g.tri_soup, g.sph_soup, static.n_tris, static.n_spheres,
-                                org.x, org.y, org.z, d.x, d.y, d.z, tf, tn)
-        out = got if out is None else torch.where(lanes, got, out)
-    return out
+    tfar are scalars or (N,) tensors; a lane with tfar <= tnear gives 0."""
+    return bk.occluded_brute(
+        g.tri_soup, g.sph_soup, static.n_tris, static.n_spheres,
+        org.x, org.y, org.z, d.x, d.y, d.z, _per_ray(tfar, org.x.shape[0], org.x.device),
+        tnear)
 
 
 def _sph_outside(static):

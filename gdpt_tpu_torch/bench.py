@@ -78,21 +78,24 @@ CONFIGS = (
 )
 
 
+# The configs built in code: (preset of tools/stand_ins.PRESETS, its
+# build's keyword arguments).
+BUILT = {HEADLINE: ("cbox", {}), "icosphere_box_gradpath": ("icosphere_box",
+                                                             {"integrator": "gradpath"}),
+         "volpath_grid6": ("volpath_grid6", {})}
+
+
 def make_scene(cfg: Config, scenes=None):
     """The config's scene, on the host."""
-    from gdpt_tpu_torch.scene import parser, presets
+    from gdpt_tpu_torch.scene import parser
+    from gdpt_tpu_torch.tools import stand_ins
 
     if cfg.scene_file is not None:
         w, h = cfg.size or (None, None)
         return parser.parse_scene(os.path.join(scenes, cfg.scene_file), width=w, height=h)[0]
-    if cfg.name == HEADLINE:
-        return presets.cornell_box(width=512, height=512, spp=CBOX_SPP, max_depth=6)
-    if cfg.name == "icosphere_box_gradpath":
-        return presets.icosphere_box(512, 512, cfg.spp, integrator="gradpath")
-    if cfg.name == "volpath_grid6":
-        return presets.volpath_scene(
-            version=6, width=512, height=512, spp=cfg.spp, g=0.6, with_diffuse_sphere=True,
-            density=presets.medium_grid(64, 3, 0.8), albedo=presets.albedo_grid(64, 4))
+    if cfg.name in BUILT:
+        preset, kw = BUILT[cfg.name]
+        return stand_ins.PRESETS[preset].build(512, 512, cfg.spp, **kw)
     raise ValueError(f"no scene for config {cfg.name!r}")
 
 

@@ -8,16 +8,17 @@
 //      launched by pallas_occluded_brute): any hit within [tnear, tfar).
 //
 // Contract: soups are (9, T) rows v0.xyz e1.xyz e2.xyz and (4, S) rows
-// center.xyz radius, T, S <= 128. Rays are six (N,) component arrays and
-// a per-ray tfar; both kernels look for hits within [tnear, tfar), and a
-// lane with tfar <= tnear (or NaN) is dead: it runs no test. K1's running
-// best is replaced on strict t < best, so the lowest primitive index wins
-// a tie and every triangle comes before every sphere. K1 writes t, prim,
-// u, v and the unnormalized geometric normal (cross(e1, e2), or hit -
-// centre for a sphere); a miss, dead lanes included, gets t = BIG, prim
-// -1, u = v = 0, g = (0, 0, 1). u and v are the closest triangle's, also
-// when a sphere in front of it wins, as in the TPU kernel. K2 writes 0/1
-// as float.
+// center.xyz radius, T, S <= 128. Rays are six (N,) component arrays, a
+// per-ray tfar and a tnear, one for every ray or one per ray (a null
+// per-ray array takes the scalar); both kernels look for hits within
+// [tnear, tfar), and a lane with tfar <= tnear (or NaN) is dead: it runs
+// no test. K1's running best is replaced on strict t < best, so the
+// lowest primitive index wins a tie and every triangle comes before
+// every sphere. K1 writes t, prim, u, v and the unnormalized geometric
+// normal (cross(e1, e2), or hit - centre for a sphere); a miss, dead
+// lanes included, gets t = BIG, prim -1, u = v = 0, g = (0, 0, 1). u and
+// v are the closest triangle's, also when a sphere in front of it wins,
+// as in the TPU kernel. K2 writes 0/1 as float.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores), for K1 at the 512x512 cbox (T = 32, S = 0, N = 262,144, all
@@ -101,24 +102,47 @@ __device__ __forceinline__ void stage_soups(Soups& s, const float* __restrict__ 
 #define BLOCK 256
 #define LANES 2  // lanes per thread in a block's tile
 
+// The rays: six component arrays, tfar, and tnear: a per-ray array, or
+// null for the launch's one tnear.
+struct RayIn {
+  const float* ox;
+  const float* oy;
+  const float* oz;
+  const float* dx;
+  const float* dy;
+  const float* dz;
+  const float* tfar;
+  const float* tnear;
+  __device__ __forceinline__ Ray load(int i) const {
+    return Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+  }
+  __device__ __forceinline__ float near(int i, float scalar) const {
+    return tnear ? tnear[i] : scalar;
+  }
+};
+
 // The live lanes (tfar > tnear) of the block's tile of LANES * BLOCK
 // consecutive lanes, in lane order, into list[]; returns their count,
 // the same in every thread. Thread x reads lanes x and x + BLOCK of the
 // tile and sets bit j of dead where lane x + j * BLOCK exists and is
 // dead. warp_n holds LANES * BLOCK / 32 ints.
-__device__ __forceinline__ int live_lanes(const float* __restrict__ tfar, int n, float tnear,
-                                          unsigned& dead, int* list, int* warp_n) {
+__device__ __forceinline__ int live_lanes(const RayIn& in, int n, float tnear, unsigned& dead,
+                                          int* list, int* warp_n) {
   const int base = blockIdx.x * (LANES * BLOCK) + threadIdx.x;
   const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  float tf[LANES];
+  float tf[LANES], tn[LANES];
 #pragma unroll
-  for (int j = 0; j < LANES; ++j) tf[j] = base + j * BLOCK < n ? tfar[base + j * BLOCK] : 0.0f;
+  for (int j = 0; j < LANES; ++j) {
+    const int i = base + j * BLOCK;
+    tf[j] = i < n ? in.tfar[i] : 0.0f;
+    tn[j] = i < n ? in.near(i, tnear) : 0.0f;
+  }
   unsigned m[LANES];
   dead = 0u;
 #pragma unroll
   for (int j = 0; j < LANES; ++j) {
     const int i = base + j * BLOCK;
-    const bool live = i < n && tf[j] > tnear;
+    const bool live = i < n && tf[j] > tn[j];
     if (i < n && !live) dead |= 1u << j;
     m[j] = __ballot_sync(0xffffffffu, live);
     if (l == 0) warp_n[j * (BLOCK / 32) + w] = __popc(m[j]);
@@ -211,23 +235,11 @@ struct HitOut {
   }
 };
 
-struct RayIn {
-  const float* ox;
-  const float* oy;
-  const float* oz;
-  const float* dx;
-  const float* dy;
-  const float* dz;
-  const float* tfar;
-  __device__ __forceinline__ Ray load(int i) const {
-    return Ray{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-  }
-};
-
 // K1 for one live lane i.
 __device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, const RayIn& in,
-                                        int i, float tnear, const HitOut& out) {
+                                        int i, float tnear_all, const HitOut& out) {
   const Ray r = in.load(i);
+  const float tnear = in.near(i, tnear_all);
   float best = in.tfar[i], bu = 0.0f, bv = 0.0f;
   int bp = -1;
   for (int k = 0; k < n_tris; ++k) {
@@ -278,8 +290,9 @@ __device__ __forceinline__ void closest(const Soups& s, int n_tris, int n_sph, c
 
 // K2 for one live lane i.
 __device__ __forceinline__ float occluded(const Soups& s, int n_tris, int n_sph, const RayIn& in,
-                                          int i, float tnear) {
+                                          int i, float tnear_all) {
   const Ray r = in.load(i);
+  const float tnear = in.near(i, tnear_all);
   const float t_max = in.tfar[i];
   bool blocked = false;
   for (int k = 0; k < n_tris && !blocked; ++k) {
@@ -302,7 +315,7 @@ intersect_brute_kernel(const float* __restrict__ tri, int n_tris,
   __shared__ int list[LANES * BLOCK];
   __shared__ int warp_n[LANES * BLOCK / 32];
   unsigned dead;
-  const int n_live = live_lanes(in.tfar, n, tnear, dead, list, warp_n);
+  const int n_live = live_lanes(in, n, tnear, dead, list, warp_n);
 #pragma unroll
   for (int j = 0; j < LANES; ++j)
     if (dead >> j & 1u) out.miss(blockIdx.x * (LANES * BLOCK) + j * BLOCK + threadIdx.x);
@@ -320,7 +333,7 @@ occluded_brute_kernel(const float* __restrict__ tri, int n_tris,
   __shared__ int list[LANES * BLOCK];
   __shared__ int warp_n[LANES * BLOCK / 32];
   unsigned dead;
-  const int n_live = live_lanes(in.tfar, n, tnear, dead, list, warp_n);
+  const int n_live = live_lanes(in, n, tnear, dead, list, warp_n);
 #pragma unroll
   for (int j = 0; j < LANES; ++j)
     if (dead >> j & 1u) blocked_out[blockIdx.x * (LANES * BLOCK) + j * BLOCK + threadIdx.x] = 0.0f;
@@ -336,17 +349,18 @@ occluded_brute_kernel(const float* __restrict__ tri, int n_tris,
 extern "C" {
 
 // Both return cudaGetLastError() after the launch (0 on success).
+// tnear_lane: an (n,) per-ray tnear, or null for `tnear` on every ray.
 
 int gdpt_intersect_brute(const float* tri, int n_tris, const float* sph, int n_sph,
                          const float* ox, const float* oy, const float* oz,
                          const float* dx, const float* dy, const float* dz, const float* tfar,
-                         int n, float tnear,
+                         const float* tnear_lane, int n, float tnear,
                          float* t, int* prim, float* u, float* v,
                          float* gx, float* gy, float* gz, void* stream) {
   if (n > 0) {
     intersect_brute_kernel<<<(n + LANES * BLOCK - 1) / (LANES * BLOCK), BLOCK, 0,
                              (cudaStream_t)stream>>>(
-        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear,
+        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar, tnear_lane}, n, tnear,
         HitOut{t, prim, u, v, gx, gy, gz});
   }
   return (int)cudaGetLastError();
@@ -355,12 +369,12 @@ int gdpt_intersect_brute(const float* tri, int n_tris, const float* sph, int n_s
 int gdpt_occluded_brute(const float* tri, int n_tris, const float* sph, int n_sph,
                         const float* ox, const float* oy, const float* oz,
                         const float* dx, const float* dy, const float* dz,
-                        const float* tfar, int n, float tnear,
+                        const float* tfar, const float* tnear_lane, int n, float tnear,
                         float* blocked, void* stream) {
   if (n > 0) {
     occluded_brute_kernel<<<(n + LANES * BLOCK - 1) / (LANES * BLOCK), BLOCK, 0,
                             (cudaStream_t)stream>>>(
-        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar}, n, tnear, blocked);
+        tri, n_tris, sph, n_sph, RayIn{ox, oy, oz, dx, dy, dz, tfar, tnear_lane}, n, tnear, blocked);
   }
   return (int)cudaGetLastError();
 }

@@ -115,7 +115,7 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
 def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
            packet_wide=32, packet_dual=False, two_phase=False, packet_sort=True,
            premerge=False, entry_k=ENTRY_K, pool_sort=False, return_aux=False, packet=True,
-           max_table_mb=None, wavefront=None):
+           max_table_mb=None, wavefront=True):
     """Render `scene` on `device`; returns an (h, w, 3) float32 numpy
     image (for "gradpath" the reconstruction), with return_aux ("gradpath"
     only) also the dict of its primal, primal_bf, gx and gy images, and
@@ -135,12 +135,14 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     reads GDPT_PACKET_WIDE, GDPT_PACKET_DUAL, GDPT_TWO_PHASE and the table
     switches only on its packet route; packet_dual, two_phase, pool_sort
     or packet_sort=False on a BVH scene left without a table raise
-    ValueError. wavefront (GDPT_WAVEFRONT) picks the SoA renderers' loop:
-    None, the default, the wavefront lane pool for BVH scenes and the
-    banded loop otherwise; True or False the one named. An integrator the
-    reference does not know raises its ValueError."""
+    ValueError. wavefront is GDPT_WAVEFRONT: True, the default, lets the
+    SoA renderers take the wavefront lane pool for BVH scenes whose work
+    queue fits and the banded loop otherwise; False takes the banded loop
+    for every scene. An integrator the reference does not know raises
+    its ValueError."""
     device = resolve_device(device)
     integrator = scene.static.options.integrator
+    wavefront = None if wavefront else False
     walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, two_phase=two_phase,
                 packet_sort=packet_sort, premerge=premerge, entry_k=entry_k, packet=packet,
                 max_table_mb=max_table_mb)

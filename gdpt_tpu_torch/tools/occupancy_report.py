@@ -5,11 +5,13 @@ Counterpart of tools/occupancy_report.py: one JSON line per (scene,
 integrator, mode) with the reference's keys (scene, integrator, mode, spp,
 wall_s, Mrays, spp_per_s, mean; the wavefront rows also occupancy, the
 mean live-lane fraction per iteration, and iterations) and the traced
-rays. The mode is the renderers' wavefront= argument (the reference sets
-GDPT_WAVEFRONT): wavefront=False for "banded", True for "wavefront" (on a
-brute-force scene the reference's wavefront mode falls back to the banded
-loop; the port runs the pool there too). Scenes with integrator "volpath"
-take render_volpath_soa; the others path_soa.render_soa (path) and
+rays. The mode is the renderers' wavefront= argument, as the reference's
+is GDPT_WAVEFRONT: "banded" passes False, "wavefront" None, the
+renderers' default, which takes the lane pool for BVH scenes and the
+banded loop for brute-force ones, as the reference's does. Only a row
+whose render ran the pool carries occupancy and iterations (the
+reference's brute-force rows carry those of an earlier render). Scenes
+with integrator "volpath" take render_volpath_soa; the others path_soa.render_soa (path) and
 gdpt_soa.render_gradpath_soa (gradpath). The scene's packet table is
 built before the first timed render.
 
@@ -54,8 +56,10 @@ def run(scene, name, spp_path=2, spp_gdpt=1, integ_only=None, mode_only=None, ou
         for mode in ("banded", "wavefront"):
             if mode_only and mode != mode_only:
                 continue
+            wf.last_iters = 0
             t0 = time.perf_counter()
-            out_ = fn(scene, spp=spp, seed=0, return_stats=True, wavefront=mode == "wavefront")
+            out_ = fn(scene, spp=spp, seed=0, return_stats=True,
+                      wavefront=None if mode == "wavefront" else False)
             img, rays = out_[0], out_[-1]
             dt = time.perf_counter() - t0
             row = {
@@ -66,7 +70,7 @@ def run(scene, name, spp_path=2, spp_gdpt=1, integ_only=None, mode_only=None, ou
                 "mean": round(float(np.asarray(img).mean()), 5),
                 "rays": rays,
             }
-            if mode == "wavefront":
+            if wf.last_iters:
                 row["occupancy"] = round(wf.last_occupancy, 4)
                 row["iterations"] = wf.last_iters
             rows.append(row)

@@ -29,6 +29,7 @@ from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import textures_soa as tsoa
 from gdpt_tpu_torch.tools import stand_ins
 from gdpt_tpu_torch.tools.profile_wavefront import timed
+from gdpt_tpu_torch.utils.profiling import device_note
 from gdpt_tpu_torch.tools.speed_of_light import _rays
 from gdpt_tpu_torch.tools.wavefront_visits import capture_pool_rays
 
@@ -112,9 +113,8 @@ def print_rows(rows, out=print):
             out(f"pool={r['pool']}")
             continue
         tail = f" ({r['live_shadow']} live shadow rays)" if "live_shadow" in r else ""
-        dev = ("" if r["launches"] is None else
-               f" [{r['launches']} launches, device {r['device_ms']:.3f} ms, K1-K4 "
-               f"{r['hand_ms']:.3f} ms in {r['hand_launches']}]")
+        note = device_note(r)
+        dev = f" [{note}]" if note else ""
         out(f"  {labels[r['stage']] + ':':<27}{r['wall_ms']:8.1f} ms{tail}{dev}")
 
 

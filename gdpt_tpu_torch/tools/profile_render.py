@@ -34,6 +34,7 @@ from gdpt_tpu_torch.integrators import path_soa as ps
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.tools import stand_ins
 from gdpt_tpu_torch.tools.profile_wavefront import timed
+from gdpt_tpu_torch.utils.profiling import device_note
 
 DEFAULT_SCENE = "material_box_bvh"
 # The stages of a bounce in the reference's three columns.
@@ -201,9 +202,7 @@ def per_bounce(rows):
 def print_rows(rows, out=print):
     for r in rows:
         if r["bounce"] is not None and r["bounce"] <= 3 and r.get("launches") is not None:
-            out(f"  bounce{r['bounce']} {r['stage']}: {r['wall_ms']:.2f} ms, {r['launches']} "
-                f"launches, device {r['device_ms']:.3f} ms, K1-K4 {r['hand_ms']:.3f} ms in "
-                f"{r['hand_launches']}")
+            out(f"  bounce{r['bounce']} {r['stage']}: {r['wall_ms']:.2f} ms, {device_note(r)}")
     out(f"\n{'stage':>10} {'live':>8} {'intersect':>10} {'occluded':>10} {'other':>10}")
     tot = [0.0, 0.0, 0.0]
     for name, live, ti, to, tx in per_bounce(rows):
@@ -215,8 +214,7 @@ def print_rows(rows, out=print):
         if r["bounce"] is None:
             out(f"{r['stage'][len('probe '):]} {r['rays']} rays: {r['wall_ms']:.1f}ms = "
                 f"{r['rays'] / (r['wall_ms'] * 1e-3) / 1e6:.2f} Mrays/s"
-                + ("" if r["launches"] is None else
-                   f" ({r['launches']} launches, device {r['device_ms']:.3f} ms)"))
+                + ("" if r["launches"] is None else f" ({device_note(r)})"))
 
 
 def main(argv=None):

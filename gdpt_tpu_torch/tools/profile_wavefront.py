@@ -34,6 +34,7 @@ from gdpt_tpu_torch.tools import stand_ins
 from gdpt_tpu_torch.tools.wavefront_visits import regen
 # The reference's `timed`: a warm call, the least wall of `reps` calls
 # between synchronizes, and on the card one profiled call.
+from gdpt_tpu_torch.utils.profiling import device_note
 from gdpt_tpu_torch.utils.profiling import stage_profile as timed
 
 DEFAULT_SCENE = "material_box_bvh"
@@ -142,7 +143,7 @@ def profile(scene, pool=1 << 18, warm=3, spp=64, reps=3):
              "scatter", "scatter"] + [k for k in ("nee", "envmap") if k in by]
     summed = {"stage": "sum", "parts": parts,
               "wall_ms": sum(by[k]["wall_ms"] for k in parts)}
-    for key in ("launches", "device_ops", "device_ms", "hand_ms", "hand_launches"):
+    for key in ("event_ms", "launches", "device_ops", "device_ms", "hand_ms", "hand_launches"):
         vals = [by[k][key] for k in parts]
         summed[key] = None if None in vals else sum(vals)
     rows.append(summed)
@@ -150,11 +151,8 @@ def profile(scene, pool=1 << 18, warm=3, spp=64, reps=3):
 
 
 def _fmt(row):
-    extra = ""
-    if row.get("launches") is not None:
-        extra = (f"  [{row['launches']} launches, device {row['device_ms']:.3f} ms, "
-                 f"K1-K4 {row['hand_ms']:.3f} ms in {row['hand_launches']}]")
-    return f"{row['wall_ms']:8.1f} ms{extra}"
+    note = device_note(row)
+    return f"{row['wall_ms']:8.1f} ms" + (f"  [{note}]" if note else "")
 
 
 def print_rows(rows, out=print):

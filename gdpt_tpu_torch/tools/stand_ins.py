@@ -6,7 +6,8 @@ chain_sweep, occl_ab).
 The reference's tools default to its scene files, which are not in the
 repository. Each tool here takes a scene file or the name of a scene the
 port builds in code; a preset names the reference scene it stands in for,
-as the bench's rows do (bench.py `stands_in_for`).
+as the bench's rows do (bench.py `stands_in_for`). PRESETS is where those
+scenes are defined: the bench builds its code-built configs from it.
 """
 
 import sys
@@ -18,26 +19,27 @@ from gdpt_tpu_torch.core.dtypes import resolve_device
 
 
 class Preset(NamedTuple):
-    build: Callable            # (width, height, spp) -> host scene
+    build: Callable            # (width, height, spp, integrator=...) -> host scene
     stands_in_for: Optional[str]
 
 
-def _cbox(w, h, spp):
+def _cbox(w, h, spp, integrator="path"):
     from gdpt_tpu_torch.scene import presets
 
-    return presets.cornell_box(w, h, spp, max_depth=6)
+    return presets.cornell_box(w, h, spp, integrator=integrator, max_depth=6)
 
 
-def _icosphere_box(w, h, spp):
+def _icosphere_box(w, h, spp, integrator="path"):
     from gdpt_tpu_torch.scene import presets
 
-    return presets.icosphere_box(w, h, spp)
+    return presets.icosphere_box(w, h, spp, integrator=integrator)
 
 
-def _material_box_bvh(w, h, spp):
+def _material_box_bvh(w, h, spp, integrator="path"):
     from gdpt_tpu_torch.scene import presets
 
-    return presets.material_box(w, h, spp, bvh=True, max_depth=8, image_px=1024, env_px=512)
+    return presets.material_box(w, h, spp, bvh=True, integrator=integrator, max_depth=8,
+                                image_px=1024, env_px=512)
 
 
 def _volpath_grid6(w, h, spp):

@@ -7,7 +7,9 @@ K3 alone on contiguous pre-sorted rays (closest and any hit), and the two
 steps the reference's split leaves inside the cast: the unsort (one
 index_copy_ of t and of prim) and the hit attributes (_hit_attribs). Each
 is timed as the reference's stages (tools/profile_wavefront.timed: wall,
-and on the card the stage's kernel launches and device time). The
+and on the card the stage's kernel launches, its device time where the
+profiler recorded it whole, and its span between CUDA events, which is
+the device time of the one-launch walk and of the unsort). The
 pre-sorted cast, unsorted, must give the sorted cast's t and prim bit for
 bit.
 
@@ -36,6 +38,7 @@ from gdpt_tpu_torch.tools import speed_of_light as sol
 from gdpt_tpu_torch.tools import stand_ins
 from gdpt_tpu_torch.tools.ab_dual_kernel import sort_perm
 from gdpt_tpu_torch.tools.profile_wavefront import timed
+from gdpt_tpu_torch.utils.profiling import device_note
 from gdpt_tpu_torch.tools.wavefront_visits import capture_pool_rays
 
 DEFAULT_SCENE = "icosphere_box"
@@ -43,8 +46,8 @@ DEFAULT_SCENE = "icosphere_box"
 
 def decompose(scene, rays=None, pool=1 << 18, reps=3):
     """Rows (dicts): a "rays" row (rays, table rows), one row per stage
-    (wall_ms, launches, device_ops, device_ms, hand_ms, hand_launches,
-    Mrays/s), and a "check" row: the pre-sorted cast unsorted against the
+    (stage_profile's wall_ms, event_ms, launches, device_ops, device_ms,
+    hand_ms, hand_launches and whole; Mrays/s), and a "check" row: the pre-sorted cast unsorted against the
     sorted cast
     (rays differing in the bits of t or in prim; raises unless 0).
     rays: capture_pool_rays' dict (or an .npz of it); None captures."""
@@ -117,9 +120,8 @@ def print_rows(rows, out=print):
             out(f"pre-sorted cast, unsorted, against the sorted cast: {r['rays_differing']} "
                 f"rays differ; hit fraction {r['hit_frac']:.4f}")
         else:
-            dev = ("" if r["launches"] is None else
-                   f" [{r['launches']} launches, device {r['device_ms']:.3f} ms, K3 "
-                   f"{r['hand_ms']:.3f} ms]")
+            note = device_note(r, hand="K3")
+            dev = f" [{note}]" if note else ""
             out(f"{LABELS[r['stage']] + ':':<33}{r['wall_ms']:7.1f} ms "
                 f"({r['mrays']:5.2f} Mrays/s){dev}")
 

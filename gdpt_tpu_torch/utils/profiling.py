@@ -117,17 +117,52 @@ def device_stats(prof):
     }
 
 
+# The sleep kernel that a stage's CUDA-event timing is queued behind, in
+# clock cycles: about half a millisecond, long enough for the host to
+# queue a stage of a few launches before the start event fires.
+SLEEP_CYCLES = 1_000_000
+
+
+def event_span_ms(fn, call_args, reps=3):
+    """Least ms, over `reps` calls, between CUDA events recorded around
+    one call of fn(*call_args()), each call queued behind a sleep kernel
+    so that the span starts with the call's first operation on the device
+    rather than with the host's first launch: for a stage of one or a few
+    launches, its device time; for a longer one, an upper bound on it
+    (the span also holds the device's gaps between launches)."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(reps):
+        a = call_args()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        fn(*a)
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
 def stage_profile(fn, *args, device, reps=3, setup=None):
     """Time one stage as the reference's tools time a jitted stage: a
     warm call, then the least wall of `reps` calls, each between
     synchronizes. Returns (the last call's output, row), row holding
-    `wall_ms` and, on the card, from one more call under torch.profiler
-    (the active step of a profiler run whose warm-up step makes one call
-    too):
-    `launches`, `device_ops`, `device_ms`, `hand_ms` (device_stats) and
-    `hand_launches` (the K1-K4 wrappers' LAUNCHES counted in that call);
-    on the CPU those five are None. In the eager port a stage's wall is
-    mostly host launches, so the device time is the stage's own split.
+    `wall_ms` and, on the card:
+    - `event_ms`: event_span_ms of the stage;
+    - from one more call under torch.profiler (the active step of a
+      profiler run whose warm-up step makes one call too): `launches`,
+      `device_ops`, `device_ms`, `hand_ms` (device_stats) and
+      `hand_launches` (the K1-K4 wrappers' LAUNCHES counted in that
+      call), and `whole`: whether the profiler recorded a device
+      operation for every launch. A run that lost records is taken again,
+      up to four times; where none was whole, `device_ms` and `hand_ms`
+      are None, not a sum over what was kept.
+    On the CPU all but `wall_ms` are None. In the eager port a stage's
+    wall is mostly host launches, so the device time is the stage's own
+    split.
 
     setup: a function returning the call's arguments, called before every
     call outside its timing (a stage that updates its inputs in place
@@ -153,16 +188,16 @@ def stage_profile(fn, *args, device, reps=3, setup=None):
         out = fn(*a)
         sync()
         best = min(best, time.perf_counter() - t0)
-    row = {"wall_ms": best * 1e3, "launches": None, "device_ops": None, "device_ms": None,
-           "hand_ms": None, "hand_launches": None}
+    row = {"wall_ms": best * 1e3, "event_ms": None, "launches": None, "device_ops": None,
+           "device_ms": None, "hand_ms": None, "hand_launches": None, "whole": None}
     if cuda:
         from torch.profiler import ProfilerActivity, profile, schedule
 
+        with torch.cuda.device(dev):
+            row["event_ms"] = event_span_ms(fn, call_args, reps)
         # The call is profiled in the active step of a profiler run whose
         # warm-up step (a warm call, and the arguments' setup) runs while
-        # CUPTI starts. A run that recorded fewer device operations than
-        # were launched is taken again, up to four times; the most
-        # complete one is kept.
+        # CUPTI starts. The most complete of up to five runs is kept.
         for _ in range(5):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                          schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
@@ -180,4 +215,22 @@ def stage_profile(fn, *args, device, reps=3, setup=None):
                 row.update(stats, hand_launches=hand)
             if stats["device_ops"] >= stats["launches"]:
                 break
+        row["whole"] = row["device_ops"] >= row["launches"]
+        if not row["whole"]:
+            row["device_ms"] = row["hand_ms"] = None
     return out, row
+
+
+def device_note(row, hand="K1-K4"):
+    """A stage row's device split as the tools print it: its launches, the
+    device time the profiler recorded (or that it lost some of the
+    records), the hand kernels' share and the CUDA-event span; "" where
+    the row has none (the CPU)."""
+    if row.get("launches") is None:
+        return ""
+    if row["device_ms"] is None:
+        dev = f"device not recorded whole ({row['device_ops']} ops)"
+    else:
+        dev = (f"device {row['device_ms']:.3f} ms, {hand} {row['hand_ms']:.3f} ms in "
+               f"{row['hand_launches']}")
+    return f"{row['launches']} launches, {dev}, events {row['event_ms']:.3f} ms"

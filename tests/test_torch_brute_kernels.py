@@ -14,7 +14,8 @@ The gpu-marked test holds each CUDA kernel against its plain version on
 the card bit for bit (t, u, v, normal bits, prim, blocked) over soups of
 1 to 128 triangles with and without spheres, with duplicate and coplanar
 triangles and rays that hit at t = -0.0 and +0.0, dead shares 0 to 1
-scattered and in whole warps, and 0, 1 and 262,221 rays. This file
+scattered and in whole warps, a scalar and a per-ray tnear, and 0, 1 and
+262,221 rays. This file
 imports jax only inside the reference helpers, so the gpu test also runs
 where jax is absent:
     python -m pytest --noconftest -m gpu tests/test_torch_brute_kernels.py
@@ -171,7 +172,27 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     assert bk.LAUNCHES == before
 
 
-@pytest.mark.parametrize("bad", ["float64", "strided", "too_many_prims", "soup_shape"])
+@pytest.mark.parametrize("kernel", ["intersect", "occluded"])
+def test_wrappers_take_a_per_ray_tnear(kernel):
+    """A per-ray tnear (the wavefront casts primary rays from 0 and bounce
+    rays from the epsilon in one launch) gives every lane the cast of its
+    own scalar tnear, bit for bit; here 0 or 200 by lane, so that the two
+    casts differ on many lanes."""
+    tri, sph, _ = _soups()
+    o, d, tfar = _rays(5)
+    args = (*_t([tri, sph]), tri.shape[1], 1, *_t(o), *_t(d), torch.from_numpy(tfar))
+    lane = torch.from_numpy(np.random.default_rng(5).uniform(size=N) < 0.5)
+    fn = bk.intersect_brute if kernel == "intersect" else bk.occluded_brute
+    got, near, far = fn(*args, torch.where(lane, 0.0, 200.0)), fn(*args, 0.0), fn(*args, 200.0)
+    if kernel == "occluded":
+        got, near, far = [got], [near], [far]
+    assert int((near[0] != far[0]).sum()) > N // 50
+    for g, a, b in zip(got, near, far):
+        assert torch.equal(_bits(g), _bits(torch.where(lane, a, b)))
+
+
+@pytest.mark.parametrize("bad", ["float64", "strided", "too_many_prims", "soup_shape",
+                                 "tnear_shape"])
 def test_wrappers_reject_what_kernels_do_not_take(bad):
     tri, sph, _ = _soups()
     o, d, _ = _rays(4, 256)
@@ -184,10 +205,11 @@ def test_wrappers_reject_what_kernels_do_not_take(bad):
         o_t[0] = torch.zeros(512)[::2]
     elif bad == "too_many_prims":
         tri_t, n_tris = torch.zeros((9, 129)), 129
-    else:
+    elif bad == "soup_shape":
         tri_t = tri_t[:, :4].contiguous()
+    tnear = torch.zeros(255) if bad == "tnear_shape" else 0.0
     with pytest.raises(ValueError):
-        bk.intersect_brute(tri_t, sph_t, n_tris, 1, *o_t, *d_t, _big(256), 0.0)
+        bk.intersect_brute(tri_t, sph_t, n_tris, 1, *o_t, *d_t, _big(256), tnear)
 
 
 def _gpu_soup(n_tris, n_sph, seed):
@@ -255,7 +277,10 @@ def test_cuda_kernel_matches_plain(kernel, n_sph, n_tris):
         tfar = np.random.default_rng(j).uniform(1.0, 300.0, n).astype(np.float32)
         tfar[::3] = bk.BIG
         tfar[_dead_mask(n, share, layout, j)] = -1.0
-        tnear = 0.0 if j % 2 else 1e-4
+        # Every third case a per-ray tnear, 0 or 1e-4 by lane.
+        lane_tn = np.where(np.random.default_rng(j + 1).uniform(size=n) < 0.5, 0.0,
+                           1e-4).astype(np.float32)
+        tnear = (torch.from_numpy(lane_tn).cuda() if j % 3 == 0 else 0.0 if j % 2 else 1e-4)
         args = (*soups, *rays, torch.from_numpy(tfar).cuda(), tnear)
         before = bk.LAUNCHES[kernel]
         got = fn(*args)
@@ -267,9 +292,9 @@ def test_cuda_kernel_matches_plain(kernel, n_sph, n_tris):
                         ref if kernel == "intersect" else [ref]):
             assert torch.equal(_bits(a), _bits(b)), label
         if kernel == "intersect" and n > 1:
-            dead = torch.from_numpy(tfar <= tnear).cuda()
+            dead = torch.from_numpy(tfar <= (lane_tn if j % 3 == 0 else tnear)).cuda()
             assert bool((got[1][dead] == -1).all()) and bool((got[0][dead] == bk.BIG).all())
-            if n_tris >= 4 and share < 1.0 and tnear == 0.0:
+            if n_tris >= 4 and share < 1.0 and j % 3 and tnear == 0.0:
                 # The plane rays' ties at t = +-0.0 go to the lowest index.
                 zero = (got[0] == 0.0) & (got[1] < 4)
                 assert bool(zero.any()) and bool((got[1][zero] % 2 == 0).all()), label

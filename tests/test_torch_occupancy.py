@@ -11,16 +11,18 @@ eight), and prints its JSON rows; the port's run() renders the same file.
 The rows carry the same keys and labels, the image means agree within
 0.5% and the wavefront row's occupancy within 0.5% of it (the camera
 rays differ by ulps: ROADMAP.md C). On the brute-force cbox and the 16x16
-grid-medium volpath scene, the port's banded and wavefront rows trace the
-same rays and give the same mean (rtol 1e-5: the same samples summed in
-another order). render.render's wavefront= picks the loop. Repairs: an
-unknown integrator raises the reference's ValueError in both packages
-(the parser rejects unknown names, so the scene is built in code); the
-brute-force casts take a per-lane tnear as the reference's XLA casts do
-(the wavefront casts primary rays from 0 and bounce rays from the
-intersection epsilon), held to the reference's intersect_brute_soa and
-occluded_brute_soa on a captured cbox pool: equal prims and blocked flags,
-t within rtol 1e-5.
+grid-medium volpath scene the wavefront row is the banded loop, as the
+reference's GDPT_WAVEFRONT=1 is there: the same rays and mean, and no
+occupancy; the renderers' own wavefront=True runs the lane pool there,
+which traces the same rays and gives the same mean (rtol 1e-5: the same
+samples summed in another order). render.render's wavefront= is
+GDPT_WAVEFRONT. Repairs: an unknown integrator raises the reference's
+ValueError in both packages (the parser rejects unknown names, so the
+scene is built in code); the brute-force casts take a per-lane tnear in
+one K1 or K2 launch, as the reference's XLA casts do (the wavefront casts
+primary rays from 0 and bounce rays from the intersection epsilon), held
+to the reference's intersect_brute_soa and occluded_brute_soa on a
+captured cbox pool: equal prims and blocked flags, t within rtol 1e-5.
 """
 
 import dataclasses
@@ -33,7 +35,9 @@ import torch
 from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core.dtypes import BIG
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.integrators import gdpt_soa as tgdpt
 from gdpt_tpu_torch.integrators import path_soa as tps
+from gdpt_tpu_torch.integrators import volpath_soa as tvol
 from gdpt_tpu_torch.integrators import render
 from gdpt_tpu_torch.scene import presets, xml_writer
 from gdpt_tpu_torch.scene.build import scene_to
@@ -85,26 +89,42 @@ def test_occupancy_report_matches_reference(box_file, monkeypatch):
 def test_banded_and_wavefront_rows_agree(kind):
     scene = (scene_to(presets.cornell_box(16, 16, 1, max_depth=4), "cpu") if kind == "cbox"
              else scene_to(port_scene("grid"), "cpu"))
+    assert scene.static.use_brute_force
     rows = occupancy_report.run(scene, kind, spp_path=1, spp_gdpt=1, out=lambda s: None)
     want = ["volpath"] if kind == "volpath" else ["path", "gradpath"]
     assert [r["integrator"] for r in rows[::2]] == want
+    renderers = {"path": tps.render_soa, "gradpath": tgdpt.render_gradpath_soa,
+                 "volpath": tvol.render_volpath_soa}
+    accums = {"path": tps.render_soa_wavefront, "gradpath": tgdpt._gdpt_wavefront_accum,
+              "volpath": tvol._vol_wavefront_accum}
     for banded, wave in zip(rows[::2], rows[1::2]):
         assert (banded["mode"], wave["mode"]) == ("banded", "wavefront")
-        assert banded["rays"] == wave["rays"] > 0
-        assert wave["mean"] == pytest.approx(banded["mean"], rel=1e-5, abs=1e-5)
-        assert 0 < wave["occupancy"] <= 1 and wave["iterations"] > 0
-        assert "occupancy" not in banded
+        assert banded["rays"] == wave["rays"] > 0 and wave["mean"] == banded["mean"]
+        assert "occupancy" not in banded and "occupancy" not in wave
+        out = renderers[banded["integrator"]](scene, spp=1, seed=0, return_stats=True,
+                                              wavefront=True)
+        img, rays = out[0], out[-1]
+        assert rays == banded["rays"]
+        assert float(np.mean(img)) == pytest.approx(banded["mean"], rel=1e-5, abs=1e-5)
+        assert 0 < accums[banded["integrator"]].last_occupancy <= 1
 
 
 def test_render_takes_the_wavefront_switch(monkeypatch):
-    scene = presets.cornell_box(16, 16, 1, max_depth=4)
+    """render.render's wavefront= is GDPT_WAVEFRONT: on (the default) a
+    BVH scene takes the lane pool and a brute-force one the banded loop;
+    off, every scene takes the banded loop."""
     calls = []
     real = tps.render_soa_wavefront
     monkeypatch.setattr(tps, "render_soa_wavefront",
                         lambda *a, **kw: calls.append(1) or real(*a, **kw))
-    a = render.render(scene, device="cpu", return_stats=True)
-    assert not calls                        # brute force: the banded loop by default
-    b = render.render(scene, device="cpu", return_stats=True, wavefront=True)
+    brute = presets.cornell_box(16, 16, 1, max_depth=4)
+    render.render(brute, device="cpu")
+    render.render(brute, device="cpu", wavefront=True)
+    assert not calls
+    bvh = presets.cornell_box(16, 16, 1, max_depth=4, force_bvh=True)
+    a = render.render(bvh, device="cpu", return_stats=True, wavefront=False)
+    assert not calls
+    b = render.render(bvh, device="cpu", return_stats=True)
     assert calls and a[1] == b[1]
     np.testing.assert_allclose(a[0], b[0], rtol=1e-5, atol=1e-6)
 
