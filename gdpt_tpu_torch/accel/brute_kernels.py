@@ -28,25 +28,21 @@ import torch
 
 from gdpt_tpu_torch.accel import native_build
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL
+from gdpt_tpu_torch.utils import profiling
 
 MAX_PRIMS = 128  # per soup; the shared-memory staging size of the kernels
 
-LAUNCHES = {"intersect": 0, "occluded": 0}
+LAUNCHES = profiling.counter_group("brute_kernels.launches", {"intersect": 0, "occluded": 0})
 
 SOURCE = "brute_intersect.cu"
 
 _lib = None
 
 
-def build(verbose=False):
-    """Compile csrc/brute_intersect.cu (see native_build.build)."""
-    return native_build.build(SOURCE, verbose)
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = native_build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gdpt_intersect_brute.argtypes = [p, i, p, i, p, p, p, p, p, p, p, p, i, f,
                                              p, p, p, p, p, p, p, p]

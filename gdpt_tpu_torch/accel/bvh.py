@@ -51,7 +51,7 @@ _lib = None
 def _native_lib():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build(SOURCE)))
+        lib = native_build.load(SOURCE)
         pd = ctypes.POINTER(ctypes.c_double)
         pf = ctypes.POINTER(ctypes.c_float)
         pi = ctypes.POINTER(ctypes.c_int32)

@@ -5,9 +5,11 @@ under a file name keyed by a hash of the source, the headers of csrc/
 that it includes and the flags, so a source, header or flag change
 rebuilds and an unchanged one is reused. Nothing
 is built when a module is imported. A failure raises: no caller catches
-it to carry on without the library.
+it to carry on without the library. load opens a library with ctypes in
+the program span native.load; BUILDS counts the builds run and reused.
 """
 
+import ctypes
 import hashlib
 import os
 import re
@@ -17,12 +19,16 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from gdpt_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gdpt_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-ffp-contract=off", "-shared"]
+
+BUILDS = profiling.counter_group("native_build.builds", {"built": 0, "reused": 0})
 
 
 def nvcc():
@@ -72,6 +78,7 @@ def build(source, verbose=False) -> Path:
     flags = _flags(src)
     out = library_path(source)
     if out.exists():
+        BUILDS["reused"] += 1
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -85,7 +92,14 @@ def build(source, verbose=False) -> Path:
     if verbose:
         print(proc.stderr, end="")
     os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    BUILDS["built"] += 1
     return out
+
+
+def load(source):
+    """csrc/<source>'s library (build) opened with ctypes."""
+    with profiling.span("native.load"):
+        return ctypes.CDLL(str(build(source)))
 
 
 def build_all(sources, verbose=False):

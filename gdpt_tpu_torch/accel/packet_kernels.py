@@ -47,9 +47,11 @@ import torch
 
 from gdpt_tpu_torch.accel import native_build
 from gdpt_tpu_torch.core.dtypes import INT, REAL
+from gdpt_tpu_torch.utils import profiling
 
-LAUNCHES = {"packet_intersect": 0, "packet_occluded": 0,
-            "packet_dual_intersect": 0, "packet_dual_occluded": 0}
+LAUNCHES = profiling.counter_group("packet_kernels.launches", {
+    "packet_intersect": 0, "packet_occluded": 0,
+    "packet_dual_intersect": 0, "packet_dual_occluded": 0})
 
 SOURCE = "packet_trace.cu"
 SOURCE_DUAL = "packet_trace_dual.cu"
@@ -64,15 +66,10 @@ _OVERFLOW_MSG = ("packet walk: a ray needs more than stack_n // width stack "
                  "entries; the table's stack_n does not bound its depth")
 
 
-def build(verbose=False):
-    """Compile csrc/packet_trace.cu (see native_build.build)."""
-    return native_build.build(SOURCE, verbose)
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = native_build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gdpt_trace_packets.argtypes = [p, i, i, i, p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, p, p, p, p, p]
@@ -84,7 +81,7 @@ def _load():
 def _load_dual():
     global _lib_dual
     if _lib_dual is None:
-        lib = ctypes.CDLL(str(native_build.build(SOURCE_DUAL)))
+        lib = native_build.load(SOURCE_DUAL)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gdpt_trace_packets_dual.argtypes = [p, i, i, p, p, p, p, p, p, p, p, p,
                                                 i, i, i, i, p, p, p, p, p]

@@ -31,6 +31,7 @@ import torch
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import INT, REAL
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.utils import profiling
 
 MAX_SUPER_ROWS = 16384
 _EMPTY = np.int32(2**31 - 1)
@@ -38,7 +39,7 @@ _DONE = 2**31 - 2
 _UNROLL = 2  # steps per host read of the loop condition
 
 # Host reads of the walk's loop condition.
-HOST_READS = {"super16": 0}
+HOST_READS = profiling.counter_group("super16.host_reads", {"super16": 0})
 _BITS = torch.tensor([1 << k for k in range(16)], dtype=INT)  # child k's bit
 
 

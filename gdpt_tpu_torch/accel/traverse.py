@@ -24,9 +24,11 @@ from typing import NamedTuple
 import torch
 
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL
+from gdpt_tpu_torch.utils import profiling
 
 # Host reads of the BVH walks' loop conditions, by walk.
-HOST_READS = {"intersect_bvh": 0, "occluded_bvh": 0}
+HOST_READS = profiling.counter_group("traverse.host_reads",
+                                     {"intersect_bvh": 0, "occluded_bvh": 0})
 
 
 class Geometry(NamedTuple):

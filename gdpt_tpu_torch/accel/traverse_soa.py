@@ -41,6 +41,7 @@ from gdpt_tpu_torch.accel import super16 as s16
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.utils import profiling
 
 # Scenes with at most this many spheres keep them OUT of the packet
 # table and brute-test them per lane instead (see geom_soa_from_aos /
@@ -215,7 +216,8 @@ class HitSoA(NamedTuple):
 # ---------------------------------------------------------------------------
 
 # Host reads of the walks' loop conditions, by walk.
-HOST_READS = {"intersect_bvh_soa": 0, "intersect_bvh_packed": 0}
+HOST_READS = profiling.counter_group("traverse_soa.host_reads",
+                                     {"intersect_bvh_soa": 0, "intersect_bvh_packed": 0})
 
 
 def _lanes(x, n, dev):
@@ -440,6 +442,7 @@ def _table_n_tris(static):
     return static.n_tris if static.n_spheres and not _sph_outside(static) else None
 
 
+@profiling.span("cast.closest")
 def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
                      sort_rays=True, sort_hint=None):
     """Closest hit within [tnear, tfar): (HitSoA, unnormalized geometric
@@ -449,7 +452,8 @@ def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
     the normal (0, 0, 1). sort_rays=False skips the packet backend's
     per-dispatch morton/octant sort (callers whose lanes are sorted
     already: the pool-sorted wavefront); sort_hint is _morton_keys'
-    hint. The brute-force backend reads neither."""
+    hint. The brute-force backend reads neither. Every call is the
+    program span cast.closest (utils/profiling)."""
     if static.use_brute_force:
         return intersect_brute_soa(static, g, org, d, tnear, tfar)
     if g.packet is not None:
@@ -471,8 +475,10 @@ def intersect_soa_gn(static, g: GeomSoA, org: V3, d: V3, tnear, tfar=BIG,
     return hit, gn
 
 
+@profiling.span("cast.shadow")
 def occluded_soa(static, g: GeomSoA, org: V3, d: V3, tnear, tfar):
-    """Any hit within [tnear, tfar) per ray; f32 0/1 mask."""
+    """Any hit within [tnear, tfar) per ray; f32 0/1 mask. Every call is
+    the program span cast.shadow (utils/profiling)."""
     if static.use_brute_force:
         return occluded_brute_soa(static, g, org, d, tnear, tfar)
     if g.packet is not None:

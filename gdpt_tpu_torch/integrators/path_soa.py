@@ -37,6 +37,7 @@ from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene import textures as tex
 from gdpt_tpu_torch.scene.build import (LIGHT_ENVMAP, SHAPE_MESH, SHAPE_SPHERE, Scene,
                                         SceneMemo)
+from gdpt_tpu_torch.utils import profiling
 
 HARD_BOUNCE_CAP = 64
 
@@ -646,7 +647,15 @@ def hit_light_pdf_soa(static, sc: SceneSoA, ref_pos: V3, nxt: VertexSoA,
 
 def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0):
     """One sample for every ray in the batch; returns (radiance V3, rays
-    per lane). seed and sample0 are Python ints (uint32 values)."""
+    per lane). seed and sample0 are Python ints (uint32 values).
+
+    Program spans (utils/profiling) of each stage: path.primary (the
+    pixel draws and camera rays), path.shade (each shade_hit), path.nee,
+    path.bsdf (the material gather, the lobe's sample, eval and pdf),
+    path.mis (emission and the MIS of BSDF-sampled hits), path.update
+    (Russian roulette and the state's updates); the casts are
+    traverse_soa's cast.closest and cast.shadow."""
+    span = profiling.span
     used = static.used_material_kinds
     w, h = static.width, static.height
     n = xs.shape[0]
@@ -657,22 +666,25 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
         return soa.uniform2(seed, ray_idx, bounce * _CTR_STRIDE + ctr, sample0)
 
     # Primary ray with filter importance sampling.
-    u0, u1 = uni2(0, _CTR_PIXEL)
-    org, d = primary_rays_soa(static, camera, xs, ys, u0, u1)
+    with span("path.primary"):
+        u0, u1 = uni2(0, _CTR_PIXEL)
+        org, d = primary_rays_soa(static, camera, xs, ys, u0, u1)
 
-    # Ray differentials (reference: src/ray.h:36-38).
-    zero = torch.zeros(n, dtype=REAL, device=xs.device)
-    spread = torch.full((n,), 0.25 / max(w, h), dtype=REAL, device=xs.device)
+        # Ray differentials (reference: src/ray.h:36-38).
+        zero = torch.zeros(n, dtype=REAL, device=xs.device)
+        spread = torch.full((n,), 0.25 / max(w, h), dtype=REAL, device=xs.device)
     hit, gn_raw = trs.intersect_soa_gn(static, sc.geom, org, d, 0.0, BIG)
-    vertex = shade_hit(static, sc, org, d, hit, gn_raw,
-                       ray_radius=zero, ray_spread=spread)
-    rays = torch.ones(n, dtype=REAL, device=xs.device)
-    zero3 = V3(zero, zero, zero)
-    radiance = soa.where(vertex.valid > 0, emission(sc, vertex, -d), zero3)
-    if static.has_envmap:
-        env_primary = tsoa.envmap_emission_soa(_env_view(static, sc), sc.mat_tables.pool3, d,
-                                               spread=spread)
-        radiance = soa.where(vertex.valid > 0, radiance, env_primary)
+    with span("path.shade"):
+        vertex = shade_hit(static, sc, org, d, hit, gn_raw,
+                           ray_radius=zero, ray_spread=spread)
+    with span("path.mis"):
+        rays = torch.ones(n, dtype=REAL, device=xs.device)
+        zero3 = V3(zero, zero, zero)
+        radiance = soa.where(vertex.valid > 0, emission(sc, vertex, -d), zero3)
+        if static.has_envmap:
+            env_primary = tsoa.envmap_emission_soa(_env_view(static, sc), sc.mat_tables.pool3,
+                                                   d, spread=spread)
+            radiance = soa.where(vertex.valid > 0, radiance, env_primary)
     if n_iters == 0:
         return radiance, rays
 
@@ -688,94 +700,101 @@ def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0
         v = vertex
         b = bounce + 1
         dir_view = -d
-        params = msoa.gather_params_soa(
-            sc.mat_tables, used, v.material_id, v.uv_u, v.uv_v,
-            static.spec_image_slots, float_tex_slots=static.float_tex_slots, fp=v.fp,
-        )
+        with span("path.bsdf"):
+            params = msoa.gather_params_soa(
+                sc.mat_tables, used, v.material_id, v.uv_u, v.uv_v,
+                static.spec_image_slots, float_tex_slots=static.float_tex_slots, fp=v.fp,
+            )
 
         # ---- NEE (reference: src/path_tracing.h:115-227) ----
         if static.n_lights > 0:
-            lu0, lu1 = uni2(b, _CTR_LIGHT_UV)
-            lw, lsw = uni2(b, _CTR_LIGHT_W)
-            nee, shadow_mask = nee_soa(static, sc, v, params, dir_view,
-                                       used, lu0, lu1, lw, lsw, active)
-            radiance = radiance + throughput * nee
-            rays = rays + shadow_mask
+            with span("path.nee"):
+                lu0, lu1 = uni2(b, _CTR_LIGHT_UV)
+                lw, lsw = uni2(b, _CTR_LIGHT_W)
+                nee, shadow_mask = nee_soa(static, sc, v, params, dir_view,
+                                           used, lu0, lu1, lw, lsw, active)
+                radiance = radiance + throughput * nee
+                rays = rays + shadow_mask
 
         # ---- BSDF sampling (reference: src/path_tracing.h:232-345) ----
-        bu0, bu1 = uni2(b, _CTR_BSDF_UV)
-        w_lobe, u_rr = uni2(b, _CTR_BSDF_W)
-        samp = msoa.sample_bsdf_soa(params, dir_view, v.gn, v.frame, bu0, bu1,
-                                    w_lobe, used)
-        d_out = samp.dir_out
-        f_b = msoa.eval_bsdf_soa(params, dir_view, d_out, v.gn, v.frame, used)
-        pdf_b = msoa.pdf_bsdf_soa(params, dir_view, d_out, v.gn, v.frame, used)
-        active = active & (samp.valid > 0) & (pdf_b > 0)
-        rays = rays + active.to(REAL)
-        is_tr = samp.eta != 0
-        new_eta_scale = torch.where(
-            is_tr, eta_scale / torch.where(is_tr, samp.eta, 1.0) ** 2, eta_scale)
-        # Ray-differential spread update (reference: src/ray.h:41-57).
-        spec_spread = spread + 2.0 * v.mean_curv * v.radius
-        spec_spread = torch.where(
-            is_tr, spec_spread / torch.where(is_tr, samp.eta, 1.0), spec_spread)
-        new_spread = torch.clamp_min(
-            spec_spread * (1.0 - samp.roughness) + 0.2 * samp.roughness, 0.0)
+        with span("path.bsdf"):
+            bu0, bu1 = uni2(b, _CTR_BSDF_UV)
+            w_lobe, u_rr = uni2(b, _CTR_BSDF_W)
+            samp = msoa.sample_bsdf_soa(params, dir_view, v.gn, v.frame, bu0, bu1,
+                                        w_lobe, used)
+            d_out = samp.dir_out
+            f_b = msoa.eval_bsdf_soa(params, dir_view, d_out, v.gn, v.frame, used)
+            pdf_b = msoa.pdf_bsdf_soa(params, dir_view, d_out, v.gn, v.frame, used)
+        with span("path.update"):
+            active = active & (samp.valid > 0) & (pdf_b > 0)
+            rays = rays + active.to(REAL)
+            is_tr = samp.eta != 0
+            new_eta_scale = torch.where(
+                is_tr, eta_scale / torch.where(is_tr, samp.eta, 1.0) ** 2, eta_scale)
+            # Ray-differential spread update (reference: src/ray.h:41-57).
+            spec_spread = spread + 2.0 * v.mean_curv * v.radius
+            spec_spread = torch.where(
+                is_tr, spec_spread / torch.where(is_tr, samp.eta, 1.0), spec_spread)
+            new_spread = torch.clamp_min(
+                spec_spread * (1.0 - samp.roughness) + 0.2 * samp.roughness, 0.0)
+            # Retired lanes are dead rays (tfar < tnear): no test, a miss.
+            tfar = torch.where(active, BIG, -1.0)
 
-        # Retired lanes are dead rays (tfar < tnear): no test, a miss.
         nxt_hit, nxt_gn = trs.intersect_soa_gn(
-            static, sc.geom, v.position, d_out, eps_isect,
-            torch.where(active, BIG, -1.0))
-        nxt = shade_hit(static, sc, v.position, d_out, nxt_hit, nxt_gn,
-                        ray_radius=v.radius, ray_spread=new_spread)
-        nxt_ok = nxt.valid > 0
-        dist2 = soa.length_squared(nxt.position - v.position)
-        g2 = torch.where(
-            nxt_ok,
-            torch.abs(soa.dot(d_out, nxt.gn)) / torch.clamp_min(dist2, 1e-20),
-            1.0,
-        )
-        p2a = pdf_b * g2
+            static, sc.geom, v.position, d_out, eps_isect, tfar)
+        with span("path.shade"):
+            nxt = shade_hit(static, sc, v.position, d_out, nxt_hit, nxt_gn,
+                            ray_radius=v.radius, ray_spread=new_spread)
+        with span("path.mis"):
+            nxt_ok = nxt.valid > 0
+            dist2 = soa.length_squared(nxt.position - v.position)
+            g2 = torch.where(
+                nxt_ok,
+                torch.abs(soa.dot(d_out, nxt.gn)) / torch.clamp_min(dist2, 1e-20),
+                1.0,
+            )
+            p2a = pdf_b * g2
 
-        # Emissive hit with MIS (reference: src/path_tracing.h:291-325).
-        if static.n_lights > 0:
-            hit_light = nxt_ok & (nxt.light_id >= 0) & active
-            l_emit = emission(sc, nxt, -1.0 * d_out)
-            p1h = hit_light_pdf_soa(static, sc, v.position, nxt, d_out, dist2)
-            w2 = p2a * p2a / torch.clamp_min(p1h * p1h + p2a * p2a, 1e-30)
-            scale = g2 * w2 / torch.clamp_min(p2a, 1e-30)
-            contrib = throughput * f_b * l_emit * scale
-            radiance = radiance + soa.where(hit_light, contrib, zero3)
-        if static.has_envmap:
-            # A bounce that leaves the scene sees the envmap, MIS-weighted
-            # against its NEE sampler.
-            miss = active & ~nxt_ok
-            env_hit, env_pdf = tsoa.envmap_emission_pdf_soa(
-                _env_view(static, sc), sc.mat_tables.pool3, d_out)
-            p1e = sc.light_pmf[static.envmap_light_id] * env_pdf
-            w2e = p2a * p2a / torch.clamp_min(p1e * p1e + p2a * p2a, 1e-30)
-            scale = g2 * w2e / torch.clamp_min(p2a, 1e-30)
-            contrib = throughput * f_b * env_hit * scale
-            radiance = radiance + soa.where(miss, contrib, zero3)
+            # Emissive hit with MIS (reference: src/path_tracing.h:291-325).
+            if static.n_lights > 0:
+                hit_light = nxt_ok & (nxt.light_id >= 0) & active
+                l_emit = emission(sc, nxt, -1.0 * d_out)
+                p1h = hit_light_pdf_soa(static, sc, v.position, nxt, d_out, dist2)
+                w2 = p2a * p2a / torch.clamp_min(p1h * p1h + p2a * p2a, 1e-30)
+                scale = g2 * w2 / torch.clamp_min(p2a, 1e-30)
+                contrib = throughput * f_b * l_emit * scale
+                radiance = radiance + soa.where(hit_light, contrib, zero3)
+            if static.has_envmap:
+                # A bounce that leaves the scene sees the envmap, MIS-weighted
+                # against its NEE sampler.
+                miss = active & ~nxt_ok
+                env_hit, env_pdf = tsoa.envmap_emission_pdf_soa(
+                    _env_view(static, sc), sc.mat_tables.pool3, d_out)
+                p1e = sc.light_pmf[static.envmap_light_id] * env_pdf
+                w2e = p2a * p2a / torch.clamp_min(p1e * p1e + p2a * p2a, 1e-30)
+                scale = g2 * w2e / torch.clamp_min(p2a, 1e-30)
+                contrib = throughput * f_b * env_hit * scale
+                radiance = radiance + soa.where(miss, contrib, zero3)
 
-        active = active & nxt_ok
+        with span("path.update"):
+            active = active & nxt_ok
 
-        # Russian roulette (reference: src/path_tracing.h:334-341).
-        new_tp = throughput * f_b * (g2 / torch.clamp_min(p2a, 1e-30))
-        num_vertices = bounce + 3
-        if (num_vertices - 1) >= static.options.rr_depth:
-            rr_prob = torch.clamp_max(
-                soa.vmax(new_tp) / torch.clamp_min(new_eta_scale, 1e-20), 0.95)
-            active = active & (u_rr <= rr_prob)
-        else:
-            rr_prob = zero + 1.0
-        new_tp = new_tp * (1.0 / torch.clamp_min(rr_prob, 1e-20))
-        throughput = soa.where(active, new_tp, throughput)
+            # Russian roulette (reference: src/path_tracing.h:334-341).
+            new_tp = throughput * f_b * (g2 / torch.clamp_min(p2a, 1e-30))
+            num_vertices = bounce + 3
+            if (num_vertices - 1) >= static.options.rr_depth:
+                rr_prob = torch.clamp_max(
+                    soa.vmax(new_tp) / torch.clamp_min(new_eta_scale, 1e-20), 0.95)
+                active = active & (u_rr <= rr_prob)
+            else:
+                rr_prob = zero + 1.0
+            new_tp = new_tp * (1.0 / torch.clamp_min(rr_prob, 1e-20))
+            throughput = soa.where(active, new_tp, throughput)
 
-        vertex = soa.tree_where(active, nxt, v)
-        eta_scale = torch.where(active, new_eta_scale, eta_scale)
-        d = soa.where(active, d_out, d)
-        spread = torch.where(active, new_spread, spread)
+            vertex = soa.tree_where(active, nxt, v)
+            eta_scale = torch.where(active, new_eta_scale, eta_scale)
+            d = soa.where(active, d_out, d)
+            spread = torch.where(active, new_spread, spread)
         bounce += 1
     return radiance, rays
 
@@ -1226,6 +1245,11 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     lanes trace pixel 0 and count in the ray total, as the reference's
     do), split over the mesh's devices, each with its own copy of the
     scene; wavefront=True raises ValueError.
+
+    The banded loop's program spans (utils/profiling): the lane columns
+    render.lanes, the scene's view render.scene, the overflow check
+    render.readback, the host image's sums and casts render.image; the
+    pass's are sharding.pass_fn's.
     """
     static = scene.static
     w, h = static.width, static.height
@@ -1243,22 +1267,23 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     if wavefront:
         return render_soa_wavefront(scene, spp, seed=seed, return_stats=return_stats,
                                     pool_sort=pool_sort, **walk)
-    ys, xs = np.mgrid[0:h, 0:w]
+    with profiling.span("render.lanes"):
+        ys, xs = np.mgrid[0:h, 0:w]
+        cols = (xs.ravel().astype(np.float32), ys.ravel().astype(np.float32), np.arange(n))
     seed = int(seed) & _M32
     # Brute scenes are throughput-bound: big sample batches per pass.
     # BVH scenes take one sample per pass, as the reference does.
     batch = max(1, (1 << 26) // n) if static.use_brute_force else 1
 
     def view(scene_d):
-        return scene_d.device.camera, scene_soa_from_aos(scene_d, packet_wide, packet_dual,
-                                                         **cast)
+        with profiling.span("render.scene"):
+            return scene_d.device.camera, scene_soa_from_aos(scene_d, packet_wide,
+                                                             packet_dual, **cast)
 
     def run(v, xs_d, ys_d, ray_idx, done, k):
         return _soa_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
 
-    one_pass = sharding.pass_fn(mesh, scene, (xs.ravel().astype(np.float32),
-                                              ys.ravel().astype(np.float32), np.arange(n)),
-                                view, run)
+    one_pass = sharding.pass_fn(mesh, scene, cols, view, run)
     acc = (np.zeros((3, n), np.float64) if init_acc is None
            else np.asarray(init_acc, np.float64).copy())
     total_rays = 0.0
@@ -1266,15 +1291,18 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     while done < spp:
         k = min(batch, spp - done)
         out, nrays = one_pass(0, n, done, k)
-        packet_kernels.check_overflow()
-        for c in range(3):
-            acc[c] += out[c]
+        with profiling.span("render.readback"):
+            packet_kernels.check_overflow()
+        with profiling.span("render.image"):
+            for c in range(3):
+                acc[c] += out[c]
         total_rays += nrays
         done += k
         if on_chunk is not None:
             on_chunk(acc, done)
-    img = (acc / spp).T.reshape(h, w, 3).astype(np.float32)
-    img = np.where(np.isfinite(img), img, 0.0)
+    with profiling.span("render.image"):
+        img = (acc / spp).T.reshape(h, w, 3).astype(np.float32)
+        img = np.where(np.isfinite(img), img, 0.0)
     if return_stats:
         return img, total_rays
     return img

@@ -38,6 +38,7 @@ from gdpt_tpu_torch.core import rng
 from gdpt_tpu_torch.core.dtypes import REAL, resolve_device
 from gdpt_tpu_torch.integrators import aux
 from gdpt_tpu_torch.scene.build import Scene, scene_to
+from gdpt_tpu_torch.utils import profiling
 
 # Target rays in flight per pass of render_samples (the reference's).
 MAX_RAYS_PER_PASS = 1 << 20
@@ -112,6 +113,7 @@ def render_samples(scene: Scene, trace_fn, spp=None, seed=0, start_sample=0, ini
     return img
 
 
+@profiling.span(profiling.FRAME)
 def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
            packet_wide=32, packet_dual=False, two_phase=False, packet_sort=True,
            premerge=False, entry_k=ENTRY_K, pool_sort=False, return_aux=False, packet=True,
@@ -139,9 +141,15 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     SoA renderers take the wavefront lane pool for BVH scenes whose work
     queue fits and the banded loop otherwise; False takes the banded loop
     for every scene. An integrator the reference does not know raises
-    its ValueError."""
+    its ValueError. The call is the program span render.frame, its scene
+    copy render.scene (utils/profiling)."""
     device = resolve_device(device)
     integrator = scene.static.options.integrator
+
+    def on_device():
+        with profiling.span("render.scene"):
+            return scene_to(scene, device)
+
     wavefront = None if wavefront else False
     walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, two_phase=two_phase,
                 packet_sort=packet_sort, premerge=premerge, entry_k=entry_k, packet=packet,
@@ -149,7 +157,7 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
     if return_aux and integrator != "gradpath":
         raise ValueError(f"return_aux: integrator {integrator!r} has no auxiliary buffers")
     if integrator in aux.AUX_KINDS:
-        img = aux.render_aux(scene_to(scene, device), integrator, **walk)
+        img = aux.render_aux(on_device(), integrator, **walk)
         return (img, float(scene.static.width * scene.static.height)) if return_stats else img
     if integrator == "path":
         from gdpt_tpu_torch.integrators import path_soa
@@ -157,9 +165,9 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
         if not path_soa.supports_soa(scene):
             from gdpt_tpu_torch.integrators import path
 
-            return render_samples(scene_to(scene, device), path.trace_path, spp=spp,
+            return render_samples(on_device(), path.trace_path, spp=spp,
                                   seed=seed, return_stats=return_stats, **walk)
-        return path_soa.render_soa(scene_to(scene, device), spp=spp, seed=seed,
+        return path_soa.render_soa(on_device(), spp=spp, seed=seed,
                                    return_stats=return_stats, pool_sort=pool_sort,
                                    wavefront=wavefront, **walk)
     if integrator == "gradpath":
@@ -170,7 +178,7 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
 
             return gdpt.render_gradpath(scene, spp=spp, seed=seed, return_aux=return_aux,
                                         device=device, return_stats=return_stats, **walk)
-        return gdpt_soa.render_gradpath_soa(scene_to(scene, device), spp=spp, seed=seed,
+        return gdpt_soa.render_gradpath_soa(on_device(), spp=spp, seed=seed,
                                             return_aux=return_aux, return_stats=return_stats,
                                             pool_sort=pool_sort, wavefront=wavefront, **walk)
     if integrator == "volpath":
@@ -179,9 +187,9 @@ def render(scene: Scene, spp=None, seed=0, device=None, return_stats=False,
         if not volpath_soa.supports_soa_volpath(scene):
             from gdpt_tpu_torch.integrators import volpath
 
-            return render_samples(scene_to(scene, device), volpath.trace_fn(scene.static),
+            return render_samples(on_device(), volpath.trace_fn(scene.static),
                                   spp=spp, seed=seed, return_stats=return_stats, **walk)
-        return volpath_soa.render_volpath_soa(scene_to(scene, device), spp=spp, seed=seed,
+        return volpath_soa.render_volpath_soa(on_device(), spp=spp, seed=seed,
                                               return_stats=return_stats, pool_sort=pool_sort,
                                               wavefront=wavefront, **walk)
     raise ValueError(f"unknown integrator: {integrator}")

@@ -43,6 +43,7 @@ from gdpt_tpu_torch.ops import lights as lgt
 from gdpt_tpu_torch.ops import materials as mat
 from gdpt_tpu_torch.ops import media as med
 from gdpt_tpu_torch.scene import camera as gcam
+from gdpt_tpu_torch.utils import profiling
 
 HARD_CAP = 64
 MAX_SHADOW_SEGMENTS = 16
@@ -53,7 +54,8 @@ MAX_SHADOW_SEGMENTS = 16
 # ("flight") and ratio tracking along a shadow segment ("ratio"), and the
 # bounce loops of integrators/path.py ("path") and gdpt.py ("gdpt").
 # Counted by the renders; zeroed by the caller.
-HOST_READS = {"bounce": 0, "segment": 0, "flight": 0, "ratio": 0, "path": 0, "gdpt": 0}
+HOST_READS = profiling.counter_group("volpath.host_reads", {
+    "bounce": 0, "segment": 0, "flight": 0, "ratio": 0, "path": 0, "gdpt": 0})
 
 
 def _select(live, new, old):

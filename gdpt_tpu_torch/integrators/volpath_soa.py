@@ -39,6 +39,7 @@ from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import media_soa as meds
 from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene.build import Scene
+from gdpt_tpu_torch.utils import profiling
 
 HARD_CAP = 64
 MAX_SHADOW_SEGMENTS = 16
@@ -59,7 +60,8 @@ _BLK_NEE_IT = 0x60000000
 # Host reads of a loop's condition, by loop: the bounce loop of the
 # banded driver, free flight, the shadow segments, the null collisions
 # within a segment. Counted by the renders; zeroed by the caller.
-HOST_READS = {"bounce": 0, "flight": 0, "segment": 0, "collision": 0}
+HOST_READS = profiling.counter_group("volpath_soa.host_reads",
+                                     {"bounce": 0, "flight": 0, "segment": 0, "collision": 0})
 
 
 def supports_soa_volpath(scene: Scene) -> bool:

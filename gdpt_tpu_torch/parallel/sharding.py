@@ -30,6 +30,7 @@ import torch
 from gdpt_tpu_torch.core.dtypes import REAL
 from gdpt_tpu_torch.ops import intersect as isect
 from gdpt_tpu_torch.scene.build import Scene, scene_to
+from gdpt_tpu_torch.utils import profiling
 
 # Rays are padded to a multiple of this many lanes per device, as the
 # reference pads them (its TPU vector width).
@@ -99,7 +100,11 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
     (ray_pad), are cut into contiguous shards, each run on its device,
     one after another, and joined in shard order on the host. The padded
     lanes' outputs are dropped and the rays they traced counted, as the
-    reference counts them."""
+    reference counts them.
+
+    Program spans (utils/profiling): the lanes' copies to a device are
+    render.lanes, each run render.pass, its outputs' read-back
+    render.readback."""
     views = {}
 
     def view_on(device):
@@ -109,24 +114,34 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
 
     if mesh is None:
         device = scene.device.camera.sample_to_cam.device
-        cols_d = [torch.as_tensor(c, device=device) for c in cols]
+        with profiling.span("render.lanes"):
+            cols_d = [torch.as_tensor(c, device=device) for c in cols]
 
         def pass_(lo, hi, *args):
-            out, rays = run(view_on(device), *(c[lo:hi] for c in cols_d), *args)
-            return [o.cpu().numpy().astype(np.float64) for o in out], float(rays)
+            v = view_on(device)
+            with profiling.span("render.pass"):
+                out, rays = run(v, *(c[lo:hi] for c in cols_d), *args)
+            with profiling.span("render.readback"):
+                return [o.cpu().numpy().astype(np.float64) for o in out], float(rays)
         return pass_
 
     def pass_(lo, hi, *args):
         m = hi - lo
         n = padded(mesh, max(width or m, m), align)
         per = n // len(mesh.devices)
-        lanes = [np.pad(c[lo:hi], (0, n - m)) for c in cols]
+        with profiling.span("render.lanes"):
+            lanes = [np.pad(c[lo:hi], (0, n - m)) for c in cols]
         outs, rays = [], 0.0
         for i, device in enumerate(mesh.devices):
-            part = [torch.as_tensor(a[i * per:(i + 1) * per], device=device) for a in lanes]
-            got, nr = run(view_on(device), *part, *args)
-            outs.append([o.cpu().numpy().astype(np.float64) for o in got])
-            rays += float(nr)
+            v = view_on(device)
+            with profiling.span("render.lanes"):
+                part = [torch.as_tensor(a[i * per:(i + 1) * per], device=device)
+                        for a in lanes]
+            with profiling.span("render.pass"):
+                got, nr = run(v, *part, *args)
+            with profiling.span("render.readback"):
+                outs.append([o.cpu().numpy().astype(np.float64) for o in got])
+                rays += float(nr)
         return [np.concatenate(parts)[:m] for parts in zip(*outs)], rays
     return pass_
 

@@ -28,9 +28,10 @@ import torch
 
 from gdpt_tpu_torch.accel import native_build
 from gdpt_tpu_torch.core.dtypes import REAL
+from gdpt_tpu_torch.utils import profiling
 
 SOURCE = "fma_peak.cu"
-LAUNCHES = {"fma_peak": 0}
+LAUNCHES = profiling.counter_group("fma_peak.launches", {"fma_peak": 0})
 # The reference's constants: a multiplier just above 1 and a small step,
 # so no chain overflows or flushes to zero in 4,096 steps.
 A = float(np.float32(1.0000001))
@@ -48,7 +49,7 @@ _lib = None
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build(SOURCE)))
+        lib = native_build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.gdpt_fma_peak.argtypes = [p, i, f, f, i, p, p, p, p, p]
         lib.gdpt_fma_peak.restype = i

@@ -40,12 +40,13 @@ import torch
 from gdpt_tpu_torch.accel import native_build
 from gdpt_tpu_torch.accel import packet_kernels as pk
 from gdpt_tpu_torch.core.dtypes import INT, REAL
+from gdpt_tpu_torch.utils import profiling
 
 SOURCE = "visit_microbench.cu"
 # In the order of the kernel's Mode enum.
 MODES = ("empty", "super", "super_sld", "super2", "super32", "super_leaf",
          "leaf", "leaf_sld", "leaf2", "leaf24")
-LAUNCHES = dict.fromkeys(MODES, 0)
+LAUNCHES = profiling.counter_group("visit_microbench.launches", dict.fromkeys(MODES, 0))
 PAIR_MODES = ("super2", "super_leaf", "leaf2")
 # Operations per ray of one iteration's slab tests (25 each); a leaf slot
 # with id >= 0 adds 52 (Moeller-Trumbore).
@@ -60,7 +61,7 @@ _M32 = 0xFFFFFFFF
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(native_build.build(SOURCE)))
+        lib = native_build.load(SOURCE)
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gdpt_visit_microbench.argtypes = [p, i, i, i, p, p, p, p, p, p, p, p, i, p, p, p, p]
         lib.gdpt_visit_microbench.restype = i

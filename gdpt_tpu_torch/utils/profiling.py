@@ -1,16 +1,40 @@
-"""Profiling & progress utilities, counterpart of gdpt_tpu/utils/profiling.py.
+"""Profiling utilities: a timer, the render thread's program spans, one
+registry of the port's counters, and torch.profiler helpers.
 
-The reference's observability is a wall-clock Timer and a mutex-guarded
-percent-done ProgressReporter (reference: src/timer.h, src/progress_reporter.h).
-Here: a timer context, a host progress reporter driven from the render
-driver's batch loop, and a torch.profiler device trace written as a
-Chrome trace.
+Counterpart of gdpt_tpu/utils/profiling.py, whose observability is a
+wall-clock Timer (reference: src/timer.h).
+
+- timer(): a wall-clock timer context.
+- span(name): a named stretch of host work on the render thread, as a
+  context manager or a decorator. Every call adds its count and its
+  time.perf_counter_ns duration to the registry, and apart to two
+  buckets: the calls inside the process's first render.frame (the warm
+  frame) and those made while a profiler session is enabled. While one
+  is enabled the span also enters a host-only profiler event of its name
+  (scope FUNCTION, not a user annotation, so Kineto mirrors nothing of
+  it on the device's timeline), on the clock the profiler aligns the
+  device's records to: a trace names the device's idle gaps by the span
+  that holds them. untraced(names) sums the calls outside both buckets,
+  those of the frames that run neither warm nor profiled;
+  span_stats(name) gives every bucket of one span; add() counts a call
+  as a span does. Names take the form layer.part (render.frame,
+  path.shade, cast.closest); none starts with "cu", which trace readers
+  take for the CUDA runtime's calls.
+- counter_group(name, counts): registers a module's dict of counts
+  (kernel launches, host reads, native builds) under a name, the same
+  dict object; counters() returns every group.
+- device_trace, device_stats, event_span_ms, stage_profile,
+  device_note: a Chrome trace of a run, and the stage tools' device
+  split by torch.profiler and CUDA events.
 """
 
 import contextlib
+import functools
 import os
-import sys
 import time
+
+import torch
+from torch._C._profiler import _RecordFunctionFast
 
 
 @contextlib.contextmanager
@@ -26,29 +50,118 @@ def timer():
     done[0] = time.perf_counter() - start
 
 
-class ProgressReporter:
-    """Percent-done reporting (reference: src/progress_reporter.h) — no
-    mutex needed: the host batch loop is single threaded by design."""
+# The span of one whole render.render call; the first one is the warm frame.
+FRAME = "render.frame"
 
-    def __init__(self, total, stream=sys.stderr, enabled=True):
-        self.total = max(total, 1)
-        self.done = 0
-        self.stream = stream
-        self.enabled = enabled
-        self._start = time.perf_counter()
+_profiler_enabled = torch.autograd._profiler_enabled
+_clock = time.perf_counter_ns
 
-    def update(self, n=1):
-        self.done += n
-        if self.enabled:
-            pct = 100.0 * self.done / self.total
-            dt = time.perf_counter() - self._start
-            self.stream.write(f"\r{pct:5.1f}% ({dt:.1f}s)")
-            self.stream.flush()
 
-    def finish(self):
-        if self.enabled:
-            self.stream.write("\n")
-            self.stream.flush()
+class _Registry:
+    """The spans' sums and the counter groups of the process.
+
+    spans: name -> [calls, ns, warm calls, warm ns, traced calls, traced
+    ns, untraced calls, untraced ns]; frames: render.frame calls begun
+    at depth 0; depth: render.frame calls open."""
+
+    def __init__(self):
+        self.spans = {}
+        self.counters = {}
+        self.frames = 0
+        self.depth = 0
+
+
+_REG = _Registry()
+
+
+class span:
+    """with span("path.shade"): ... or @span("cast.closest") on a
+    function; see the module's docstring. Used on the render thread
+    only. Off a profiler session a call costs two clock reads and a few
+    dict and list operations."""
+
+    __slots__ = ("name", "_t0", "_event")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+    def __enter__(self):
+        if self.name == FRAME:
+            if _REG.depth == 0:
+                _REG.frames += 1
+            _REG.depth += 1
+        self._event = None
+        if _profiler_enabled():
+            self._event = _RecordFunctionFast(self.name)
+            self._event.__enter__()
+        self._t0 = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        ns = _clock() - self._t0
+        if self._event is not None:
+            self._event.__exit__(*exc)
+        # A span that ends inside the first frame began inside it.
+        warm = _REG.frames == 1 and _REG.depth > 0
+        if self.name == FRAME:
+            _REG.depth -= 1
+        add(self.name, ns, warm, self._event is not None)
+        return False
+
+
+def add(name, ns, warm=False, traced=False):
+    """Count one call of span `name` that took `ns` nanoseconds, in the
+    warm frame and/or under a profiler session."""
+    e = _REG.spans.get(name)
+    if e is None:
+        e = _REG.spans[name] = [0] * 8
+    e[0] += 1
+    e[1] += ns
+    if warm:
+        e[2] += 1
+        e[3] += ns
+    if traced:
+        e[4] += 1
+        e[5] += ns
+    if not (warm or traced):
+        e[6] += 1
+        e[7] += ns
+
+
+_BUCKETS = ("calls", "ns", "warm_calls", "warm_ns", "traced_calls", "traced_ns",
+            "untraced_calls", "untraced_ns")
+
+
+def span_stats(name):
+    """Every bucket of span `name` as a dict (zeros where it never ran)."""
+    return dict(zip(_BUCKETS, _REG.spans.get(name, [0] * 8)))
+
+
+def untraced(names):
+    """(summed ns, calls) of the spans `names` over every call outside
+    the warm frame and outside any profiler session."""
+    es = [_REG.spans[n] for n in names if n in _REG.spans]
+    return sum(e[7] for e in es), sum(e[6] for e in es)
+
+
+def counter_group(name, counts):
+    """Register the dict `counts` as the counter group `name`; returns it."""
+    _REG.counters[name] = counts
+    return counts
+
+
+def counters():
+    """Every registered counter group: name -> its module's dict."""
+    return dict(_REG.counters)
 
 
 @contextlib.contextmanager
@@ -56,7 +169,6 @@ def device_trace(logdir):
     """Record the host's operations and, where CUDA is available, the
     device's kernels with torch.profiler; the trace is written to
     `logdir`/trace.json (Chrome trace format) when the block ends."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -95,8 +207,6 @@ def device_stats(prof):
     kernels' share of it (`hand_ms`). The profiler can lose some or all
     of a run's device records while its host records stay whole:
     device_ops < launches says so."""
-    import torch
-
     averages = prof.key_averages()
     # A scheduled profiler also puts its step on the device's timeline as
     # an annotation spanning the step's kernels ("ProfilerStep#n"): not
@@ -130,8 +240,6 @@ def event_span_ms(fn, call_args, reps=3):
     rather than with the host's first launch: for a stage of one or a few
     launches, its device time; for a longer one, an upper bound on it
     (the span also holds the device's gaps between launches)."""
-    import torch
-
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     best = float("inf")
     for _ in range(reps):
@@ -167,8 +275,6 @@ def stage_profile(fn, *args, device, reps=3, setup=None):
     setup: a function returning the call's arguments, called before every
     call outside its timing (a stage that updates its inputs in place
     gets fresh copies); else `args` are passed to every call."""
-    import torch
-
     dev = torch.device(device)
     cuda = dev.type == "cuda"
 
