@@ -1308,13 +1308,18 @@ def _gradpath_phases(card, ctx):
 def _record_brute_batches(render, bk, scene):
     """Every K1 / K2 call of one render of a brute-force scene on cuda as
     (kind, args), recorded through the wrappers' module attributes, in
-    order."""
+    order. A call made while a CUDA graph is captured runs nothing and
+    is left out: a graphed pass calls the wrappers for its warm sample
+    and again for its capture."""
+    import torch
+
     seen = []
     wrappers = {"K1": bk.intersect_brute, "K2": bk.occluded_brute}
 
     def recording(kind):
         def call(*args):
-            seen.append((kind, args))
+            if not torch.cuda.is_current_stream_capturing():
+                seen.append((kind, args))
             return wrappers[kind](*args)
         return call
 

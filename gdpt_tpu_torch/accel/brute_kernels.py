@@ -9,7 +9,10 @@ ctypes and launches them on PyTorch's current stream.
 Each wrapper takes its plain PyTorch version only for tensors on the
 CPU. For CUDA tensors it launches the kernel or raises: there is no
 fallback. LAUNCHES counts kernel launches, one per call that reached a
-kernel, so a run can show that its main path went through them.
+kernel, so a run can show that its main path went through them. A call
+made while a CUDA graph is captured runs nothing then: it goes into the
+capture's tally (capture_tally), and count_replays adds the tally to
+LAUNCHES for every replay of the graph.
 
 Both kernels take a per-ray tfar and a tnear, a scalar for every ray or
 an (N,) tensor (the wavefront casts primary rays from 0 and bounce rays
@@ -21,6 +24,7 @@ which is the kernel's lowest-index tie rule), so the two agree bit for
 bit.
 """
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -37,6 +41,39 @@ LAUNCHES = profiling.counter_group("brute_kernels.launches", {"intersect": 0, "o
 SOURCE = "brute_intersect.cu"
 
 _lib = None
+_tally = None  # the launches of the graph being captured (capture_tally)
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Yields the tally of the K1 / K2 launches recorded into a CUDA graph
+    captured inside the block, keyed like LAUNCHES; they run, and count,
+    only when the graph is replayed (count_replays)."""
+    global _tally
+    outer, _tally = _tally, dict.fromkeys(LAUNCHES, 0)
+    try:
+        yield _tally
+    finally:
+        _tally = outer
+
+
+def count_replays(tally, n):
+    """Counts in LAUNCHES the launches of n replays of a graph whose
+    capture recorded `tally`."""
+    for k, v in tally.items():
+        LAUNCHES[k] += v * n
+
+
+def _count(kind, n):
+    """One launch of `kind` over n rays, none for n = 0: into LAUNCHES, or,
+    while the current stream is captured, into the capture's tally (a
+    capture outside capture_tally counts nothing)."""
+    if n == 0:
+        return
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES[kind] += 1
+    elif _tally is not None:
+        _tally[kind] += 1
 
 
 def _load():
@@ -232,7 +269,7 @@ def intersect_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, t
             _ptr(tri_soup), n_tris, _ptr(sph_soup), n_sph, *map(_ptr, rays), lane_tnear, n,
             tnear, _ptr(t), _ptr(prim), _ptr(u), _ptr(v),
             _ptr(gx), _ptr(gy), _ptr(gz), ctypes.c_void_p(stream))
-    LAUNCHES["intersect"] += n > 0
+    _count("intersect", n)
     _raise_on(err, "intersect_brute_kernel")
     return t, prim, u, v, gx, gy, gz
 
@@ -255,7 +292,7 @@ def occluded_brute(tri_soup, sph_soup, n_tris, n_sph, ox, oy, oz, dx, dy, dz, tf
         err = lib.gdpt_occluded_brute(
             _ptr(tri_soup), n_tris, _ptr(sph_soup), n_sph, *map(_ptr, rays), lane_tnear, n,
             tnear, _ptr(blocked), ctypes.c_void_p(stream))
-    LAUNCHES["occluded"] += n > 0
+    _count("occluded", n)
     _raise_on(err, "occluded_brute_kernel")
     return blocked
 

@@ -19,12 +19,14 @@ its lane pool morton-sorted (pool_sort=True, _pool_sort).
 Every tensor is made on the device the scene lives on.
 """
 
+import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from gdpt_tpu_torch.accel import brute_kernels as bk
 from gdpt_tpu_torch.accel import packet_kernels, packet_trace
 from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import distributions as gdist
@@ -535,14 +537,21 @@ def envmap_pdf_for_dir(static, sc: SceneSoA, d: V3):
     return tsoa.envmap_pdf_dir(_env_view(static, sc), d)
 
 
+@functools.lru_cache(maxsize=16)
+def _film_size(w, h, device):
+    """(w, h) as a float32 tensor on `device`, made once: a copy from the
+    host waits for the device, and a captured sample may not (_soa_pass;
+    its graph keeps the tensor it read)."""
+    return torch.tensor([w, h], dtype=REAL, device=device)
+
+
 def primary_rays_soa(static, camera, xs, ys, u0, u1):
     """Batched camera rays with filter importance sampling
     (reference: src/camera.cpp:23-47)."""
     from gdpt_tpu_torch.scene import filters as gfilters
 
-    w, h = static.width, static.height
     n = xs.shape[0]
-    wh = torch.tensor([w, h], dtype=REAL, device=xs.device)
+    wh = _film_size(static.width, static.height, xs.device)
     pix = torch.stack([xs + u0, ys + u1], dim=-1) / wh
     pixel = pix * wh
     frac = pixel - torch.floor(pixel)
@@ -647,7 +656,9 @@ def hit_light_pdf_soa(static, sc: SceneSoA, ref_pos: V3, nxt: VertexSoA,
 
 def trace_paths_soa(static, camera, sc: SceneSoA, xs, ys, ray_idx, seed, sample0):
     """One sample for every ray in the batch; returns (radiance V3, rays
-    per lane). seed and sample0 are Python ints (uint32 values).
+    per lane). seed and sample0 are uint32 values, as Python ints or as
+    0-d int64 tensors on the lanes' device (a captured sample's inputs,
+    _soa_pass); both forms give the same bits.
 
     Program spans (utils/profiling) of each stage: path.primary (the
     pixel draws and camera rays), path.shade (each shade_hit), path.nee,
@@ -1181,17 +1192,106 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
     return img
 
 
+# Samples of banded passes: replayed from a captured graph, or run
+# eagerly; and the graphs captured (_soa_pass).
+GRAPHS = profiling.counter_group("path_soa.graphs", {"captured": 0, "replayed": 0, "eager": 0})
+
+
+def _add_sample(static, camera, sc, lanes, seed, sample, acc, rays):
+    """One sample of trace_paths_soa added into the pass's sums in place:
+    acc (3, n) f32, rows x, y, z, and rays, an f32 0-d tensor."""
+    r, nr = trace_paths_soa(static, camera, sc, *lanes, seed, sample)
+    for row, c in zip(acc, r):
+        row.add_(c)
+    rays.add_(nr.sum())
+
+
+def graphed(static, xs):
+    """Whether a banded pass replays its sample as a CUDA graph: CUDA
+    lanes, brute-force casts (K1 and K2, which read nothing back) and a
+    fixed trip count (max_depth > 0). The BVH walks, the unbounded
+    loop's reads of its condition and CPU lanes run eagerly."""
+    return xs.is_cuda and static.use_brute_force and static.options.max_depth > 0
+
+
+class _SampleGraph:
+    """One sample of the banded pass captured as a CUDA graph over static
+    lanes, seed and sample index, adding into static sums. Built on a
+    key's first pass: the lanes are copied in, the sample runs once
+    eagerly on a side stream (loading the kernels and the memoised
+    constants), then is captured. The graph holds K1 and K2 as nodes.
+    It keeps every tensor made before the capture that a replay reads,
+    the view, the camera and the film's size among them, so no memo that
+    drops one hands its memory to another tensor under the graph."""
+
+    def __init__(self, static, camera, sc, xs, ys, ray_idx):
+        dev = xs.device
+        # id(camera) is in the memo's key too.
+        self.held = (sc, camera, _film_size(static.width, static.height, dev))
+        self.lanes = (xs.clone(), ys.clone(), ray_idx.clone())
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.sample = torch.zeros((), dtype=torch.int64, device=dev)
+        self.acc = torch.zeros((3, xs.shape[0]), dtype=REAL, device=dev)
+        self.rays = torch.zeros((), dtype=REAL, device=dev)
+
+        def body():
+            _add_sample(static, camera, sc, self.lanes, self.seed, self.sample, self.acc,
+                        self.rays)
+
+        # capture_begin/end, not torch.cuda.graph, which first collects
+        # garbage and empties the allocator's cache to make room for a
+        # large graph (about 0.13 s of a benchmark process's warm frame).
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+            with bk.capture_tally() as self.launches:
+                self.graph.capture_begin()
+                body()
+                self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        GRAPHS["captured"] += 1
+
+    def run(self, xs, ys, ray_idx, seed, sample0, n_samples):
+        for dst, src in zip(self.lanes, (xs, ys, ray_idx)):
+            dst.copy_(src)
+        self.seed.fill_(seed)
+        self.acc.zero_()
+        self.rays.zero_()
+        for i in range(n_samples):
+            self.sample.fill_(sample0 + i)
+            self.graph.replay()
+        bk.count_replays(self.launches, n_samples)
+        GRAPHS["replayed"] += n_samples
+        return V3(*self.acc), self.rays
+
+
+# Captured samples, keyed like _SOA_MEMO's views on the view itself, with
+# the scene's facts, the camera, the lane count and the device; a graph
+# and its private memory pool go when its entry is dropped.
+_GRAPH_MEMO = SceneMemo()
+
+
 def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     """n_samples samples summed in f32 for the whole ray batch; returns
-    (radiance V3, total rays as an f32 0-d tensor)."""
-    acc = V3(*(torch.zeros_like(xs),) * 3)
+    (radiance V3, total rays as an f32 0-d tensor). A graphed pass
+    (graphed()) replays its key's captured sample once per sample and
+    returns views of the graph's static sums, which the next pass of the
+    key overwrites; any other pass runs the same sample eagerly. Both
+    give the same bits."""
+    if graphed(static, xs):
+        key = (static, id(camera), xs.shape[0], xs.device)
+        with torch.cuda.device(xs.device):  # capture and replay on the lanes' card
+            g = _GRAPH_MEMO.get(sc, key,
+                                lambda: _SampleGraph(static, camera, sc, xs, ys, ray_idx))
+            return g.run(xs, ys, ray_idx, seed, sample0, n_samples)
+    acc = torch.zeros((3, xs.shape[0]), dtype=REAL, device=xs.device)
     rays = torch.zeros((), dtype=REAL, device=xs.device)
     for i in range(n_samples):
-        r, nr = trace_paths_soa(static, camera, sc, xs, ys, ray_idx, seed,
-                                sample0 + i)
-        acc = V3(acc.x + r.x, acc.y + r.y, acc.z + r.z)
-        rays = rays + nr.sum()
-    return acc, rays
+        _add_sample(static, camera, sc, (xs, ys, ray_idx), seed, sample0 + i, acc, rays)
+    GRAPHS["eager"] += n_samples
+    return V3(*acc), rays
 
 
 def banded_for_resume(wavefront, start_sample, init_acc, on_chunk):
@@ -1249,7 +1349,10 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     The banded loop's program spans (utils/profiling): the lane columns
     render.lanes, the scene's view render.scene, the overflow check
     render.readback, the host image's sums and casts render.image; the
-    pass's are sharding.pass_fn's.
+    pass's are sharding.pass_fn's. A pass that replays a captured sample
+    (_soa_pass, graphed()) enters the stage spans (path.*) and the casts'
+    (cast.*) only while its key's sample is warmed and captured, in its
+    first pass; the replays run under render.pass alone.
     """
     static = scene.static
     w, h = static.width, static.height

@@ -82,6 +82,14 @@ def scene_on(scene: Scene, device) -> Scene:
     return scene if here == torch.device(device) else scene_to(scene, device)
 
 
+def _wait(device):
+    """Waits for the work queued on `device`'s current stream (nothing to
+    wait for on the CPU), in the span render.wait."""
+    with profiling.span("render.wait"):
+        if device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+
+
 def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
     """The pass of a render loop, over `mesh` or, with mesh=None, on the
     scene's own device.
@@ -93,7 +101,10 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
     *args) casts the lanes cols_d on that device and returns (outputs,
     rays): (m,)-leading tensors and the ray count. Returns pass_(lo, hi,
     *args), the pass of lanes lo:hi, as (each output as a float64 host
-    array of hi - lo rows, the ray count).
+    array of hi - lo rows, the ray count). A run's outputs may be the
+    static buffers of a captured CUDA graph (path_soa._soa_pass), which
+    its next run overwrites: each is read back to the host before the
+    next run starts.
 
     Over a mesh, the lanes lo:hi, padded with zeros to `width` lanes
     (default hi - lo) and then to whole `align`-lane groups per device
@@ -103,8 +114,9 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
     reference counts them.
 
     Program spans (utils/profiling): the lanes' copies to a device are
-    render.lanes, each run render.pass, its outputs' read-back
-    render.readback."""
+    render.lanes, each run render.pass, the wait for the work it queued
+    on its device render.wait, its outputs' read-back render.readback
+    (host work alone)."""
     views = {}
 
     def view_on(device):
@@ -121,6 +133,7 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
             v = view_on(device)
             with profiling.span("render.pass"):
                 out, rays = run(v, *(c[lo:hi] for c in cols_d), *args)
+            _wait(device)
             with profiling.span("render.readback"):
                 return [o.cpu().numpy().astype(np.float64) for o in out], float(rays)
         return pass_
@@ -139,6 +152,7 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
                         for a in lanes]
             with profiling.span("render.pass"):
                 got, nr = run(v, *part, *args)
+            _wait(device)
             with profiling.span("render.readback"):
                 outs.append([o.cpu().numpy().astype(np.float64) for o in got])
                 rays += float(nr)

@@ -172,6 +172,31 @@ def test_cpu_wrappers_take_plain_versions_and_count_nothing():
     assert bk.LAUNCHES == before
 
 
+def test_a_captured_launch_counts_once_per_replay(monkeypatch):
+    """A launch counts in LAUNCHES when it runs: one made while a stream
+    is captured goes into the capture's tally instead (none outside a
+    tally), and count_replays adds the tally once per replay; an empty
+    batch counts nowhere."""
+    capturing = [False]
+    monkeypatch.setattr(bk.torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    for k in bk.LAUNCHES:
+        monkeypatch.setitem(bk.LAUNCHES, k, 0)
+    bk._count("intersect", 4)
+    bk._count("occluded", 0)
+    assert bk.LAUNCHES == {"intersect": 1, "occluded": 0}
+    capturing[0] = True
+    with bk.capture_tally() as tally:
+        bk._count("intersect", 4)
+        bk._count("occluded", 4)
+        bk._count("occluded", 4)
+        bk._count("occluded", 0)
+    bk._count("intersect", 4)
+    assert tally == {"intersect": 1, "occluded": 2}
+    assert bk.LAUNCHES == {"intersect": 1, "occluded": 0}
+    bk.count_replays(tally, 3)
+    assert bk.LAUNCHES == {"intersect": 4, "occluded": 6}
+
+
 @pytest.mark.parametrize("kernel", ["intersect", "occluded"])
 def test_wrappers_take_a_per_ray_tnear(kernel):
     """A per-ray tnear (the wavefront casts primary rays from 0 and bounce

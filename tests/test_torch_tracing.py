@@ -23,7 +23,7 @@ from gdpt_tpu_torch.utils import profiling
 # depth 6 at one sample a pixel (one pass, five bounces).
 FRAME_SPANS = {
     "render.frame": 1, "render.scene": 2, "render.lanes": 2, "render.pass": 1,
-    "render.readback": 2, "render.image": 2, "path.primary": 1, "path.shade": 6,
+    "render.wait": 1, "render.readback": 2, "render.image": 2, "path.primary": 1, "path.shade": 6,
     "path.nee": 5, "path.bsdf": 10, "path.mis": 6, "path.update": 10,
     "cast.closest": 6, "cast.shadow": 5,
 }
@@ -168,7 +168,7 @@ def test_a_path_render_opens_every_span(registry):
     assert ns["cast.closest"] + ns["cast.shadow"] < ns["render.pass"]
     fixed = sum(ns[n] for n in ("render.scene", "render.lanes", "render.readback",
                                 "render.image"))
-    assert fixed + ns["render.pass"] <= ns["render.frame"]
+    assert fixed + ns["render.pass"] + ns["render.wait"] <= ns["render.frame"]
     builds = dict(native_build.BUILDS)
     native_build.load("bvh_builder.cpp")
     assert profiling.span_stats("native.load")["calls"] == 1
@@ -207,14 +207,16 @@ def test_spans_leave_the_device_timeline_alone():
     spans are host events only: no CUDA-typed event carries a span's
     name, and the device records one operation per launch (a mirrored
     annotation would add one), retried where the profiler lost
-    records."""
+    records. The box has unbounded depth, so its banded pass runs
+    eagerly and opens every span in every frame (a pass of fixed depth
+    replays a captured graph: test_torch_path_graph)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch._C._profiler import ProfilerActivity
 
     names = {*FRAME_SPANS, "native.load"}
     cuda_type = torch.autograd.DeviceType.CUDA
-    scene = presets.cornell_box(64, 64, spp=1, max_depth=6)
+    scene = presets.cornell_box(64, 64, spp=1, max_depth=-1)
     render.render(scene, spp=1, seed=1)
     torch.cuda.synchronize()
     for attempt in range(3):
