@@ -24,6 +24,15 @@ keep its lanes morton-sorted (``pool_sort=True``), behind
 (trace_gdpt, render_gradpath).
 
 Every tensor is made on the device the scene lives on.
+
+Program spans (utils/profiling): gdpt.primary (each lane refill's five
+primaries, _init_gdpt_lanes), gdpt.bounce (each shared bounce, banded and
+wavefront alike), gdpt.solve (the gradients' assembly, the Poisson solve
+and the image's copy to the host), and the render loop's render.scene,
+render.lanes, render.readback and render.image (the host's float64 sums,
+transposes and finite filter), as path_soa's banded loop opens them. The
+counter group gdpt_soa.work counts, in host integers, the pixel samples
+traced and the bounce iterations run.
 """
 
 from typing import NamedTuple
@@ -42,6 +51,7 @@ from gdpt_tpu_torch.ops import poisson
 from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene import model as M
 from gdpt_tpu_torch.scene.build import Scene
+from gdpt_tpu_torch.utils import profiling
 
 GDPT_MAX_DEPTH = 32  # reference: small_gdpt.cpp:15
 # The banded loop takes a BVH image of more pixels than this in equal
@@ -53,6 +63,9 @@ _OFFSETS = ((-1.0, 0.0), (1.0, 0.0), (0.0, -1.0), (0.0, 1.0))
 
 # sign -1: gradient stored as (base - offset); +1: (offset - base).
 _SIGNS = (-1.0, 1.0, -1.0, 1.0)
+
+# Pixel samples traced and shared bounces run, over the process.
+WORK = profiling.counter_group("gdpt_soa.work", {"samples": 0, "bounces": 0})
 
 
 class GdptSampleSoA(NamedTuple):
@@ -90,6 +103,7 @@ def _cat3(vs):
               torch.cat([v.z for v in vs]))
 
 
+@profiling.span("gdpt.primary")
 def _init_gdpt_lanes(static, camera, sc: ps.SceneSoA, pixel, sample, seed, live):
     """Fresh per-lane GDPT state for (pixel, sample) work items (int64
     tensors of uint32 values).
@@ -153,6 +167,7 @@ def _init_gdpt_lanes(static, camera, sc: ps.SceneSoA, pixel, sample, seed, live)
     )
 
 
+@profiling.span("gdpt.bounce")
 def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s, pool_sort=False):
     """One shared GDPT bounce over per-lane state (lanes may sit at
     different depths: bounce/pixel/sample are per-lane, so both the
@@ -164,6 +179,7 @@ def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s, pool_sort=False):
     md = static.options.max_depth
     n_iters = GDPT_MAX_DEPTH if md < 0 else min(md, GDPT_MAX_DEPTH)
     n = s["prob"].shape[0]
+    WORK["bounces"] += 1
     zero = torch.zeros(n, dtype=REAL, device=s["prob"].device)
     zero3 = V3(zero, zero, zero)
     eps_isect = static.intersection_epsilon
@@ -438,6 +454,7 @@ def trace_gdpt_soa(static, camera, sc: ps.SceneSoA, xs, ys, ray_idx, seed, sampl
     sample = torch.full((n,), int(sample0) & ps._M32, dtype=torch.int64, device=dev)
     state = _init_gdpt_lanes(static, camera, sc, pixel, sample, seed,
                              torch.ones(n, dtype=torch.bool, device=dev))
+    WORK["samples"] += n
     state["rays"] = torch.tensor(5.0 * n, dtype=REAL, device=dev)
     while bool((state["active"] > 0).any()):
         state = _gdpt_bounce(static, sc, used, seed, state)
@@ -493,6 +510,7 @@ def _gdpt_wavefront_body(static, camera, sc, used, st, pool_sort=False):
         fresh = _init_gdpt_lanes(static, camera, sc, new_pixel, new_sample,
                                  st["seed"], take)
         n_take = min(n_dead, total - next_item)
+        WORK["samples"] += n_take
         lane = soa.tree_where(take, fresh, {k: s[k] for k in fresh})
         lane["rays"] = s["rays"] + 5.0 * n_take
         pending2 = (take | pah).to(REAL)
@@ -595,8 +613,11 @@ def _gdpt_wavefront_accum(static, camera, sc, spp, seed, n_pix, k_iters=6,
     last_drain = 0
 
     def drain():
-        packet_kernels.check_overflow()
-        host_acc[...] += st["acc"].cpu().numpy().astype(np.float64)
+        with profiling.span("render.readback"):
+            packet_kernels.check_overflow()
+            part = st["acc"].cpu().numpy()
+        with profiling.span("render.image"):
+            host_acc[...] += part.astype(np.float64)
         st["acc"].zero_()
 
     if sc.geom.packet is None and not static.use_brute_force:
@@ -627,7 +648,8 @@ def _gdpt_wavefront_accum(static, camera, sc, spp, seed, n_pix, k_iters=6,
             drain()
             last_drain = ni
     drain()
-    acc = host_acc.T.reshape(6, 3, n_pix)
+    with profiling.span("render.image"):
+        acc = host_acc.T.reshape(6, 3, n_pix)
     _gdpt_wavefront_accum.last_occupancy = float(st["occ_sum"]) / max(st["iters"], 1)
     _gdpt_wavefront_accum.last_iters = st["iters"]
     return acc, float(st["lane"]["rays"])
@@ -713,11 +735,14 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
         nb = -(-n // PIX_CAP)
         band = -(-n // nb)
         bands = [(lo, min(n, lo + band)) for lo in range(0, n, band)]
-    ys, xs = np.mgrid[0:h, 0:w]
+    with profiling.span("render.lanes"):
+        ys, xs = np.mgrid[0:h, 0:w]
+        cols = (xs.ravel().astype(np.float32), ys.ravel().astype(np.float32), np.arange(n))
 
     def view(scene_d):
-        return scene_d.device.camera, ps.scene_soa_from_aos(scene_d, packet_wide, packet_dual,
-                                                            **cast)
+        with profiling.span("render.scene"):
+            return scene_d.device.camera, ps.scene_soa_from_aos(scene_d, packet_wide,
+                                                                packet_dual, **cast)
 
     def run(v, xs_d, ys_d, ray_idx, done, k):
         out, nrays = _gdpt_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
@@ -725,9 +750,8 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
 
     # Sharded, every band is padded to the first band's width, as the
     # reference pads it.
-    band_pass = sharding.pass_fn(mesh, scene, (xs.ravel().astype(np.float32),
-                                               ys.ravel().astype(np.float32), np.arange(n)),
-                                 view, run, width=bands[0][1] - bands[0][0])
+    band_pass = sharding.pass_fn(mesh, scene, cols, view, run,
+                                 width=bands[0][1] - bands[0][0])
     acc = (np.zeros((6, 3, n), np.float64) if init_acc is None
            else np.asarray(init_acc, np.float64).copy())
     total_rays = 0.0
@@ -740,9 +764,11 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
                 # The reference counts a band's padded lanes' rays scaled
                 # by its share of real lanes.
                 nrays = nrays * (hi - lo) / sharding.padded(mesh, bands[0][1] - bands[0][0])
-            packet_kernels.check_overflow()
-            for j, buf in enumerate(out):
-                acc[j // 3, j % 3, lo:hi] += buf
+            with profiling.span("render.readback"):
+                packet_kernels.check_overflow()
+            with profiling.span("render.image"):
+                for j, buf in enumerate(out):
+                    acc[j // 3, j % 3, lo:hi] += buf
             total_rays += nrays
         done += k
         if on_chunk is not None:
@@ -752,19 +778,22 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
 
 def _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux, return_stats, device):
     """Shared tail: (6,3,n) sample sums -> Poisson reconstruction, solved
-    on `device`."""
-    def img(i):
-        return (acc[i] / spp).T.reshape(h, w, 3).astype(np.float32)
-
-    primal, primal_bf, gxh, gxn, gyh, gyn = (img(i) for i in range(6))
-    gx, gy = poisson.assemble_gradients(
-        *(torch.as_tensor(a, device=device) for a in (gxh, gxn, gyh, gyn)))
-    recon = poisson.screened_poisson_solve(
-        torch.as_tensor(primal, device=device), gx, gy, static.options.gdpt_alpha
-    ).cpu().numpy()
-    recon = np.where(np.isfinite(recon), recon, 0.0).astype(np.float32)
-    aux = dict(primal=primal, primal_bf=primal_bf,
-               gx=gx.cpu().numpy(), gy=gy.cpu().numpy())
+    on `device`: the host's images in render.image, the solve in
+    gdpt.solve."""
+    with profiling.span("render.image"):
+        primal, primal_bf, gxh, gxn, gyh, gyn = (
+            (acc[i] / spp).T.reshape(h, w, 3).astype(np.float32) for i in range(6))
+    with profiling.span("gdpt.solve"):
+        gx, gy = poisson.assemble_gradients(
+            *(torch.as_tensor(a, device=device) for a in (gxh, gxn, gyh, gyn)))
+        recon = poisson.screened_poisson_solve(
+            torch.as_tensor(primal, device=device), gx, gy, static.options.gdpt_alpha
+        ).cpu().numpy()
+    with profiling.span("render.image"):
+        recon = np.where(np.isfinite(recon), recon, 0.0).astype(np.float32)
+    if return_aux:
+        aux = dict(primal=primal, primal_bf=primal_bf,
+                   gx=gx.cpu().numpy(), gy=gy.cpu().numpy())
     if return_aux and return_stats:
         return recon, aux, total_rays
     if return_aux:

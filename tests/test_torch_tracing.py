@@ -3,7 +3,9 @@
 On the CPU: the registry's sums and buckets with and without a profiler
 session, the spans as host-only profiler events on the clock the
 profiler aligns the device's records to, and a small brute-force `path`
-render that opens every span of the banded loop. On the card (`gpu`):
+render that opens every span of the banded loop, a small `gradpath`
+render that opens the gradient-domain spans and counts its work, and the
+benchmark's gdpt.* readers on such a render. On the card (`gpu`):
 a profiled cbox render puts nothing of the spans on the device's
 timeline.
 """
@@ -175,10 +177,115 @@ def test_a_path_render_opens_every_span(registry):
     assert sum(native_build.BUILDS.values()) == sum(builds.values()) + 1
 
 
+# The gradient-domain spans and the banded loop's fixed-work spans of one
+# 16x16 gradpath frame at depth 6, one pass of `spp` samples: per sample
+# the five primaries and up to seven bounces.
+GDPT_SPANS = ("gdpt.primary", "gdpt.bounce", "gdpt.solve", "render.image", "render.lanes",
+              "render.scene", "render.readback", "render.pass", "render.wait")
+
+
+def _gradpath_frame(seed, spp=2):
+    scene = presets.cornell_box(16, 16, spp=spp, integrator="gradpath", max_depth=6)
+    return render.render(scene, spp=spp, seed=seed, device="cpu", return_stats=True)
+
+
+def test_a_gradpath_render_opens_its_spans(registry):
+    """Two 16x16 gradpath frames of two samples: gdpt.primary once a
+    sample, gdpt.bounce as often as gdpt_soa.work counts bounces, one
+    solve a frame, the host image's three stretches (the sums, the six
+    buffers, the finite filter); the work counter counts every pixel
+    sample."""
+    from gdpt_tpu_torch.integrators import gdpt_soa
+
+    assert profiling.counters()["gdpt_soa.work"] is gdpt_soa.WORK
+    before = dict(gdpt_soa.WORK)
+    for seed in (1, 2):
+        img, rays = _gradpath_frame(seed)
+        assert img.shape == (16, 16, 3) and np.isfinite(img).all() and rays > 0
+    work = {k: gdpt_soa.WORK[k] - before[k] for k in before}
+    assert work["samples"] == 2 * 2 * 16 * 16
+    stats = {n: profiling.span_stats(n) for n in GDPT_SPANS}
+    assert stats["gdpt.primary"]["calls"] == 2 * 2
+    assert stats["gdpt.bounce"]["calls"] == work["bounces"]
+    assert 2 * 2 <= work["bounces"] <= 2 * 2 * 7
+    assert stats["gdpt.solve"]["calls"] == 2 and stats["render.image"]["calls"] == 2 * 3
+    for name, st in stats.items():
+        assert st["warm_calls"] > 0 and st["untraced_calls"] > 0, name
+    frame = profiling.span_stats(profiling.FRAME)["untraced_ns"]
+    inside = sum(st["untraced_ns"] for n, st in stats.items()
+                 if n not in ("gdpt.primary", "gdpt.bounce"))
+    assert stats["gdpt.bounce"]["untraced_ns"] < stats["render.pass"]["untraced_ns"]
+    assert inside <= frame
+
+
+def test_a_gradpath_render_is_the_same_under_the_profiler(registry):
+    """Under a Kineto CPU session the spans become host events, and the
+    image and ray count stay the same, bit for bit."""
+    from torch._C._profiler import ProfilerActivity
+
+    img, rays = _gradpath_frame(9)
+    stop = _kineto({ProfilerActivity.CPU})
+    img_p, rays_p = _gradpath_frame(9)
+    names = {e.name() for e in stop()}
+    assert {"gdpt.primary", "gdpt.bounce", "gdpt.solve", "render.image"} <= names
+    assert rays_p == rays
+    np.testing.assert_array_equal(img_p, img)
+    assert profiling.span_stats("gdpt.solve")["traced_calls"] == 1
+
+
+def _gdpt_readers():
+    from benchmark.harness import session, spec
+
+    names = ("gdpt.bounce_host_ms_per_msample", "gdpt.solve_ms_per_frame",
+             "gdpt.fixed_ms_per_frame", "host.launches_per_msample", "integrator.rays_per_sample")
+    return {n: spec.load_module("metrics", n) for n in names}, session
+
+
+def test_gdpt_readers_read_a_cpu_record(registry):
+    """The gradient-domain cell's gdpt.* readers, and the launches and
+    rays readers it shares with the path cells, on three gradpath frames
+    (a warm one and two plain ones) with a profile of the last: a number
+    each, but the launches (no CUDA call on the CPU, so no whole
+    profile)."""
+    from benchmark.harness import profile
+
+    readers, session = _gdpt_readers()
+    rec = session.Record(16, 16, setup_s=1.0, parse_s=0.0)
+    for i in range(3):
+        t0 = time.perf_counter()
+        _, rays = _gradpath_frame(i)
+        rec.frames.append(session.Frame(i, i, 2, t0, time.perf_counter(), rays))
+    rec.window_s = rec.frames[-1].t1 - rec.frames[1].t0
+    rec.profile = profile.Profile(wall_s=rec.frames[-1].seconds, samples=2 * 16 * 16,
+                                  rays=rec.frames[-1].rays)
+    got = {n: r.read(rec) for n, r in readers.items()}
+    assert got.pop("host.launches_per_msample") is None
+    assert all(v is not None and v > 0 for v in got.values()), got
+    assert got["integrator.rays_per_sample"] == rec.frames[-1].rays / (2 * 16 * 16)
+    fixed = sum(profiling.span_stats(n)["untraced_ns"] for n in
+                ("render.scene", "render.lanes", "render.readback", "render.image"))
+    assert got["gdpt.fixed_ms_per_frame"] == fixed / 1e6 / 2
+
+
+def test_gdpt_span_readers_read_nothing_without_the_spans(registry):
+    """A program that opens no gdpt.* span (the parent's, or a `path`
+    render) gives the span readers nothing to read; with no profile the
+    shared readers read nothing either."""
+    readers, session = _gdpt_readers()
+    rec = session.Record(16, 16, setup_s=1.0, parse_s=0.0)
+    scene = presets.cornell_box(16, 16, spp=1, max_depth=6)
+    for i in range(3):
+        render.render(scene, spp=1, seed=i, device="cpu")
+        rec.frames.append(session.Frame(i, i, 1, 0.0, 0.01, 0.0))
+    rec.window_s = 0.02
+    for name in readers:
+        assert readers[name].read(rec) is None, name
+
+
 def test_counters_are_the_modules_own_dicts():
     from gdpt_tpu_torch.accel import brute_kernels, packet_kernels, super16, traverse
     from gdpt_tpu_torch.accel import traverse_soa
-    from gdpt_tpu_torch.integrators import volpath, volpath_soa
+    from gdpt_tpu_torch.integrators import gdpt_soa, volpath, volpath_soa
 
     groups = profiling.counters()
     for name, counts in {
@@ -189,6 +296,7 @@ def test_counters_are_the_modules_own_dicts():
             "traverse_soa.host_reads": traverse_soa.HOST_READS,
             "volpath.host_reads": volpath.HOST_READS,
             "volpath_soa.host_reads": volpath_soa.HOST_READS,
+            "gdpt_soa.work": gdpt_soa.WORK,
             "native_build.builds": native_build.BUILDS}.items():
         assert groups[name] is counts, name
     assert all(not name.startswith("cu") for name in groups)
@@ -198,7 +306,7 @@ def test_span_names_keep_clear_of_the_runtime_calls():
     """Trace readers skip host events whose names start with "cu" (the
     CUDA runtime's calls); no span may."""
     assert all(not name.startswith("cu") and "." in name
-               for name in [*FRAME_SPANS, "native.load"])
+               for name in [*FRAME_SPANS, *GDPT_SPANS, "native.load"])
 
 
 @pytest.mark.gpu
