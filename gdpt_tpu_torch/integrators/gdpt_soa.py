@@ -25,14 +25,25 @@ keep its lanes morton-sorted (``pool_sort=True``), behind
 
 Every tensor is made on the device the scene lives on.
 
+The banded pass (_gdpt_pass) replays its sample as one captured CUDA
+graph where path_soa's does (path_soa.graphed: CUDA lanes, brute-force
+casts, max_depth > 0), through path_soa.sample_pass, whose graph it
+shares; each sample adds into the pass's 18 f32 rows of sums and its ray
+count in place (_add_gdpt_sample), replayed or eager alike. CPU lanes,
+max_depth <= 0, the BVH banded route and the wavefront pool run eagerly.
+
 Program spans (utils/profiling): gdpt.primary (each lane refill's five
 primaries, _init_gdpt_lanes), gdpt.bounce (each shared bounce, banded and
-wavefront alike), gdpt.solve (the gradients' assembly, the Poisson solve
-and the image's copy to the host), and the render loop's render.scene,
-render.lanes, render.readback and render.image (the host's float64 sums,
-transposes and finite filter), as path_soa's banded loop opens them. The
-counter group gdpt_soa.work counts, in host integers, the pixel samples
-traced and the bounce iterations run.
+wavefront alike; on the graphed route only while a key's sample is warmed
+and captured, in its first pass), gdpt.solve (the gradients' assembly,
+the Poisson solve and the image's copy to the host), and the render
+loop's render.scene, render.lanes, render.readback and render.image (the
+host's float64 sums, transposes and finite filter), as path_soa's banded
+loop opens them. The counter group gdpt_soa.work counts, in host
+integers, the pixel samples traced and the bounce iterations run, a
+replay's among them; gdpt_soa.graphs counts the samples per pixel
+replayed from a graph or run eagerly (the wavefront pool's among them),
+and the graphs captured.
 """
 
 from typing import NamedTuple
@@ -66,6 +77,10 @@ _SIGNS = (-1.0, 1.0, -1.0, 1.0)
 
 # Pixel samples traced and shared bounces run, over the process.
 WORK = profiling.counter_group("gdpt_soa.work", {"samples": 0, "bounces": 0})
+# Samples of gradpath renders: replayed from a captured graph, or run
+# eagerly (banded passes, path_soa.sample_pass, and the wavefront pool's
+# samples per pixel); and the graphs captured.
+GRAPHS = profiling.counter_group("gdpt_soa.graphs", {"captured": 0, "replayed": 0, "eager": 0})
 
 
 class GdptSampleSoA(NamedTuple):
@@ -167,6 +182,19 @@ def _init_gdpt_lanes(static, camera, sc: ps.SceneSoA, pixel, sample, seed, live)
     )
 
 
+def _n_iters(static):
+    """The bounces after which _gdpt_bounce retires every lane."""
+    md = static.options.max_depth
+    return GDPT_MAX_DEPTH if md < 0 else min(md, GDPT_MAX_DEPTH)
+
+
+def _count(key, k, device):
+    """Adds k to WORK[key], but not while a CUDA graph is captured: the
+    capture runs nothing, and _gdpt_pass counts its replays."""
+    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        WORK[key] += k
+
+
 @profiling.span("gdpt.bounce")
 def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s, pool_sort=False):
     """One shared GDPT bounce over per-lane state (lanes may sit at
@@ -176,10 +204,9 @@ def _gdpt_bounce(static, sc: ps.SceneSoA, used, seed, s, pool_sort=False):
     is morton-sorted (_gdpt_pool_sort), so the base extension cast and
     the 8n probe/replay cast (eight pool-ordered groups) skip their own
     sort; the NEE shadow cast keeps it."""
-    md = static.options.max_depth
-    n_iters = GDPT_MAX_DEPTH if md < 0 else min(md, GDPT_MAX_DEPTH)
+    n_iters = _n_iters(static)
     n = s["prob"].shape[0]
-    WORK["bounces"] += 1
+    _count("bounces", 1, s["prob"].device)
     zero = torch.zeros(n, dtype=REAL, device=s["prob"].device)
     zero3 = V3(zero, zero, zero)
     eps_isect = static.intersection_epsilon
@@ -445,19 +472,30 @@ def trace_gdpt_soa(static, camera, sc: ps.SceneSoA, xs, ys, ray_idx, seed, sampl
     """One GDPT sample for every lane (the banded loop's entry): init the
     5-path lockstep state, run the shared bounce to extinction. Returns
     (GdptSampleSoA, rays as an f32 0-d tensor). seed and sample0 are
-    Python ints (uint32 values)."""
+    uint32 values, as Python ints or as 0-d int64 tensors on the lanes'
+    device (a captured sample's inputs, path_soa.sample_pass); both forms
+    give the same bits.
+
+    At max_depth > 0 the bounce runs its most trips, n_iters + 1
+    (_gdpt_bounce retires every lane after bounce n_iters), and a bounce
+    over retired lanes adds nothing; otherwise it runs until every lane
+    is retired, which reads the lanes on the host each bounce."""
     used = static.used_material_kinds
     n = ray_idx.shape[0]
     del xs, ys  # pixel coords derive from ray_idx (the pixel index)
     dev = ray_idx.device
     pixel = ray_idx.to(torch.int64)
-    sample = torch.full((n,), int(sample0) & ps._M32, dtype=torch.int64, device=dev)
+    sample = torch.zeros(n, dtype=torch.int64, device=dev).add_(sample0).bitwise_and_(ps._M32)
     state = _init_gdpt_lanes(static, camera, sc, pixel, sample, seed,
                              torch.ones(n, dtype=torch.bool, device=dev))
-    WORK["samples"] += n
-    state["rays"] = torch.tensor(5.0 * n, dtype=REAL, device=dev)
-    while bool((state["active"] > 0).any()):
-        state = _gdpt_bounce(static, sc, used, seed, state)
+    _count("samples", n, dev)
+    state["rays"] = torch.full((), 5.0 * n, dtype=REAL, device=dev)
+    if static.options.max_depth > 0:
+        for _ in range(_n_iters(static) + 1):
+            state = _gdpt_bounce(static, sc, used, seed, state)
+    else:
+        while bool((state["active"] > 0).any()):
+            state = _gdpt_bounce(static, sc, used, seed, state)
 
     # Accumulated per-prefix terms (reference pairing:
     # src/path_tracing.h:1016-1049, small_gdpt.cpp:488-507 — but one
@@ -652,6 +690,7 @@ def _gdpt_wavefront_accum(static, camera, sc, spp, seed, n_pix, k_iters=6,
         acc = host_acc.T.reshape(6, 3, n_pix)
     _gdpt_wavefront_accum.last_occupancy = float(st["occ_sum"]) / max(st["iters"], 1)
     _gdpt_wavefront_accum.last_iters = st["iters"]
+    GRAPHS["eager"] += spp
     return acc, float(st["lane"]["rays"])
 
 
@@ -659,14 +698,27 @@ _gdpt_wavefront_accum.last_iters = 0
 _gdpt_wavefront_accum.last_occupancy = 0.0
 
 
+def _add_gdpt_sample(static, camera, sc, lanes, seed, sample, acc, rays):
+    """One sample of trace_gdpt_soa added into the pass's sums in place:
+    acc (18, n) f32, the x, y, z rows of GdptSampleSoA's six buffers in
+    order, and rays, an f32 0-d tensor."""
+    out, nr = trace_gdpt_soa(static, camera, sc, *lanes, seed, sample)
+    for row, c in zip(acc, (c for buf in out for c in buf)):
+        row.add_(c)
+    rays.add_(nr)
+
+
 def _gdpt_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     """n_samples GDPT samples summed in f32 for the whole ray batch;
-    returns (GdptSampleSoA of sums, total rays as an f32 0-d tensor)."""
-    acc, rays = None, torch.zeros((), dtype=REAL, device=xs.device)
-    for i in range(n_samples):
-        out, nr = trace_gdpt_soa(static, camera, sc, xs, ys, ray_idx, seed, sample0 + i)
-        acc = out if acc is None else soa.tree_map(lambda a, o: a + o, acc, out)
-        rays = rays + nr
+    returns (the (18, n) sums, total rays as an f32 0-d tensor):
+    path_soa.sample_pass over _add_gdpt_sample, replayed (CUDA lanes,
+    brute force, max_depth > 0) or eager. A replay runs no Python, so
+    its samples and bounces are counted in WORK here."""
+    acc, rays = ps.sample_pass(_add_gdpt_sample, 18, GRAPHS, static, camera, sc, xs, ys,
+                               ray_idx, seed, sample0, n_samples)
+    if ps.graphed(static, xs):
+        WORK["samples"] += xs.shape[0] * n_samples
+        WORK["bounces"] += (_n_iters(static) + 1) * n_samples
     return acc, rays
 
 
@@ -745,8 +797,7 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
                                                                 packet_dual, **cast)
 
     def run(v, xs_d, ys_d, ray_idx, done, k):
-        out, nrays = _gdpt_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
-        return [c for buf in out for c in buf], nrays
+        return _gdpt_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
 
     # Sharded, every band is padded to the first band's width, as the
     # reference pads it.

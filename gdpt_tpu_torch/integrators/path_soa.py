@@ -1192,8 +1192,8 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
     return img
 
 
-# Samples of banded passes: replayed from a captured graph, or run
-# eagerly; and the graphs captured (_soa_pass).
+# Samples of banded path passes: replayed from a captured graph, or run
+# eagerly; and the graphs captured (sample_pass).
 GRAPHS = profiling.counter_group("path_soa.graphs", {"captured": 0, "replayed": 0, "eager": 0})
 
 
@@ -1215,28 +1215,32 @@ def graphed(static, xs):
 
 
 class _SampleGraph:
-    """One sample of the banded pass captured as a CUDA graph over static
-    lanes, seed and sample index, adding into static sums. Built on a
-    key's first pass: the lanes are copied in, the sample runs once
-    eagerly on a side stream (loading the kernels and the memoised
+    """One sample of a banded pass captured as a CUDA graph over static
+    lanes, seed and sample index, adding into static sums: add_sample
+    (_add_sample, gdpt_soa's _add_gdpt_sample) adds one sample of its
+    integrator into `rows` f32 rows of the lanes' count and an f32 0-d
+    ray count; `counts` is the integrator's counter group of graphs.
+    Built on a key's first pass: the lanes are copied in, the sample runs
+    once eagerly on a side stream (loading the kernels and the memoised
     constants), then is captured. The graph holds K1 and K2 as nodes.
     It keeps every tensor made before the capture that a replay reads,
     the view, the camera and the film's size among them, so no memo that
     drops one hands its memory to another tensor under the graph."""
 
-    def __init__(self, static, camera, sc, xs, ys, ray_idx):
+    def __init__(self, add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx):
         dev = xs.device
         # id(camera) is in the memo's key too.
         self.held = (sc, camera, _film_size(static.width, static.height, dev))
+        self.counts = counts
         self.lanes = (xs.clone(), ys.clone(), ray_idx.clone())
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
         self.sample = torch.zeros((), dtype=torch.int64, device=dev)
-        self.acc = torch.zeros((3, xs.shape[0]), dtype=REAL, device=dev)
+        self.acc = torch.zeros((rows, xs.shape[0]), dtype=REAL, device=dev)
         self.rays = torch.zeros((), dtype=REAL, device=dev)
 
         def body():
-            _add_sample(static, camera, sc, self.lanes, self.seed, self.sample, self.acc,
-                        self.rays)
+            add_sample(static, camera, sc, self.lanes, self.seed, self.sample, self.acc,
+                       self.rays)
 
         # capture_begin/end, not torch.cuda.graph, which first collects
         # garbage and empties the allocator's cache to make room for a
@@ -1251,7 +1255,7 @@ class _SampleGraph:
                 body()
                 self.graph.capture_end()
         torch.cuda.current_stream(dev).wait_stream(side)
-        GRAPHS["captured"] += 1
+        counts["captured"] += 1
 
     def run(self, xs, ys, ray_idx, seed, sample0, n_samples):
         for dst, src in zip(self.lanes, (xs, ys, ray_idx)):
@@ -1263,34 +1267,48 @@ class _SampleGraph:
             self.sample.fill_(sample0 + i)
             self.graph.replay()
         bk.count_replays(self.launches, n_samples)
-        GRAPHS["replayed"] += n_samples
-        return V3(*self.acc), self.rays
+        self.counts["replayed"] += n_samples
+        return self.acc, self.rays
 
 
 # Captured samples, keyed like _SOA_MEMO's views on the view itself, with
-# the scene's facts, the camera, the lane count and the device; a graph
-# and its private memory pool go when its entry is dropped.
+# the integrator's sample, the scene's facts, the camera, the lane count
+# and the device; a graph and its private memory pool go when its entry
+# is dropped.
 _GRAPH_MEMO = SceneMemo()
 
 
-def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
-    """n_samples samples summed in f32 for the whole ray batch; returns
-    (radiance V3, total rays as an f32 0-d tensor). A graphed pass
-    (graphed()) replays its key's captured sample once per sample and
-    returns views of the graph's static sums, which the next pass of the
-    key overwrites; any other pass runs the same sample eagerly. Both
-    give the same bits."""
+def sample_pass(add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx, seed, sample0,
+                n_samples):
+    """n_samples samples of an integrator summed in f32 for the whole ray
+    batch, add_sample adding each into `rows` f32 rows and a ray count
+    in place (_SampleGraph); returns (the (rows, n) sums, the rays as an
+    f32 0-d tensor). A graphed pass (graphed()) replays its key's
+    captured sample once per sample and returns the graph's static sums,
+    which the next pass of the key overwrites; any other pass runs the
+    same sample eagerly into sums of its own. Both give the same bits.
+    `counts`, the integrator's counter group, counts the samples replayed
+    or run eagerly and the graphs captured."""
     if graphed(static, xs):
-        key = (static, id(camera), xs.shape[0], xs.device)
+        key = (add_sample, static, id(camera), xs.shape[0], xs.device)
         with torch.cuda.device(xs.device):  # capture and replay on the lanes' card
-            g = _GRAPH_MEMO.get(sc, key,
-                                lambda: _SampleGraph(static, camera, sc, xs, ys, ray_idx))
+            g = _GRAPH_MEMO.get(sc, key, lambda: _SampleGraph(
+                add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx))
             return g.run(xs, ys, ray_idx, seed, sample0, n_samples)
-    acc = torch.zeros((3, xs.shape[0]), dtype=REAL, device=xs.device)
+    acc = torch.zeros((rows, xs.shape[0]), dtype=REAL, device=xs.device)
     rays = torch.zeros((), dtype=REAL, device=xs.device)
     for i in range(n_samples):
-        _add_sample(static, camera, sc, (xs, ys, ray_idx), seed, sample0 + i, acc, rays)
-    GRAPHS["eager"] += n_samples
+        add_sample(static, camera, sc, (xs, ys, ray_idx), seed, sample0 + i, acc, rays)
+    counts["eager"] += n_samples
+    return acc, rays
+
+
+def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
+    """n_samples path samples summed in f32 for the whole ray batch;
+    returns (radiance V3, total rays as an f32 0-d tensor): sample_pass
+    over _add_sample, replayed or eager."""
+    acc, rays = sample_pass(_add_sample, 3, GRAPHS, static, camera, sc, xs, ys, ray_idx, seed,
+                            sample0, n_samples)
     return V3(*acc), rays
 
 

@@ -102,7 +102,7 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
     rays): (m,)-leading tensors and the ray count. Returns pass_(lo, hi,
     *args), the pass of lanes lo:hi, as (each output as a float64 host
     array of hi - lo rows, the ray count). A run's outputs may be the
-    static buffers of a captured CUDA graph (path_soa._soa_pass), which
+    static buffers of a captured CUDA graph (path_soa.sample_pass), which
     its next run overwrites: each is read back to the host before the
     next run starts.
 
