@@ -25,21 +25,22 @@ keep its lanes morton-sorted (``pool_sort=True``), behind
 
 Every tensor is made on the device the scene lives on.
 
-The banded pass (_gdpt_pass) replays its sample as one captured CUDA
-graph where path_soa's does (path_soa.graphed: CUDA lanes, brute-force
-casts, max_depth > 0), through path_soa.sample_pass, whose graph it
-shares; each sample adds into the pass's 18 f32 rows of sums and its ray
-count in place (_add_gdpt_sample), replayed or eager alike. CPU lanes,
-max_depth <= 0, the BVH banded route and the wavefront pool run eagerly.
+The banded loop is integrators/banded.py's. Its pass (_gdpt_pass)
+replays the sample as one captured CUDA graph where path_soa's does
+(banded.graphed: CUDA lanes, brute-force casts, max_depth > 0), through
+banded.sample_pass; each sample adds into the pass's 18 f32 rows of sums
+and its ray count in place (_add_gdpt_sample), replayed or eager alike.
+CPU lanes, max_depth <= 0, the BVH banded route and the wavefront pool
+run eagerly.
 
 Program spans (utils/profiling): gdpt.primary (each lane refill's five
 primaries, _init_gdpt_lanes), gdpt.bounce (each shared bounce, banded and
 wavefront alike; on the graphed route only while a key's sample is warmed
 and captured, in its first pass), gdpt.solve (the gradients' assembly,
-the Poisson solve and the image's copy to the host), and the render
+the Poisson solve and the image's copy to the host), and the banded
 loop's render.scene, render.lanes, render.readback and render.image (the
-host's float64 sums, transposes and finite filter), as path_soa's banded
-loop opens them. The counter group gdpt_soa.work counts, in host
+host's float64 sums, transposes and finite filter), as it opens them for
+every integrator. The counter group gdpt_soa.work counts, in host
 integers, the pixel samples traced and the bounce iterations run, a
 replay's among them; gdpt_soa.graphs counts the samples per pixel
 replayed from a graph or run eagerly (the wavefront pool's among them),
@@ -56,10 +57,10 @@ from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.integrators import banded
 from gdpt_tpu_torch.integrators import path_soa as ps
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import poisson
-from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene import model as M
 from gdpt_tpu_torch.scene.build import Scene
 from gdpt_tpu_torch.utils import profiling
@@ -78,7 +79,7 @@ _SIGNS = (-1.0, 1.0, -1.0, 1.0)
 # Pixel samples traced and shared bounces run, over the process.
 WORK = profiling.counter_group("gdpt_soa.work", {"samples": 0, "bounces": 0})
 # Samples of gradpath renders: replayed from a captured graph, or run
-# eagerly (banded passes, path_soa.sample_pass, and the wavefront pool's
+# eagerly (banded passes, banded.sample_pass, and the wavefront pool's
 # samples per pixel); and the graphs captured.
 GRAPHS = profiling.counter_group("gdpt_soa.graphs", {"captured": 0, "replayed": 0, "eager": 0})
 
@@ -473,7 +474,7 @@ def trace_gdpt_soa(static, camera, sc: ps.SceneSoA, xs, ys, ray_idx, seed, sampl
     5-path lockstep state, run the shared bounce to extinction. Returns
     (GdptSampleSoA, rays as an f32 0-d tensor). seed and sample0 are
     uint32 values, as Python ints or as 0-d int64 tensors on the lanes'
-    device (a captured sample's inputs, path_soa.sample_pass); both forms
+    device (a captured sample's inputs, banded.sample_pass); both forms
     give the same bits.
 
     At max_depth > 0 the bounce runs its most trips, n_iters + 1
@@ -711,12 +712,12 @@ def _add_gdpt_sample(static, camera, sc, lanes, seed, sample, acc, rays):
 def _gdpt_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     """n_samples GDPT samples summed in f32 for the whole ray batch;
     returns (the (18, n) sums, total rays as an f32 0-d tensor):
-    path_soa.sample_pass over _add_gdpt_sample, replayed (CUDA lanes,
+    banded.sample_pass over _add_gdpt_sample, replayed (CUDA lanes,
     brute force, max_depth > 0) or eager. A replay runs no Python, so
     its samples and bounces are counted in WORK here."""
-    acc, rays = ps.sample_pass(_add_gdpt_sample, 18, GRAPHS, static, camera, sc, xs, ys,
-                               ray_idx, seed, sample0, n_samples)
-    if ps.graphed(static, xs):
+    acc, rays, replayed = banded.sample_pass(_add_gdpt_sample, 18, GRAPHS, static, camera, sc,
+                                             xs, ys, ray_idx, seed, sample0, n_samples)
+    if replayed:
         WORK["samples"] += xs.shape[0] * n_samples
         WORK["bounces"] += (_n_iters(static) + 1) * n_samples
     return acc, rays
@@ -732,53 +733,41 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
     reconstruction; with return_aux also a dict of the primal, primal_bf,
     gx and gy images, with return_stats the traced ray count.
 
-    wavefront=None takes the wavefront lane pool for BVH scenes whose work
-    queue fits (n_pix * spp < 2^32) and the banded sample loop otherwise;
-    True or False picks one. pool, compact and pool_sort are the
-    wavefront's lane count, tail compaction and pool sort. packet_wide (16
+    wavefront (None, True or False), start_sample, init_acc, on_chunk
+    and mesh choose the wavefront lane pool or the banded loop
+    (banded.route). pool, compact and pool_sort are the wavefront's lane
+    count, tail compaction and pool sort. packet_wide (16
     or 32) is the width of a BVH scene's packet table; packet_dual=True
     walks a 16-wide table with the dual kernel K4 in place of K3 (with
     width 32 it raises ValueError); **cast (two_phase, packet_sort,
     premerge, entry_k, packet, max_table_mb): see
     path_soa.scene_soa_from_aos.
 
-    start_sample/init_acc resume an interrupted accumulation (init_acc is
-    the raw (6, 3, n) float64 sample sums: primal, brute-force primal and
-    the four one-sided gradients, before the Poisson solve);
-    on_chunk(acc, done) fires after every pass. Given any of them, the
-    render takes the banded loop (path_soa.banded_for_resume).
-
-    mesh: a parallel/sharding.Mesh. The banded loop then splits each
-    band's rays, padded as the reference pads them (every band to the
-    first band's width, then to whole 128-lane groups per device), over
-    the mesh's devices, and counts a band's rays as the reference does:
-    the rays its padded lanes traced, scaled by its share of real lanes.
-    wavefront=True raises ValueError."""
-    wavefront = ps.banded_for_mesh(
-        ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk), mesh)
+    The banded loop (banded.loop) resumes from start_sample and init_acc
+    (the raw (6, 3, n) float64 sample sums: primal, brute-force primal
+    and the four one-sided gradients, before the Poisson solve), calls
+    on_chunk(acc, done) after every pass, and over a mesh
+    (parallel/sharding.Mesh) pads each band's rays as the reference pads
+    them (to the first band's width, then to whole 128-lane groups per
+    device) and counts a band's rays as the reference does: the rays its
+    padded lanes traced, scaled by its share of real lanes."""
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
+    wavefront = banded.route(wavefront, static, n, spp, start_sample, init_acc, on_chunk, mesh)
     # A sharded render solves the Poisson equation on the mesh's first device.
     device = scene.device.camera.sample_to_cam.device if mesh is None else mesh.devices[0]
     seed = int(seed) & ps._M32
 
-    if wavefront is None:
-        # BVH scenes: the wavefront pool keeps the 5-path lockstep at
-        # about full occupancy via sample regeneration instead of paying
-        # full-width drain iterations per band-sample.
-        wavefront = not static.use_brute_force and n * spp < 2 ** 32
+    def finish(acc, total_rays):
+        return _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux, return_stats, device)
+
     if wavefront:
         sc = ps.scene_soa_from_aos(scene, packet_wide, packet_dual, **cast)
-        acc, total_rays = _gdpt_wavefront_accum(static, scene.device.camera, sc, spp, seed, n,
-                                                pool=pool, compact=compact, pool_sort=pool_sort)
-        return _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux,
-                            return_stats, device)
+        return finish(*_gdpt_wavefront_accum(static, scene.device.camera, sc, spp, seed, n,
+                                             pool=pool, compact=compact, pool_sort=pool_sort))
 
-    # About 5x the rays of a plain path sample per GDPT sample; BVH
-    # scenes take one sample per pass, as the reference does.
-    batch = max(1, (1 << 23) // n) if static.use_brute_force else 1
     # The 5-path state is large: big BVH images go through in equal
     # bands of pixels, as in the reference.
     if static.use_brute_force or n <= PIX_CAP:
@@ -787,44 +776,17 @@ def render_gradpath_soa(scene: Scene, spp=None, seed=0, return_aux=False,
         nb = -(-n // PIX_CAP)
         band = -(-n // nb)
         bands = [(lo, min(n, lo + band)) for lo in range(0, n, band)]
-    with profiling.span("render.lanes"):
-        ys, xs = np.mgrid[0:h, 0:w]
-        cols = (xs.ravel().astype(np.float32), ys.ravel().astype(np.float32), np.arange(n))
 
     def view(scene_d):
-        with profiling.span("render.scene"):
-            return scene_d.device.camera, ps.scene_soa_from_aos(scene_d, packet_wide,
-                                                                packet_dual, **cast)
+        return scene_d.device.camera, ps.scene_soa_from_aos(scene_d, packet_wide, packet_dual,
+                                                            **cast)
 
-    def run(v, xs_d, ys_d, ray_idx, done, k):
-        return _gdpt_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
+    def sample(v, xs, ys, ray_idx, done, k):
+        return _gdpt_pass(static, *v, xs, ys, ray_idx, seed, done, k)
 
-    # Sharded, every band is padded to the first band's width, as the
-    # reference pads it.
-    band_pass = sharding.pass_fn(mesh, scene, cols, view, run,
-                                 width=bands[0][1] - bands[0][0])
-    acc = (np.zeros((6, 3, n), np.float64) if init_acc is None
-           else np.asarray(init_acc, np.float64).copy())
-    total_rays = 0.0
-    done = int(start_sample)
-    while done < spp:
-        k = min(batch, spp - done)
-        for lo, hi in bands:
-            out, nrays = band_pass(lo, hi, done, k)
-            if mesh is not None:
-                # The reference counts a band's padded lanes' rays scaled
-                # by its share of real lanes.
-                nrays = nrays * (hi - lo) / sharding.padded(mesh, bands[0][1] - bands[0][0])
-            with profiling.span("render.readback"):
-                packet_kernels.check_overflow()
-            with profiling.span("render.image"):
-                for j, buf in enumerate(out):
-                    acc[j // 3, j % 3, lo:hi] += buf
-            total_rays += nrays
-        done += k
-        if on_chunk is not None:
-            on_chunk(acc, done)
-    return _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux, return_stats, device)
+    # About 5x the rays of a plain path sample per GDPT sample.
+    return banded.loop(scene, spp, view, sample, (6, 3), 1 << 23, start_sample, init_acc,
+                       on_chunk, mesh, finish, bands=bands, real_share=True)
 
 
 def _gdpt_finish(static, acc, spp, w, h, total_rays, return_aux, return_stats, device):

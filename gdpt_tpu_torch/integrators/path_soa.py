@@ -5,8 +5,9 @@ Russian roulette (reference: src/path_tracing.h:13-348) over (N,)
 component tensors, with the same RNG streams and use-site counters, so
 that at low spp the port is held against the reference pixel by pixel.
 
-Ported: the banded loop (``trace_paths_soa``) and the wavefront
-renderer (``render_soa_wavefront``, the default for BVH scenes) behind
+Ported: the banded loop's sample (``trace_paths_soa``, run by
+integrators/banded.py's loop) and the wavefront renderer
+(``render_soa_wavefront``, the default for BVH scenes) behind
 ``render_soa``, with every material kind and texture slot of
 ops/materials_soa.py (image textures mip-filtered by the ray
 differentials' footprint), mesh and sphere area lights and constant or
@@ -19,23 +20,21 @@ its lane pool morton-sorted (pool_sort=True, _pool_sort).
 Every tensor is made on the device the scene lives on.
 """
 
-import functools
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from gdpt_tpu_torch.accel import brute_kernels as bk
 from gdpt_tpu_torch.accel import packet_kernels, packet_trace
 from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import distributions as gdist
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL, asarray
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.integrators import banded
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import textures_soa as tsoa
-from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene import textures as tex
 from gdpt_tpu_torch.scene.build import (LIGHT_ENVMAP, SHAPE_MESH, SHAPE_SPHERE, Scene,
                                         SceneMemo)
@@ -537,21 +536,13 @@ def envmap_pdf_for_dir(static, sc: SceneSoA, d: V3):
     return tsoa.envmap_pdf_dir(_env_view(static, sc), d)
 
 
-@functools.lru_cache(maxsize=16)
-def _film_size(w, h, device):
-    """(w, h) as a float32 tensor on `device`, made once: a copy from the
-    host waits for the device, and a captured sample may not (_soa_pass;
-    its graph keeps the tensor it read)."""
-    return torch.tensor([w, h], dtype=REAL, device=device)
-
-
 def primary_rays_soa(static, camera, xs, ys, u0, u1):
     """Batched camera rays with filter importance sampling
     (reference: src/camera.cpp:23-47)."""
     from gdpt_tpu_torch.scene import filters as gfilters
 
     n = xs.shape[0]
-    wh = _film_size(static.width, static.height, xs.device)
+    wh = banded.film_size(static.width, static.height, xs.device)
     pix = torch.stack([xs + u0, ys + u1], dim=-1) / wh
     pixel = pix * wh
     frac = pixel - torch.floor(pixel)
@@ -1193,7 +1184,7 @@ def render_soa_wavefront(scene: Scene, spp, seed=0, return_stats=False,
 
 
 # Samples of banded path passes: replayed from a captured graph, or run
-# eagerly; and the graphs captured (sample_pass).
+# eagerly; and the graphs captured (banded.sample_pass).
 GRAPHS = profiling.counter_group("path_soa.graphs", {"captured": 0, "replayed": 0, "eager": 0})
 
 
@@ -1206,134 +1197,13 @@ def _add_sample(static, camera, sc, lanes, seed, sample, acc, rays):
     rays.add_(nr.sum())
 
 
-def graphed(static, xs):
-    """Whether a banded pass replays its sample as a CUDA graph: CUDA
-    lanes, brute-force casts (K1 and K2, which read nothing back) and a
-    fixed trip count (max_depth > 0). The BVH walks, the unbounded
-    loop's reads of its condition and CPU lanes run eagerly."""
-    return xs.is_cuda and static.use_brute_force and static.options.max_depth > 0
-
-
-class _SampleGraph:
-    """One sample of a banded pass captured as a CUDA graph over static
-    lanes, seed and sample index, adding into static sums: add_sample
-    (_add_sample, gdpt_soa's _add_gdpt_sample) adds one sample of its
-    integrator into `rows` f32 rows of the lanes' count and an f32 0-d
-    ray count; `counts` is the integrator's counter group of graphs.
-    Built on a key's first pass: the lanes are copied in, the sample runs
-    once eagerly on a side stream (loading the kernels and the memoised
-    constants), then is captured. The graph holds K1 and K2 as nodes.
-    It keeps every tensor made before the capture that a replay reads,
-    the view, the camera and the film's size among them, so no memo that
-    drops one hands its memory to another tensor under the graph."""
-
-    def __init__(self, add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx):
-        dev = xs.device
-        # id(camera) is in the memo's key too.
-        self.held = (sc, camera, _film_size(static.width, static.height, dev))
-        self.counts = counts
-        self.lanes = (xs.clone(), ys.clone(), ray_idx.clone())
-        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
-        self.sample = torch.zeros((), dtype=torch.int64, device=dev)
-        self.acc = torch.zeros((rows, xs.shape[0]), dtype=REAL, device=dev)
-        self.rays = torch.zeros((), dtype=REAL, device=dev)
-
-        def body():
-            add_sample(static, camera, sc, self.lanes, self.seed, self.sample, self.acc,
-                       self.rays)
-
-        # capture_begin/end, not torch.cuda.graph, which first collects
-        # garbage and empties the allocator's cache to make room for a
-        # large graph (about 0.13 s of a benchmark process's warm frame).
-        self.graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-            with bk.capture_tally() as self.launches:
-                self.graph.capture_begin()
-                body()
-                self.graph.capture_end()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        counts["captured"] += 1
-
-    def run(self, xs, ys, ray_idx, seed, sample0, n_samples):
-        for dst, src in zip(self.lanes, (xs, ys, ray_idx)):
-            dst.copy_(src)
-        self.seed.fill_(seed)
-        self.acc.zero_()
-        self.rays.zero_()
-        for i in range(n_samples):
-            self.sample.fill_(sample0 + i)
-            self.graph.replay()
-        bk.count_replays(self.launches, n_samples)
-        self.counts["replayed"] += n_samples
-        return self.acc, self.rays
-
-
-# Captured samples, keyed like _SOA_MEMO's views on the view itself, with
-# the integrator's sample, the scene's facts, the camera, the lane count
-# and the device; a graph and its private memory pool go when its entry
-# is dropped.
-_GRAPH_MEMO = SceneMemo()
-
-
-def sample_pass(add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx, seed, sample0,
-                n_samples):
-    """n_samples samples of an integrator summed in f32 for the whole ray
-    batch, add_sample adding each into `rows` f32 rows and a ray count
-    in place (_SampleGraph); returns (the (rows, n) sums, the rays as an
-    f32 0-d tensor). A graphed pass (graphed()) replays its key's
-    captured sample once per sample and returns the graph's static sums,
-    which the next pass of the key overwrites; any other pass runs the
-    same sample eagerly into sums of its own. Both give the same bits.
-    `counts`, the integrator's counter group, counts the samples replayed
-    or run eagerly and the graphs captured."""
-    if graphed(static, xs):
-        key = (add_sample, static, id(camera), xs.shape[0], xs.device)
-        with torch.cuda.device(xs.device):  # capture and replay on the lanes' card
-            g = _GRAPH_MEMO.get(sc, key, lambda: _SampleGraph(
-                add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx))
-            return g.run(xs, ys, ray_idx, seed, sample0, n_samples)
-    acc = torch.zeros((rows, xs.shape[0]), dtype=REAL, device=xs.device)
-    rays = torch.zeros((), dtype=REAL, device=xs.device)
-    for i in range(n_samples):
-        add_sample(static, camera, sc, (xs, ys, ray_idx), seed, sample0 + i, acc, rays)
-    counts["eager"] += n_samples
-    return acc, rays
-
-
 def _soa_pass(static, camera, sc, xs, ys, ray_idx, seed, sample0, n_samples):
     """n_samples path samples summed in f32 for the whole ray batch;
-    returns (radiance V3, total rays as an f32 0-d tensor): sample_pass
-    over _add_sample, replayed or eager."""
-    acc, rays = sample_pass(_add_sample, 3, GRAPHS, static, camera, sc, xs, ys, ray_idx, seed,
-                            sample0, n_samples)
+    returns (radiance V3, total rays as an f32 0-d tensor):
+    banded.sample_pass over _add_sample, replayed or eager."""
+    acc, rays, _ = banded.sample_pass(_add_sample, 3, GRAPHS, static, camera, sc, xs, ys,
+                                      ray_idx, seed, sample0, n_samples)
     return V3(*acc), rays
-
-
-def banded_for_resume(wavefront, start_sample, init_acc, on_chunk):
-    """The `wavefront` choice of a renderer given resume arguments: a
-    resumed or checkpointed render sums whole samples, so it takes the
-    banded loop (None resolves to False; True raises ValueError)."""
-    if on_chunk is None and init_acc is None and not start_sample:
-        return wavefront
-    if wavefront:
-        raise ValueError("start_sample / init_acc / on_chunk (checkpointed renders) take "
-                         "the banded loop; wavefront=True cannot resume")
-    return False
-
-
-def banded_for_mesh(wavefront, mesh):
-    """The `wavefront` choice of a renderer given a mesh: a sharded
-    render takes the banded loop, as the reference's always does (None
-    resolves to False; True raises ValueError)."""
-    if mesh is None:
-        return wavefront
-    if wavefront:
-        raise ValueError("mesh= (a sharded render) takes the banded loop; "
-                         "wavefront=True cannot shard")
-    return False
 
 
 def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=None,
@@ -1342,88 +1212,41 @@ def render_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavefront=Non
     """SoA render loop for the path integrator on the scene's device.
     Returns an (h, w, 3) float32 numpy image (and the traced ray count).
 
-    wavefront=None takes the wavefront renderer for BVH scenes whose
-    work queue fits (n_pix * spp < 2^32) and the banded loop otherwise;
-    True or False picks one. The banded loop runs passes of samples, each
-    summed in f32 on the device and accumulated in float64 on the host.
-    pool_sort is the wavefront's (render_soa_wavefront). packet_wide (16
-    or 32) is the width of a BVH scene's packet table; packet_dual=True
-    walks a 16-wide table with the dual kernel K4 in place of K3 (with
-    width 32 it raises ValueError); **cast (two_phase, packet_sort,
-    premerge, entry_k, packet, max_table_mb) are the walk's and the
-    table's other switches (scene_soa_from_aos).
+    wavefront (None, True or False), start_sample, init_acc, on_chunk
+    and mesh choose the wavefront renderer or the banded loop
+    (banded.route). pool_sort is the wavefront's (render_soa_wavefront).
+    packet_wide (16 or 32) is the width of a BVH scene's packet table;
+    packet_dual=True walks a 16-wide table with the dual kernel K4 in
+    place of K3 (with width 32 it raises ValueError); **cast (two_phase,
+    packet_sort, premerge, entry_k, packet, max_table_mb) are the walk's
+    and the table's other switches (scene_soa_from_aos).
 
-    start_sample/init_acc resume an interrupted accumulation (init_acc is
-    the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires
-    after every pass for checkpointing. Given any of them, the render
-    takes the banded loop (banded_for_resume).
-
-    mesh: a parallel/sharding.Mesh. The banded loop then runs each pass
-    with its rays, padded to whole 128-lane groups per device (padded
-    lanes trace pixel 0 and count in the ray total, as the reference's
-    do), split over the mesh's devices, each with its own copy of the
-    scene; wavefront=True raises ValueError.
-
-    The banded loop's program spans (utils/profiling): the lane columns
-    render.lanes, the scene's view render.scene, the overflow check
-    render.readback, the host image's sums and casts render.image; the
-    pass's are sharding.pass_fn's. A pass that replays a captured sample
-    (_soa_pass, graphed()) enters the stage spans (path.*) and the casts'
-    (cast.*) only while its key's sample is warmed and captured, in its
-    first pass; the replays run under render.pass alone.
+    The banded loop (banded.loop) resumes from start_sample and init_acc
+    (the raw (3, n) float64 sample sums), calls on_chunk(acc, done) after
+    every pass, and over a mesh (parallel/sharding.Mesh) pads each pass's
+    rays to whole 128-lane groups per device (padded lanes trace pixel 0
+    and count in the ray total, as the reference's do). Its pass replays
+    a captured sample where banded.graphed() holds (_soa_pass).
     """
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
-    n = w * h
-    wavefront = banded_for_mesh(banded_for_resume(wavefront, start_sample, init_acc, on_chunk),
-                                mesh)
-    walk = dict(packet_wide=packet_wide, packet_dual=packet_dual, **cast)
-    if wavefront is None:
-        # BVH scenes: the wavefront pool keeps every dispatch at ~full
-        # occupancy (sample regeneration); the banded loop pays
-        # full-batch sort/gather/material cost per bounce even when most
-        # lanes are dead.
-        wavefront = not static.use_brute_force and n * spp < 2 ** 32
-    if wavefront:
+    if banded.route(wavefront, static, w * h, spp, start_sample, init_acc, on_chunk, mesh):
         return render_soa_wavefront(scene, spp, seed=seed, return_stats=return_stats,
-                                    pool_sort=pool_sort, **walk)
-    with profiling.span("render.lanes"):
-        ys, xs = np.mgrid[0:h, 0:w]
-        cols = (xs.ravel().astype(np.float32), ys.ravel().astype(np.float32), np.arange(n))
+                                    pool_sort=pool_sort, packet_wide=packet_wide,
+                                    packet_dual=packet_dual, **cast)
     seed = int(seed) & _M32
-    # Brute scenes are throughput-bound: big sample batches per pass.
-    # BVH scenes take one sample per pass, as the reference does.
-    batch = max(1, (1 << 26) // n) if static.use_brute_force else 1
 
     def view(scene_d):
-        with profiling.span("render.scene"):
-            return scene_d.device.camera, scene_soa_from_aos(scene_d, packet_wide,
-                                                             packet_dual, **cast)
+        return scene_d.device.camera, scene_soa_from_aos(scene_d, packet_wide, packet_dual,
+                                                         **cast)
 
-    def run(v, xs_d, ys_d, ray_idx, done, k):
-        return _soa_pass(static, *v, xs_d, ys_d, ray_idx, seed, done, k)
+    def sample(v, xs, ys, ray_idx, done, k):
+        return _soa_pass(static, *v, xs, ys, ray_idx, seed, done, k)
 
-    one_pass = sharding.pass_fn(mesh, scene, cols, view, run)
-    acc = (np.zeros((3, n), np.float64) if init_acc is None
-           else np.asarray(init_acc, np.float64).copy())
-    total_rays = 0.0
-    done = int(start_sample)
-    while done < spp:
-        k = min(batch, spp - done)
-        out, nrays = one_pass(0, n, done, k)
-        with profiling.span("render.readback"):
-            packet_kernels.check_overflow()
-        with profiling.span("render.image"):
-            for c in range(3):
-                acc[c] += out[c]
-        total_rays += nrays
-        done += k
-        if on_chunk is not None:
-            on_chunk(acc, done)
-    with profiling.span("render.image"):
-        img = (acc / spp).T.reshape(h, w, 3).astype(np.float32)
-        img = np.where(np.isfinite(img), img, 0.0)
-    if return_stats:
-        return img, total_rays
-    return img
+    def finish(acc, total_rays):
+        img = banded.image(acc, spp, w, h)
+        return (img, total_rays) if return_stats else img
+
+    return banded.loop(scene, spp, view, sample, (3,), 1 << 26, start_sample, init_acc,
+                       on_chunk, mesh, finish)

@@ -19,8 +19,10 @@ of a pass in lockstep), BVH scenes the wavefront lane pool
 (`_vol_wavefront_accum`); both call the one bounce, `_vol_bounce`, whose
 RNG streams depend only on (pixel, sample, bounce, slot), so the two
 drivers give the same estimate; a checkpointed render resumes on the
-banded loop, and a sharded one (mesh=, parallel/sharding.py) runs the
-banded loop with its rays split over the mesh's devices. The wavefront
+banded loop (integrators/banded.py), and a sharded one (mesh=,
+parallel/sharding.py) runs the banded loop with its rays split over the
+mesh's devices. The banded sample reads loop conditions on the host, so
+it runs eagerly, never as a captured graph. The wavefront
 can keep its pool morton-sorted (pool_sort=True, _vol_pool_sort). The
 rungs 1-5 are integrators/volpath.py.
 """
@@ -33,11 +35,11 @@ from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, INT, REAL
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.integrators import banded
 from gdpt_tpu_torch.integrators import gdpt_soa as gs
 from gdpt_tpu_torch.integrators import path_soa as ps
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import media_soa as meds
-from gdpt_tpu_torch.parallel import sharding
 from gdpt_tpu_torch.scene.build import Scene
 from gdpt_tpu_torch.utils import profiling
 
@@ -661,70 +663,43 @@ def render_volpath_soa(scene: Scene, spp=None, seed=0, return_stats=False, wavef
     float32 numpy image (and, with return_stats, the traced ray count);
     non-finite pixels become 0.
 
-    wavefront=None takes the wavefront lane pool for BVH scenes whose
-    work queue fits (n_pix * spp < 2^32) and the banded sample loop
-    otherwise; True or False picks one. pool, compact and pool_sort are
-    the wavefront's lane count, tail compaction and pool sort.
+    wavefront (None, True or False), start_sample, init_acc, on_chunk
+    and mesh choose the wavefront lane pool or the banded loop
+    (banded.route). pool, compact and pool_sort are the wavefront's lane
+    count, tail compaction and pool sort.
     packet_wide (16 or 32) is the width of a BVH scene's packet table;
     packet_dual=True walks a 16-wide table with the dual kernel K4 in
     place of K3 (with width 32 it raises ValueError); **cast (two_phase,
     packet_sort, premerge, entry_k, packet, max_table_mb): see
-    path_soa.scene_soa_from_aos. The banded loop sums passes of samples in f32 on the device and
-    accumulates them in float64 on the host.
+    path_soa.scene_soa_from_aos.
 
-    start_sample/init_acc resume an interrupted accumulation (init_acc is
-    the raw (3, n) float64 sample-sum array); on_chunk(acc, done) fires
-    after every pass. Given any of them, the render takes the banded loop
-    (path_soa.banded_for_resume).
-
-    mesh: a parallel/sharding.Mesh. The banded loop then splits each
-    pass's rays, padded to whole 128-lane groups per device (padded lanes
-    trace pixel 0 and count in the ray total, as the reference's do),
-    over the mesh's devices; wavefront=True raises ValueError."""
-    wavefront = ps.banded_for_mesh(
-        ps.banded_for_resume(wavefront, start_sample, init_acc, on_chunk), mesh)
+    The banded loop (banded.loop) resumes from start_sample and init_acc
+    (the raw (3, n) float64 sample sums), calls on_chunk(acc, done) after
+    every pass, and over a mesh (parallel/sharding.Mesh) pads each pass's
+    rays to whole 128-lane groups per device (padded lanes trace pixel 0
+    and count in the ray total, as the reference's do)."""
     static = scene.static
     w, h = static.width, static.height
     spp = spp if spp is not None else static.options.samples_per_pixel
     n = w * h
+    wavefront = banded.route(wavefront, static, n, spp, start_sample, init_acc, on_chunk, mesh)
     seed = int(seed) & ps._M32
 
     def views(scene_d):
         return (ps.scene_soa_from_aos(scene_d, packet_wide, packet_dual, **cast),
                 meds.media_soa(scene_d.device.media))
 
-    if wavefront is None:
-        # BVH scenes: the pool keeps the null-collision loop and the
-        # shadow march at about full occupancy by sample regeneration
-        # instead of paying full-width drain iterations.
-        wavefront = not static.use_brute_force and n * spp < 2 ** 32
-    if wavefront:
-        acc, total_rays = _vol_wavefront_accum(static, scene.device.camera, *views(scene), spp,
-                                               seed, n, pool=pool, compact=compact,
-                                               pool_sort=pool_sort)
-    else:
-        def run(v, ray_idx, done, k):
-            return _vol_pass(static, *v, ray_idx, seed, done, k)
+    def finish(acc, total_rays):
+        img = banded.image(acc, spp, w, h)
+        return (img, total_rays) if return_stats else img
 
-        one_pass = sharding.pass_fn(mesh, scene, (np.arange(n),),
-                                    lambda s: (s.device.camera, *views(s)), run)
-        batch = max(1, (1 << 24) // n) if static.use_brute_force else 1
-        acc = (np.zeros((3, n), np.float64) if init_acc is None
-               else np.asarray(init_acc, np.float64).copy())
-        total_rays = 0.0
-        done = int(start_sample)
-        while done < spp:
-            k = min(batch, spp - done)
-            out, nrays = one_pass(0, n, done, k)
-            packet_kernels.check_overflow()
-            for c in range(3):
-                acc[c] += out[c]
-            total_rays += nrays
-            done += k
-            if on_chunk is not None:
-                on_chunk(acc, done)
-    img = (acc / spp).T.reshape(h, w, 3).astype(np.float32)
-    img = np.where(np.isfinite(img), img, 0.0)
-    if return_stats:
-        return img, total_rays
-    return img
+    if wavefront:
+        return finish(*_vol_wavefront_accum(static, scene.device.camera, *views(scene), spp,
+                                            seed, n, pool=pool, compact=compact,
+                                            pool_sort=pool_sort))
+
+    def sample(v, xs, ys, ray_idx, done, k):
+        return _vol_pass(static, *v, ray_idx, seed, done, k)
+
+    return banded.loop(scene, spp, lambda s: (s.device.camera, *views(s)), sample, (3,),
+                       1 << 24, start_sample, init_acc, on_chunk, mesh, finish)

@@ -18,8 +18,8 @@ A mesh may name one device more than once: the card's machine has one
 H100 and torch one CPU device, so a mesh like [cpu] * 8 or [cuda:0] * 4
 is how the split, its padding and the gather are exercised on either.
 
-The SoA renderers' banded loops run every pass through pass_fn, which
-takes one device (mesh=None) or a mesh alike.
+pass_fn splits a pass over a mesh: integrators/banded.py's loop calls it
+for a sharded render, as render_samples_sharded does here.
 """
 
 from typing import NamedTuple
@@ -82,17 +82,8 @@ def scene_on(scene: Scene, device) -> Scene:
     return scene if here == torch.device(device) else scene_to(scene, device)
 
 
-def _wait(device):
-    """Waits for the work queued on `device`'s current stream (nothing to
-    wait for on the CPU), in the span render.wait."""
-    with profiling.span("render.wait"):
-        if device.type == "cuda":
-            torch.cuda.current_stream(device).synchronize()
-
-
 def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
-    """The pass of a render loop, over `mesh` or, with mesh=None, on the
-    scene's own device.
+    """The pass of a render loop over `mesh`.
 
     cols: equal-length host arrays, one entry per lane of the render
     (pixel coordinates, ray indices), each of the dtype the pass takes.
@@ -101,12 +92,11 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
     *args) casts the lanes cols_d on that device and returns (outputs,
     rays): (m,)-leading tensors and the ray count. Returns pass_(lo, hi,
     *args), the pass of lanes lo:hi, as (each output as a float64 host
-    array of hi - lo rows, the ray count). A run's outputs may be the
-    static buffers of a captured CUDA graph (path_soa.sample_pass), which
-    its next run overwrites: each is read back to the host before the
-    next run starts.
+    array of hi - lo rows, the ray count). A run's outputs may be
+    buffers that its next run overwrites: each is read back to the host
+    before the next run starts.
 
-    Over a mesh, the lanes lo:hi, padded with zeros to `width` lanes
+    The lanes lo:hi, padded with zeros to `width` lanes
     (default hi - lo) and then to whole `align`-lane groups per device
     (ray_pad), are cut into contiguous shards, each run on its device,
     one after another, and joined in shard order on the host. The padded
@@ -124,20 +114,6 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
             views[device] = view(scene_on(scene, device))
         return views[device]
 
-    if mesh is None:
-        device = scene.device.camera.sample_to_cam.device
-        with profiling.span("render.lanes"):
-            cols_d = [torch.as_tensor(c, device=device) for c in cols]
-
-        def pass_(lo, hi, *args):
-            v = view_on(device)
-            with profiling.span("render.pass"):
-                out, rays = run(v, *(c[lo:hi] for c in cols_d), *args)
-            _wait(device)
-            with profiling.span("render.readback"):
-                return [o.cpu().numpy().astype(np.float64) for o in out], float(rays)
-        return pass_
-
     def pass_(lo, hi, *args):
         m = hi - lo
         n = padded(mesh, max(width or m, m), align)
@@ -152,7 +128,9 @@ def pass_fn(mesh, scene: Scene, cols, view, run, width=None, align=LANE_ALIGN):
                         for a in lanes]
             with profiling.span("render.pass"):
                 got, nr = run(v, *part, *args)
-            _wait(device)
+            with profiling.span("render.wait"):
+                if device.type == "cuda":
+                    torch.cuda.current_stream(device).synchronize()
             with profiling.span("render.readback"):
                 outs.append([o.cpu().numpy().astype(np.float64) for o in got])
                 rays += float(nr)

@@ -1,22 +1,18 @@
 """The banded gradpath pass's sample replayed as a CUDA graph
-(gdpt_soa._gdpt_pass over path_soa.sample_pass).
+(gdpt_soa._gdpt_pass over banded.sample_pass).
 
 On the CPU: trace_gdpt_soa with its seed and sample index as 0-d int64
 tensors gives the Python-int call's six buffers and ray count bit for
 bit; at max_depth > 0 its fixed trip count gives the while loop's bits,
 whether a lane reaches the depth cap or every lane retires before it;
 the sample takes no host read and makes no copy from the host, which a
-capture would refuse; the route's rule leaves CPU lanes, the unbounded
-loop and BVH scenes eager, counted under "eager" alone; and the
-benchmark's gdpt.graph_share reads that counter. On the
-card (`gpu`): a graphed render_gradpath_soa equals an eager sum bit for
-bit, aux buffers and rays too; a path graph and a gradpath graph of one
-view and lane count are two memo entries; each graph's capture tallies
-an eager sample's K1 and K2 launches; and the benchmark's
-gdpt.graph_share reads 1.0 in its cell.
+capture would refuse (the route's rule and the graph-share reader are
+test_torch_path_graph's, for both integrators). On the card (`gpu`): a
+graphed render_gradpath_soa equals an eager sum bit for bit, aux
+buffers and rays too; a path graph and a gradpath graph of one view and
+lane count are two memo entries; and each graph's capture tallies an
+eager sample's K1 and K2 launches.
 """
-
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -24,7 +20,7 @@ import torch
 from test_torch_path_graph import SEEDS, _HostTraffic, _lanes
 
 from gdpt_tpu_torch.accel import brute_kernels
-from gdpt_tpu_torch.integrators import gdpt_soa, path_soa
+from gdpt_tpu_torch.integrators import banded, gdpt_soa, path_soa
 from gdpt_tpu_torch.scene import presets
 from gdpt_tpu_torch.scene.build import scene_to
 
@@ -131,41 +127,6 @@ def test_a_graphed_gdpt_sample_reads_nothing_back(box):
     assert float(rays) > 0
 
 
-def test_the_rule_leaves_eager_passes_eager():
-    """Renders on CPU lanes at depth 6, at depth -1 and of a BVH box
-    (banded and wavefront) count their samples per pixel under "eager"
-    and capture and replay nothing; the graphed route's rule is
-    path_soa.graphed, which takes brute force at a fixed depth on CUDA
-    lanes only."""
-    cuda_like = SimpleNamespace(is_cuda=True)
-    brute6, unbounded, bvh6 = _box(8, 8), _box(8, 8, -1), _box(8, 8, force_bvh=True)
-    assert not bvh6.static.use_brute_force
-    assert path_soa.graphed(brute6.static, cuda_like)
-    for scene in (unbounded, bvh6):
-        assert not path_soa.graphed(scene.static, cuda_like)
-    for scene, wavefront in ((brute6, False), (unbounded, False), (bvh6, False), (bvh6, True)):
-        before = dict(gdpt_soa.GRAPHS)
-        img = gdpt_soa.render_gradpath_soa(scene, spp=3, seed=4, wavefront=wavefront)
-        assert np.isfinite(img).all()
-        assert gdpt_soa.GRAPHS == {**before, "eager": before["eager"] + 3}
-
-
-def test_the_graph_share_reader_reads_the_counter(monkeypatch):
-    """The benchmark's gdpt.graph_share reads gdpt_soa.graphs: nothing
-    before a gradpath sample has run, 0.0 after an eager CPU render, the
-    replayed share of all samples otherwise."""
-    from benchmark.harness import spec
-
-    reader = spec.load_module("metrics", "gdpt.graph_share")
-    for k in gdpt_soa.GRAPHS:
-        monkeypatch.setitem(gdpt_soa.GRAPHS, k, 0)
-    assert reader.read(None) is None
-    gdpt_soa.render_gradpath_soa(_box(8, 8), spp=2, seed=1)
-    assert reader.read(None) == 0.0
-    monkeypatch.setitem(gdpt_soa.GRAPHS, "replayed", 6)
-    assert reader.read(None) == 0.75
-
-
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -225,7 +186,7 @@ def test_path_and_gradpath_graphs_keep_apart():
 
     scene = scene_to(_box(32, 32), "cuda")
     sc = path_soa.scene_soa_from_aos(scene)
-    keys = lambda: {k for k in path_soa._GRAPH_MEMO.entries if k[0] == id(sc)}  # noqa: E731
+    keys = lambda: {k for k in banded._GRAPH_MEMO.entries if k[0] == id(sc)}  # noqa: E731
     path_before, gdpt_before = path_soa.GRAPHS["captured"], gdpt_soa.GRAPHS["captured"]
     for _ in range(2):
         img = path_soa.render_soa(scene, spp=1, seed=8)
@@ -257,30 +218,9 @@ def test_a_capture_tallies_an_eager_samples_casts(kind):
     eager = {k: brute_kernels.LAUNCHES[k] - before[k] for k in before}
     counts = {"captured": 0, "replayed": 0, "eager": 0}
     with torch.cuda.device(lanes[0].device):
-        g = path_soa._SampleGraph(add, rows, counts, st, scene.device.camera, sc, *lanes)
+        g = banded._SampleGraph(add, rows, counts, st, scene.device.camera, sc, *lanes)
     assert g.launches == eager and eager["intersect"] > 0 and eager["occluded"] > 0
     before = dict(brute_kernels.LAUNCHES)
     g.run(*lanes, 3, 0, 2)
     assert {k: brute_kernels.LAUNCHES[k] - before[k] for k in before} == \
         {k: 2 * v for k, v in eager.items()}
-
-
-@pytest.mark.gpu
-def test_the_benchmark_cell_reads_a_graph_share_of_one(monkeypatch):
-    """A short traced run of the gradient-domain cell on the card, at a
-    64x64 film, with the counters zeroed as in a run's own process:
-    gdpt.graph_share is 1.0 and the run is correct."""
-    _card()
-    for k in gdpt_soa.GRAPHS:
-        monkeypatch.setitem(gdpt_soa.GRAPHS, k, 0)
-    import io
-    import time
-
-    from benchmark.harness import session, spec
-
-    cell = spec.Cell(spec.load_spec(), "cbox_512_gradpath.frames_4spp")
-    out, err = io.StringIO(), io.StringIO()
-    res = session.run(cell, 2 ** 31 + 91, 1.0, True, time.perf_counter(), film=(64, 64),
-                      out=out, err=err)
-    assert res["correct"], err.getvalue()
-    assert res["metrics"]["gdpt.graph_share"]["value"] == 1.0

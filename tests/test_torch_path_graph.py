@@ -1,16 +1,19 @@
-"""The banded pass's sample replayed as a CUDA graph (path_soa._soa_pass).
+"""The banded pass's sample replayed as a CUDA graph (path_soa._soa_pass
+over banded.sample_pass).
 
 On the CPU: trace_paths_soa with its seed and sample index as 0-d int64
 tensors (the graph's inputs) gives the bits of the Python-int call; the
 sample takes no host read and makes no copy from the host, which a
-capture would refuse; and the route's rule (CUDA lanes, brute-force
-casts, max_depth > 0) leaves CPU lanes, the unbounded loop and BVH
-scenes eager, counted under "eager" alone. On the card (`gpu`): the
-graphed render equals an eager sum of trace_paths_soa bit for bit, a
-new film or scene captures anew, a graph outlives the memoised film
-size it read, a replayed frame under the profiler
-records K1 and K2 and the frame after it keeps its bits, and the
-benchmark's render.graph_share reads 1.0 in its cell.
+capture would refuse; and, for path and gradpath alike, the route's rule
+(banded.graphed: CUDA lanes, brute-force casts, max_depth > 0) leaves
+CPU lanes, the unbounded loop and BVH scenes eager, counted under
+"eager" alone, and the benchmark's graph-share readers read those
+counters. On the card (`gpu`): the graphed render equals an eager sum of
+trace_paths_soa bit for bit, a new film or scene captures anew, a graph
+outlives the memoised film size it read, a replayed frame under the
+profiler records K1 and K2 and the frame after it keeps its bits, and
+the benchmark's render.graph_share and gdpt.graph_share read 1.0 in
+their cells.
 """
 
 import collections
@@ -22,11 +25,16 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from gdpt_tpu_torch.integrators import path_soa
+from gdpt_tpu_torch.integrators import banded, gdpt_soa, path_soa
 from gdpt_tpu_torch.scene import presets
 from gdpt_tpu_torch.scene.build import scene_to
 
 SEEDS = (3, 0x9E3779B9, 2 ** 32 - 5)
+
+# Each integrator's banded render, counter group of graphs and the
+# benchmark's reader of that group.
+RENDERS = {"path": (path_soa.render_soa, path_soa.GRAPHS, "render.graph_share"),
+           "gradpath": (gdpt_soa.render_gradpath_soa, gdpt_soa.GRAPHS, "gdpt.graph_share")}
 
 
 def _lanes(w, h, device):
@@ -97,25 +105,52 @@ def test_a_graphed_sample_reads_nothing_back(box):
     assert not mode.seen, dict(mode.seen)
 
 
-def test_the_rule_leaves_eager_passes_eager():
-    """graphed() on CUDA-like lanes takes brute force at a fixed depth
-    only; renders on CPU lanes at depth 6, at depth -1 and of a BVH box
-    count their samples under "eager" and capture and replay nothing."""
+@pytest.mark.parametrize("kind", RENDERS)
+def test_the_rule_leaves_eager_passes_eager(kind):
+    """banded.graphed() on CUDA-like lanes takes brute force at a fixed
+    depth only; renders on CPU lanes at depth 6, at depth -1 and of a BVH
+    box (banded, and gradpath's wavefront pool) count their samples per
+    pixel under their integrator's "eager" and capture and replay
+    nothing."""
+    render, graphs, _ = RENDERS[kind]
     cuda_like = SimpleNamespace(is_cuda=True)
-    brute6 = presets.cornell_box(8, 8, spp=1, max_depth=6)
-    brute_unbounded = presets.cornell_box(8, 8, spp=1, max_depth=-1)
-    bvh6 = presets.cornell_box(8, 8, spp=1, max_depth=6, force_bvh=True)
-    zero_depth = presets.cornell_box(8, 8, spp=1, max_depth=0)
+
+    def box(depth, **kw):
+        return presets.cornell_box(8, 8, spp=1, integrator=kind, max_depth=depth, **kw)
+
+    brute6, brute_unbounded, bvh6, zero_depth = box(6), box(-1), box(6, force_bvh=True), box(0)
     assert not bvh6.static.use_brute_force
-    assert path_soa.graphed(brute6.static, cuda_like)
+    assert banded.graphed(brute6.static, cuda_like)
     for scene in (brute_unbounded, bvh6, zero_depth):
-        assert not path_soa.graphed(scene.static, cuda_like)
-    assert not path_soa.graphed(brute6.static, torch.zeros(4))
-    for scene in (brute6, brute_unbounded, bvh6):
-        before = dict(path_soa.GRAPHS)
-        img = path_soa.render_soa(scene, spp=3, seed=4, wavefront=False)
+        assert not banded.graphed(scene.static, cuda_like)
+    assert not banded.graphed(brute6.static, torch.zeros(4))
+    routes = [(brute6, False), (brute_unbounded, False), (bvh6, False)]
+    if kind == "gradpath":
+        routes.append((bvh6, True))
+    for scene, wavefront in routes:
+        before = dict(graphs)
+        img = render(scene, spp=3, seed=4, wavefront=wavefront)
         assert np.isfinite(img).all()
-        assert path_soa.GRAPHS == {**before, "eager": before["eager"] + 3}
+        assert graphs == {**before, "eager": before["eager"] + 3}
+
+
+@pytest.mark.parametrize("kind", RENDERS)
+def test_the_graph_share_reader_reads_the_counter(kind, monkeypatch):
+    """The benchmark's render.graph_share reads path_soa.graphs and
+    gdpt.graph_share gdpt_soa.graphs: nothing before a sample has run,
+    0.0 after an eager CPU render, the replayed share of all samples
+    otherwise."""
+    from benchmark.harness import spec
+
+    render, graphs, metric = RENDERS[kind]
+    reader = spec.load_module("metrics", metric)
+    for k in graphs:
+        monkeypatch.setitem(graphs, k, 0)
+    assert reader.read(None) is None
+    render(presets.cornell_box(8, 8, spp=1, integrator=kind, max_depth=6), spp=2, seed=1)
+    assert reader.read(None) == 0.0
+    monkeypatch.setitem(graphs, "replayed", 6)
+    assert reader.read(None) == 0.75
 
 
 def _card():
@@ -222,21 +257,24 @@ def test_replays_under_the_profiler_record_the_casts():
 
 
 @pytest.mark.gpu
-def test_the_benchmark_cell_reads_a_graph_share_of_one(monkeypatch):
-    """A short traced run of the benchmark's cell on the card, at a 64x64
-    film, with the counters zeroed as in a run's own process:
-    render.graph_share is 1.0 and the run is correct."""
+@pytest.mark.parametrize("kind,cell,seed", [("path", "cbox_512_path.preview_1spp", 77),
+                                            ("gradpath", "cbox_512_gradpath.frames_4spp", 91)])
+def test_the_benchmark_cell_reads_a_graph_share_of_one(kind, cell, seed, monkeypatch):
+    """A short traced run of the benchmark's path and gradient-domain
+    cells on the card, at a 64x64 film, with the counters zeroed as in a
+    run's own process: the cell's graph share is 1.0 and the run is
+    correct."""
     _card()
-    for k in path_soa.GRAPHS:
-        monkeypatch.setitem(path_soa.GRAPHS, k, 0)
+    _, graphs, metric = RENDERS[kind]
+    for k in graphs:
+        monkeypatch.setitem(graphs, k, 0)
     import io
     import time
 
     from benchmark.harness import session, spec
 
-    cell = spec.Cell(spec.load_spec(), "cbox_512_path.preview_1spp")
     out, err = io.StringIO(), io.StringIO()
-    res = session.run(cell, 2 ** 31 + 77, 1.0, True, time.perf_counter(), film=(64, 64),
-                      out=out, err=err)
+    res = session.run(spec.Cell(spec.load_spec(), cell), 2 ** 31 + seed, 1.0, True,
+                      time.perf_counter(), film=(64, 64), out=out, err=err)
     assert res["correct"], err.getvalue()
-    assert res["metrics"]["render.graph_share"]["value"] == 1.0
+    assert res["metrics"][metric]["value"] == 1.0
