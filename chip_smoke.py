@@ -5,7 +5,7 @@
 
 Phases, each fatal on failure:
   1. print the card and its power limit; build the native sources of
-     gdpt_tpu_torch/csrc (five CUDA files, one C++ file; one compiler
+     gdpt_tpu_torch/csrc (six CUDA files, one C++ file; one compiler
      process each, started together; timed); read every timed kernel's
      registers and local memory from the built libraries;
   2. hold K1 (closest hit) and K2 (any hit) against their plain PyTorch
@@ -13,17 +13,25 @@ Phases, each fatal on failure:
      differ in the bits of t, u, v, the normal or blocked, or in prim):
      camera rays, random bounce rays from the camera hits and shadow rays
      toward the light, all live and with dead lanes (tfar = -1) scattered
-     and in whole warps;
+     and in whole warps; then walk one sample of the same box through
+     integrators/path_fused.py's schedule and hold each stage kernel (P1
+     primary, P2 after_hit, P3 after_shadow) against its plain stage on
+     a copy of the same (31, 262,144) lane state, bit for bit;
   3. the brute-force main path: render.render(cornell_box(512, 512,
-     spp=4)) on cuda, with the kernel launch counters zeroed just before
-     and read just after; the image must be finite and not black, and
-     both kernels must have been launched;
+     spp=4)) on cuda, with the kernel launch counters (K1, K2 and the
+     stage kernels) zeroed just before and read just after; the image
+     must be finite and not black, and every kernel must have been
+     launched;
   4. render cornell_box(32, 32, spp=2, max_depth=3) on cuda and on the
      CPU (plain versions) and hold the two images together;
   5. time K1 and K2 and their plain versions with CUDA events over CUDA
      graph replays (no host launch overhead between calls), beside their
      bound (the larger of bytes over 3.35 TB/s and operations over 67
-     TFLOP/s f32, the H100 SXM's published peaks);
+     TFLOP/s f32, the H100 SXM's published peaks); and P1-P3 and their
+     plain stages a launch from each state of phase 2's sample
+     (profiling.event_span_ms), averaged over the stage's launches in
+     the sample, beside their bytes bound (tools/profile_render.py's
+     FUSED_BYTES over 3.35 TB/s);
   6. profile one 512x512 cbox sample: device time by kernel, the device's
      busy share, and the kernels' share of device time;
   7. build the BVH scene: the Cornell box's walls, light and camera with
@@ -371,7 +379,8 @@ KERNEL_ENTRIES = (
     ("K4 closest", "packet_trace_dual_kernelILb0ELb0E"),
     ("K4 any hit", "packet_trace_dual_kernelILb1ELb0E"),
     ("K5 super32", "visit_microbench_kernelILi4E"), ("K5 leaf24", "visit_microbench_kernelILi9E"),
-    ("fma_peak", "fma_peak_kernel"))
+    ("P1 primary", "path_primary"), ("P2 after_hit", "path_after_hit"),
+    ("P3 after_shadow", "path_after_shadow"), ("fma_peak", "fma_peak_kernel"))
 
 
 def _card():
@@ -544,26 +553,73 @@ def _kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes, ops
         "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,  # no PyTorch call casts rays against triangles
+        "library_ms": None,  # no library call does the kernel's work
     }
 
 
+def _fused_stages(scene_d, sc, seed=0x9E3779B9, sample0=3):
+    """Phase 2's walk of one sample of scene_d (on the card) through
+    path_fused.schedule: each stage kernel against its plain stage on a
+    copy of the same lane state, every bit of the (31, n) state. Returns
+    the stages as (kind, its FUSED_BYTES key, a call of the kernel and
+    one of the plain stage on a given state, the state it starts from)."""
+    import numpy as np
+    import torch
+
+    from gdpt_tpu_torch.integrators import path_fused
+
+    static, cam = scene_d.static, scene_d.device.camera
+    dev = cam.sample_to_cam.device
+    ys, xs = np.mgrid[0:static.height, 0:static.width]
+    lanes = (torch.as_tensor(xs.ravel(), dtype=torch.float32, device=dev),
+             torch.as_tensor(ys.ravel(), dtype=torch.float32, device=dev),
+             torch.arange(static.width * static.height, device=dev))
+    state = torch.zeros((path_fused.N_ROWS, lanes[0].shape[0]), device=dev)
+    stages = []
+    for name, k, args in path_fused.schedule(static, sc, state):
+        def kernel(s, k=k, args=args):
+            path_fused.KERNELS[k](path_fused._Launch(static, cam, sc, s, lanes, seed, sample0),
+                                  *args)
+
+        def plain(s, k=k, args=args):
+            path_fused.PLAIN[k](static, cam, sc, s, lanes, seed, sample0, *args)
+
+        a, b = state.clone(), state.clone()
+        plain(a)
+        kernel(b)
+        torch.cuda.synchronize()
+        bad = (a.view(torch.int32) != b.view(torch.int32)).any(dim=0)
+        if bool(bad.any()):
+            rows = (a.view(torch.int32) != b.view(torch.int32)).any(dim=1).nonzero().ravel()
+            raise AssertionError(f"{name}: the stage kernel differs from its plain stage on "
+                                 f"{int(bad.sum())} lanes, in rows {rows.tolist()}")
+        kind = path_fused.STAGES[k]
+        stages.append((kind, name if name == "after_hit 0" else kind, kernel, plain,
+                       state.clone()))
+        state.copy_(a)
+    return stages
+
+
 def _brute_phases(card):
-    """Phases 2-6: the brute-force path (cbox, K1 and K2). Returns the
-    kernels' rows for the JSON line."""
+    """Phases 2-6: the brute-force path (cbox, K1 and K2, and the path
+    integrator's stage kernels P1-P3). Returns the kernels' rows for the
+    JSON line: K1's and K2's, and P1's to P3's."""
     import numpy as np
     import torch
 
     from gdpt_tpu_torch.accel import brute_kernels as bk
-    from gdpt_tpu_torch.integrators import path_soa, render
+    from gdpt_tpu_torch.integrators import path_fused, path_soa, render
     from gdpt_tpu_torch.scene import presets
     from gdpt_tpu_torch.scene.build import scene_to
+    from gdpt_tpu_torch.tools.profile_render import FUSED_BYTES
+    from gdpt_tpu_torch.utils.profiling import event_span_ms
 
     # ---- phase 2: kernels vs plain at the main path's shapes ----
     dev = torch.device("cuda")
     scene = presets.cornell_box(512, 512, spp=SPP_MAIN)
     st = scene.static
-    sc = path_soa.scene_soa_from_aos(scene_to(scene, dev))
+    scene_d = scene_to(scene, dev)
+    sc = path_soa.scene_soa_from_aos(scene_d)
     g = sc.geom
     n = st.width * st.height
     org, d = _camera_rays(scene, dev)
@@ -605,23 +661,32 @@ def _brute_phases(card):
     torch.cuda.synchronize()
     print("phase 2: K1 and K2 equal their plain versions bit for bit (a scalar and a per-ray "
           "tnear)")
+    if not path_fused.supports(st, dev):
+        raise AssertionError("the 512x512 cbox is outside path_fused's envelope on the card")
+    stages = _fused_stages(scene_d, sc)
+    kinds = [kind for kind, *_ in stages]
+    print(f"phase 2: P1-P3 equal their plain stages bit for bit on {n} lanes through one "
+          f"sample ({', '.join(f'{kinds.count(k)} {k}' for k in path_fused.STAGES)})")
 
     # ---- phase 3: the brute-force main path on cuda ----
-    for k in bk.LAUNCHES:
-        bk.LAUNCHES[k] = 0
+    for counts in (bk.LAUNCHES, path_fused.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     t0 = time.perf_counter()
     img, rays = render.render(presets.cornell_box(512, 512, spp=SPP_MAIN), seed=0,
                               device="cuda", return_stats=True)
     wall = time.perf_counter() - t0
     launches = dict(bk.LAUNCHES)
+    stage_launches = dict(path_fused.LAUNCHES)
     mean = float(img.mean())
     print(f"phase 3: cbox 512x512 spp {SPP_MAIN}: mean radiance {mean:.6f}, "
           f"wall {wall:.3f} s, rays {rays:.0f}, {rays / wall / 1e6:.2f} Mrays/s, "
-          f"launches {launches} on {card}")
+          f"launches {launches}, stage kernels {stage_launches} on {card}")
     if img.shape != (512, 512, 3) or not np.isfinite(img).all() or not mean > 0:
         raise AssertionError("main-path image is not finite, not 512x512x3 or black")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the main path was never launched: {launches}")
+    if min(launches.values()) == 0 or min(stage_launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path was never launched: {launches}, "
+                             f"{stage_launches}")
 
     # ---- phase 4: cuda vs cpu render ----
     small = presets.cornell_box(32, 32, spp=2, max_depth=3)
@@ -650,9 +715,30 @@ def _brute_phases(card):
               f"bound {rows[-1]['bound_ms'] * 1e3:.2f} us ({rows[-1]['bound_by']}: "
               f"{ops / 1e9:.3f} Gop, {nbytes / 1e6:.1f} MB, {n_live} of {n} lanes live), "
               f"{cnt / SPP_MAIN:.1f} launches/sample on {card}")
+    # The stage kernels a launch, from each state of phase 2's sample; the
+    # bound counts bytes only (a stage's few hundred operations a lane
+    # take a tenth of its bytes' time at the f32 peak).
+    fused_rows = []
+    for name, kind, src_line in (
+            ("path_primary (P1)", "primary", "gdpt_tpu/integrators/path_soa.py:708"),
+            ("path_after_hit (P2)", "after_hit", "gdpt_tpu/integrators/path_soa.py:708"),
+            ("path_after_shadow (P3)", "after_shadow", "gdpt_tpu/integrators/path_soa.py:708")):
+        mine = [stage for stage in stages if stage[0] == kind]
+        ms = [event_span_ms(kernel, lambda s=s: (s.clone(),), reps=20)
+              for _, _, kernel, _, s in mine]
+        pms = [event_span_ms(plain, lambda s=s: (s.clone(),)) for _, _, _, plain, s in mine]
+        nbytes = sum(FUSED_BYTES[key] for _, key, *_ in mine) * n / len(mine)
+        fused_rows.append(_kernel_row(name, "gdpt_tpu_torch/csrc/path_fused.cu", src_line,
+                                      stage_launches[kind], 0.0, sum(ms) / len(ms),
+                                      sum(pms) / len(pms), nbytes, 0))
+        row = fused_rows[-1]
+        print(f"phase 5: {name}: {row['ms'] * 1e3:.2f} us/launch on the device (the mean of "
+              f"{len(mine)} launches of one sample), plain {row['plain_ms'] * 1e3:.1f} us, "
+              f"bound {row['bound_ms'] * 1e3:.2f} us ({nbytes / 1e6:.1f} MB), "
+              f"{row['launches'] / SPP_MAIN:.1f} launches/sample on {card}")
 
     _profile_one_sample(render, presets, card)
-    return rows
+    return rows, fused_rows
 
 
 def _camera_rays(scene, dev):
@@ -3697,18 +3783,19 @@ def main():
     t0 = time.perf_counter()
     libs = native_build.build_all(
         ["brute_intersect.cu", "packet_trace.cu", "packet_trace_dual.cu",
-         "visit_microbench.cu", "fma_peak.cu", "bvh_builder.cpp"], verbose=True)
+         "visit_microbench.cu", "fma_peak.cu", "path_fused.cu", "bvh_builder.cpp"],
+        verbose=True)
     print(f"phase 1: built {', '.join(lib.name for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s")
     resources = {}
-    for lib in libs[:5]:
+    for lib in libs[:6]:
         resources.update(_resource_usage(lib))
     use = {entry: [v for k, v in resources.items() if entry in k] for _, entry in KERNEL_ENTRIES}
     use = {entry: v[0] if v else (None, None) for entry, v in use.items()}
     print(f"phase 1: registers, local bytes a thread: "
           + ", ".join(f"{name} {use[entry]}" for name, entry in KERNEL_ENTRIES))
 
-    rows = _brute_phases(card)
+    rows, fused_rows = _brute_phases(card)
     k3_rows, ctx = _bvh_phases(card)
     rows += k3_rows + _gradpath_phases(card, ctx)
     sums = _batch_phase(card)
@@ -3720,6 +3807,7 @@ def main():
     two_phase = _variant_phases(card, ctx)
     _sharding_phase(card, ctx)
     oracles = _walk_phases(card, ctx)
+    rows += fused_rows
     rows.append(_measurement_phase(card, ctx))
     decompose, chain = _tool_phases(card, ctx["scene_dev"])
     if len(rows) != len(KERNEL_ENTRIES):

@@ -41,39 +41,49 @@ LAUNCHES = profiling.counter_group("brute_kernels.launches", {"intersect": 0, "o
 SOURCE = "brute_intersect.cu"
 
 _lib = None
-_tally = None  # the launches of the graph being captured (capture_tally)
+_tallies = {}  # id(counter group): the launches of the graph being captured (capture_tally)
 
 
 @contextlib.contextmanager
-def capture_tally():
-    """Yields the tally of the K1 / K2 launches recorded into a CUDA graph
-    captured inside the block, keyed like LAUNCHES; they run, and count,
-    only when the graph is replayed (count_replays)."""
-    global _tally
-    outer, _tally = _tally, dict.fromkeys(LAUNCHES, 0)
+def capture_tally(counts=LAUNCHES):
+    """Yields the tally of the launches counted in the counter group
+    `counts` (K1's and K2's unless given; integrators/path_fused.py's
+    stage kernels count theirs the same way) that are recorded into a
+    CUDA graph captured inside the block, keyed like `counts`; they run,
+    and count, only when the graph is replayed (count_replays)."""
+    key = id(counts)
+    outer = _tallies.get(key)
+    _tallies[key] = tally = dict.fromkeys(counts, 0)
     try:
-        yield _tally
+        yield tally
     finally:
-        _tally = outer
+        if outer is None:
+            del _tallies[key]
+        else:
+            _tallies[key] = outer
 
 
-def count_replays(tally, n):
-    """Counts in LAUNCHES the launches of n replays of a graph whose
-    capture recorded `tally`."""
+def count_replays(tally, n, counts=LAUNCHES):
+    """Counts in the counter group `counts` the launches of n replays of a
+    graph whose capture recorded `tally`."""
     for k, v in tally.items():
-        LAUNCHES[k] += v * n
+        counts[k] += v * n
+
+
+def count_launch(kind, counts=LAUNCHES):
+    """One launch of `kind` into the counter group `counts`, or, while the
+    current stream is captured, into the capture's tally of that group (a
+    capture outside capture_tally counts nothing)."""
+    if not torch.cuda.is_current_stream_capturing():
+        counts[kind] += 1
+    elif id(counts) in _tallies:
+        _tallies[id(counts)][kind] += 1
 
 
 def _count(kind, n):
-    """One launch of `kind` over n rays, none for n = 0: into LAUNCHES, or,
-    while the current stream is captured, into the capture's tally (a
-    capture outside capture_tally counts nothing)."""
-    if n == 0:
-        return
-    if not torch.cuda.is_current_stream_capturing():
-        LAUNCHES[kind] += 1
-    elif _tally is not None:
-        _tally[kind] += 1
+    """One launch of `kind` over n rays (count_launch), none for n = 0."""
+    if n:
+        count_launch(kind)
 
 
 def _load():

@@ -233,6 +233,12 @@ def _pcg3d_rounds(x, y, z):
 
 _RNG_IMPL = "pcg3d"  # set GDPT_RNG=threefry for the heavyweight streams
 
+
+def threefry() -> bool:
+    """Whether uniform2 draws from the threefry streams (GDPT_RNG=threefry)
+    rather than PCG3D's; read at every call."""
+    return os.environ.get("GDPT_RNG", _RNG_IMPL) == "threefry"
+
 # f32 scale that keeps values < 1 (the reference's 1/4294967808 in f32).
 _SCALE = float(torch.tensor(1.0 / 4294967808.0, dtype=REAL))
 
@@ -248,7 +254,7 @@ class Streams:
         sd = _u32(seed, s)
         smp = _u32(sample, s)
         self.like = s
-        self.threefry = os.environ.get("GDPT_RNG", _RNG_IMPL) == "threefry"
+        self.threefry = threefry()
         if self.threefry:
             self.words = (sd, s, smp)
         else:

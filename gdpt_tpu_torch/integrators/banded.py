@@ -71,21 +71,27 @@ def graphed(static, xs):
 class _SampleGraph:
     """One sample of a banded pass captured as a CUDA graph over static
     lanes, seed and sample index, adding into static sums: add_sample
-    (path_soa's _add_sample, gdpt_soa's _add_gdpt_sample) adds one sample
-    of its integrator into `rows` f32 rows of the lanes' count and an f32
-    0-d ray count; `counts` is the integrator's counter group of graphs.
-    Built on a key's first pass: the lanes are copied in, the sample runs
-    once eagerly on a side stream (loading the kernels and the memoised
-    constants), then is captured. The graph holds K1 and K2 as nodes.
+    (path_soa's _add_sample and _add_fused_sample, gdpt_soa's
+    _add_gdpt_sample) adds one sample of its integrator into `rows` f32
+    rows of the lanes' count and an f32 0-d ray count; `counts` is the
+    integrator's counter group of graphs, and `kernels` that of the
+    launches of its own kernels, if it has any (path_fused.LAUNCHES),
+    which a replay counts as it counts K1's and K2's. Built on a key's
+    first pass: the lanes are copied in, the sample runs once eagerly on
+    a side stream (loading the kernels and the memoised constants), then
+    is captured. The graph holds K1, K2 and the integrator's kernels as
+    nodes.
     It keeps every tensor made before the capture that a replay reads,
     the view, the camera and the film's size among them, so no memo that
     drops one hands its memory to another tensor under the graph."""
 
-    def __init__(self, add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx):
+    def __init__(self, add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx,
+                 kernels=None):
         dev = xs.device
         # id(camera) is in the memo's key too.
         self.held = (sc, camera, film_size(static.width, static.height, dev))
         self.counts = counts
+        self.kernels = {} if kernels is None else kernels
         self.lanes = (xs.clone(), ys.clone(), ray_idx.clone())
         self.seed = torch.zeros((), dtype=torch.int64, device=dev)
         self.sample = torch.zeros((), dtype=torch.int64, device=dev)
@@ -104,7 +110,8 @@ class _SampleGraph:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             body()
-            with bk.capture_tally() as self.launches:
+            with bk.capture_tally() as self.launches, \
+                    bk.capture_tally(self.kernels) as self.kernel_launches:
                 self.graph.capture_begin()
                 body()
                 self.graph.capture_end()
@@ -121,6 +128,7 @@ class _SampleGraph:
             self.sample.fill_(sample0 + i)
             self.graph.replay()
         bk.count_replays(self.launches, n_samples)
+        bk.count_replays(self.kernel_launches, n_samples, self.kernels)
         self.counts["replayed"] += n_samples
         return self.acc, self.rays
 
@@ -133,7 +141,7 @@ _GRAPH_MEMO = SceneMemo()
 
 
 def sample_pass(add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx, seed, sample0,
-                n_samples):
+                n_samples, kernels=None):
     """n_samples samples of an integrator summed in f32 for the whole ray
     batch, add_sample adding each into `rows` f32 rows and a ray count
     in place (_SampleGraph); returns (the (rows, n) sums, the rays as an
@@ -143,12 +151,13 @@ def sample_pass(add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx, s
     overwrites; any other pass runs the same sample eagerly into sums of
     its own. Both give the same bits. `counts`, the integrator's counter
     group, counts the samples replayed or run eagerly and the graphs
-    captured."""
+    captured; `kernels` is the counter group of the launches of the
+    integrator's own kernels (_SampleGraph)."""
     if graphed(static, xs):
         key = (add_sample, static, id(camera), xs.shape[0], xs.device)
         with torch.cuda.device(xs.device):  # capture and replay on the lanes' card
             g = _GRAPH_MEMO.get(sc, key, lambda: _SampleGraph(
-                add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx))
+                add_sample, rows, counts, static, camera, sc, xs, ys, ray_idx, kernels))
             return (*g.run(xs, ys, ray_idx, seed, sample0, n_samples), True)
     acc = torch.zeros((rows, xs.shape[0]), dtype=REAL, device=xs.device)
     rays = torch.zeros((), dtype=REAL, device=xs.device)

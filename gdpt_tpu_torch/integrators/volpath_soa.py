@@ -38,6 +38,7 @@ from gdpt_tpu_torch.core.soa import V3
 from gdpt_tpu_torch.integrators import banded
 from gdpt_tpu_torch.integrators import gdpt_soa as gs
 from gdpt_tpu_torch.integrators import path_soa as ps
+from gdpt_tpu_torch.integrators import vertex_soa as vx
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import media_soa as meds
 from gdpt_tpu_torch.scene.build import Scene
@@ -197,7 +198,7 @@ def _vol_bounce(static, sc: ps.SceneSoA, media, seed, s, pool_sort=False):
         contribution and the traced-shadow-ray mask (f32)."""
         lu0, lu1 = bounce_uni2(_C_LIGHT_UV)
         lw, lsw = bounce_uni2(_C_LIGHT_W)
-        light_id, p_l, n_l, pdf_pt, _ = ps.sample_light_point(
+        light_id, p_l, n_l, pdf_pt, _ = vx.sample_light_point(
             static, sc, p0, lu0, lu1, lw, lsw)
         pdf_nee_pt = soa.take(sc.light_pmf, light_id) * pdf_pt
         to_l = p_l - p0

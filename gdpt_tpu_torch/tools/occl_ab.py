@@ -29,6 +29,7 @@ from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG, REAL
 from gdpt_tpu_torch.core.soa import V3
 from gdpt_tpu_torch.integrators import path_soa as ps
+from gdpt_tpu_torch.integrators import vertex_soa as vx
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.tools import stand_ins
 from gdpt_tpu_torch.tools.ab_dual_kernel import chain_ms
@@ -47,7 +48,7 @@ def shadow_rays(scene, pool=1 << 18, rays=None):
     _, d, v, params = pool_vertices(scene, pool, rays)
     lu0, lu1, lw, lsw = light_samples(scene, v)
     ext = v.valid > 0
-    _, p_l, n_l, _, is_env = ps.sample_light_point(static, sc, v.position, lu0, lu1, lw, lsw)
+    _, p_l, n_l, _, is_env = vx.sample_light_point(static, sc, v.position, lu0, lu1, lw, lsw)
     to_l = p_l - v.position
     dist = soa.length(to_l)
     dl = soa.where(is_env, -1.0 * n_l, to_l * (1.0 / torch.clamp_min(dist, 1e-20)))

@@ -25,6 +25,7 @@ from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG
 from gdpt_tpu_torch.integrators import path_soa as ps
+from gdpt_tpu_torch.integrators import vertex_soa as vx
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.ops import textures_soa as tsoa
 from gdpt_tpu_torch.tools import stand_ins
@@ -84,7 +85,7 @@ def profile(scene, pool=1 << 18, reps=3, rays=None):
         rows.append({"stage": name, **row, **extra})
         return out
 
-    _, p_l, n_l, _, is_env = stage("sample_light_point", lambda: ps.sample_light_point(
+    _, p_l, n_l, _, is_env = stage("sample_light_point", lambda: vx.sample_light_point(
         static, sc, v.position, lu0, lu1, lw, lsw))
     to_l = p_l - v.position
     dist = soa.length(to_l)

@@ -10,7 +10,10 @@ approximation of Russian roulette (a uniform 0.8 survival past rr_depth),
 so live lanes after rr_depth are the reference's, not the render's. On a
 scene with a packet table, standalone probes follow: incoherent and
 coherent casts through packet_trace.intersect_packet and a morton-key
-argsort with the port's unsort (a scatter).
+argsort with the port's unsort (a scatter). On the card, for a scene
+inside integrators/path_fused.py's envelope, the split of a replayed
+sample follows (fused_split): the replay by CUDA events, and each fused
+stage's kernel and plain version by CUDA events beside its bytes bound.
 
     python -m gdpt_tpu_torch.tools.profile_render [scene] [--bounces N]
         [--skip-probes] [--probe-rays N] [--width W --height H] [--device cpu]
@@ -20,6 +23,7 @@ material_box_bvh, the stand-in for the reference's disney_bsdf).
 """
 
 import argparse
+import statistics
 import sys
 
 import numpy as np
@@ -30,11 +34,13 @@ from gdpt_tpu_torch.accel import traverse_soa as trs
 from gdpt_tpu_torch.core import soa
 from gdpt_tpu_torch.core.dtypes import BIG
 from gdpt_tpu_torch.core.soa import V3
+from gdpt_tpu_torch.integrators import banded, path_fused
 from gdpt_tpu_torch.integrators import path_soa as ps
+from gdpt_tpu_torch.integrators import vertex_soa as vx
 from gdpt_tpu_torch.ops import materials_soa as msoa
 from gdpt_tpu_torch.tools import stand_ins
 from gdpt_tpu_torch.tools.profile_wavefront import timed
-from gdpt_tpu_torch.utils.profiling import device_note
+from gdpt_tpu_torch.utils.profiling import device_note, event_span_ms
 
 DEFAULT_SCENE = "material_box_bvh"
 # The stages of a bounce in the reference's three columns.
@@ -83,7 +89,7 @@ def profile(scene, bounces=16, probes=True, probe_rays=1 << 20, reps=3):
         """First half of ps.nee_soa: light sample -> shadow ray."""
         lu0, lu1 = uni2(b, ps._CTR_LIGHT_UV)
         lw, lsw = uni2(b, ps._CTR_LIGHT_W)
-        _, p_l, n_l, _, is_env = ps.sample_light_point(static, sc, v.position, lu0, lu1, lw,
+        _, p_l, n_l, _, is_env = vx.sample_light_point(static, sc, v.position, lu0, lu1, lw,
                                                        lsw)
         to_l = p_l - v.position
         dist = soa.length(to_l)
@@ -184,6 +190,82 @@ def _probes(scene, sc, org, d_primary, m, reps):
     return rows
 
 
+# Bytes a lane each fused stage reads once and writes once (K1's hit 28 B,
+# K2's mask 4 B, a vector row 12 B, a scalar row 4 B, the lane's int64
+# stream 8 B; csrc/path_fused.cu): the first after_hit writes the whole
+# vertex and reads no state, a later one reads and writes it.
+FUSED_BYTES = {"primary": 16 + 28, "after_hit 0": 60 + 108, "after_hit": 136 + 104,
+               "after_shadow": 104 + 36}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def fused_split(scene, reps=20):
+    """A replayed sample of a scene inside path_fused's envelope, on the
+    card: rows (dicts) of the replay of the banded pass's captured sample
+    by CUDA events (least and median of `reps` replays, ms), then of each
+    stage of one sample in order: its kernel's device time a launch
+    (event_ms, profiling.event_span_ms: the least of `reps` launches from
+    a copy of the same state), its plain version's (plain_ms, three
+    calls: an upper bound, gaps between its kernels included) and its
+    bytes bound at 3.35 TB/s (bound_us)."""
+    static, camera = scene.static, scene.device.camera
+    dev = camera.sample_to_cam.device
+    if dev.type != "cuda" or not path_fused.supports(static, dev) or static.options.max_depth < 1:
+        raise ValueError("fused_split takes a scene inside path_fused's envelope on the card, "
+                         "at a fixed depth")
+    sc = ps.scene_soa_from_aos(scene)
+    w, h = static.width, static.height
+    n = w * h
+    ys, xs = np.mgrid[0:h, 0:w]
+    lanes = (torch.from_numpy(xs.ravel().astype(np.float32)).to(dev),
+             torch.from_numpy(ys.ravel().astype(np.float32)).to(dev),
+             torch.arange(n, dtype=torch.int64, device=dev))
+    graph = banded._SampleGraph(ps._add_fused_sample, 3, {"captured": 0}, static, camera, sc,
+                                *lanes, path_fused.LAUNCHES)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        graph.graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    rows = [{"stage": "replay", "ms": min(times), "median_ms": statistics.median(times),
+             "launches": sum(graph.launches.values()),
+             "stage_launches": sum(graph.kernel_launches.values())}]
+    st = torch.zeros((path_fused.N_ROWS, n), device=dev)
+    seed, sample0 = 0, 0
+
+    def kernel(k, args, s):
+        path_fused.KERNELS[k](path_fused._Launch(static, camera, sc, s, lanes, seed, sample0),
+                              *args)
+
+    def plain(k, args, s):
+        path_fused.PLAIN[k](static, camera, sc, s, lanes, seed, sample0, *args)
+
+    for name, k, args in path_fused.schedule(static, sc, st):
+        kind = "after_hit 0" if name == "after_hit 0" else path_fused.STAGES[k]
+        rows.append({"stage": name,
+                     "event_ms": event_span_ms(lambda s: kernel(k, args, s),
+                                               lambda: (st.clone(),), reps=reps),
+                     "plain_ms": event_span_ms(lambda s: plain(k, args, s), lambda: (st.clone(),)),
+                     "bound_us": FUSED_BYTES[kind] * n / HBM_BYTES_PER_S * 1e6})
+        kernel(k, args, st)
+    return rows
+
+
+def print_fused(rows, out=print):
+    replay = rows[0]
+    out(f"replay: {replay['ms']:.4f} ms least, {replay['median_ms']:.4f} median by CUDA events "
+        f"({replay['launches']} K1/K2 nodes, {replay['stage_launches']} stage nodes)")
+    for row in rows[1:]:
+        out(f"  {row['stage']:>14}: kernel {row['event_ms'] * 1e3:8.2f} us, bound "
+            f"{row['bound_us']:6.2f} us, plain {row['plain_ms'] * 1e3:9.1f} us")
+    kernels = sum(row["event_ms"] for row in rows[1:])
+    out(f"  stages summed {kernels:.4f} ms ({len(rows) - 1} launches)")
+
+
 def per_bounce(rows):
     """The reference's table: (label, live, intersect ms, occluded ms,
     other ms) per bounce, from the stage rows."""
@@ -236,6 +318,9 @@ def main(argv=None):
           f"packet={'yes' if sc.geom.packet is not None else 'no'}", flush=True)
     print_rows(profile(scene, bounces=args.bounces, probes=not args.skip_probes,
                        probe_rays=args.probe_rays))
+    if (path_fused.supports(st, scene.device.camera.sample_to_cam.device)
+            and st.options.max_depth > 0):
+        print_fused(fused_split(scene))
     return 0
 
 

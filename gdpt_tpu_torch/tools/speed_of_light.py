@@ -136,6 +136,7 @@ def _harvest_rays(scene, sc, m=1 << 20, seed=9, out=print):
     m); fewer than 1,024 survivors raise ValueError."""
     from gdpt_tpu_torch.accel import traverse_soa as trs
     from gdpt_tpu_torch.integrators import path_soa as ps
+    from gdpt_tpu_torch.integrators import vertex_soa as vx
     from gdpt_tpu_torch.ops import materials_soa as msoa
 
     static = scene.static
@@ -155,7 +156,7 @@ def _harvest_rays(scene, sc, m=1 << 20, seed=9, out=print):
     good = ok & (samp.valid > 0)
     lu0, lu1 = soa.uniform2(seed, idx, 13, 0)
     lw, lsw = soa.uniform2(seed, idx, 14, 0)
-    _, p_l, _, _, _ = ps.sample_light_point(static, sc, v.position, lu0, lu1, lw, lsw)
+    _, p_l, _, _, _ = vx.sample_light_point(static, sc, v.position, lu0, lu1, lw, lsw)
     sdir = soa.normalize(p_l - v.position)
 
     def pick(o3, d3, mask, what):
@@ -179,6 +180,7 @@ def _pool_shadow_rays(scene, sc, org, d, alive, tnear):
     (origins, directions, tfar, live count); a thinned lane has tfar -1."""
     from gdpt_tpu_torch.accel import traverse_soa as trs
     from gdpt_tpu_torch.integrators import path_soa as ps
+    from gdpt_tpu_torch.integrators import vertex_soa as vx
     from gdpt_tpu_torch.ops import materials_soa as msoa
     from gdpt_tpu_torch.ops import textures_soa as tsoa
 
@@ -194,7 +196,7 @@ def _pool_shadow_rays(scene, sc, org, d, alive, tnear):
     idx = torch.arange(n, dtype=torch.int64, device=org.x.device)
     lu0, lu1 = soa.uniform2(7, idx, 3, 0)
     lw, lsw = soa.uniform2(7, idx, 4, 0)
-    light_id, p_l, n_l, pdf_pt, is_env = ps.sample_light_point(
+    light_id, p_l, n_l, pdf_pt, is_env = vx.sample_light_point(
         static, sc, v.position, lu0, lu1, lw, lsw)
     to_l = p_l - v.position
     dist = soa.length(to_l)

@@ -197,6 +197,34 @@ def test_a_captured_launch_counts_once_per_replay(monkeypatch):
     assert bk.LAUNCHES == {"intersect": 4, "occluded": 6}
 
 
+def test_a_capture_tallies_each_counter_group_apart(monkeypatch):
+    """Another kernel's counter group (path_fused's stages) keeps a tally
+    of its own in one capture beside K1's and K2's: a launch counts in its
+    own group's tally, nested tallies of one group give the outer one
+    back, and a group with no tally open counts nothing while captured."""
+    capturing = [True]
+    monkeypatch.setattr(bk.torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    for k in bk.LAUNCHES:
+        monkeypatch.setitem(bk.LAUNCHES, k, 0)
+    stages, other = {"primary": 0, "after_hit": 0}, {"x": 0}
+    with bk.capture_tally() as casts, bk.capture_tally(stages) as tally:
+        bk._count("intersect", 8)
+        bk.count_launch("after_hit", stages)
+        bk.count_launch("x", other)
+        with bk.capture_tally(stages) as inner:
+            bk.count_launch("primary", stages)
+        bk.count_launch("after_hit", stages)
+    assert casts == {"intersect": 1, "occluded": 0}
+    assert tally == {"primary": 0, "after_hit": 2} and inner == {"primary": 1, "after_hit": 0}
+    assert stages == {"primary": 0, "after_hit": 0} and other == {"x": 0}
+    bk.count_launch("primary", stages)
+    assert stages["primary"] == 0
+    capturing[0] = False
+    bk.count_launch("primary", stages)
+    bk.count_replays(tally, 4, stages)
+    assert stages == {"primary": 1, "after_hit": 8} and bk.LAUNCHES["intersect"] == 0
+
+
 @pytest.mark.parametrize("kernel", ["intersect", "occluded"])
 def test_wrappers_take_a_per_ray_tnear(kernel):
     """A per-ray tnear (the wavefront casts primary rays from 0 and bounce

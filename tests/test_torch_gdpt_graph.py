@@ -197,7 +197,7 @@ def test_path_and_gradpath_graphs_keep_apart():
     assert path_soa.GRAPHS["captured"] == path_before + 1
     assert gdpt_soa.GRAPHS["captured"] == gdpt_before + 1
     samples = {k[1][0] for k in keys()}
-    assert {path_soa._add_sample, gdpt_soa._add_gdpt_sample} <= samples
+    assert {path_soa._add_fused_sample, gdpt_soa._add_gdpt_sample} <= samples
 
 
 @pytest.mark.gpu

@@ -54,6 +54,7 @@ def test_slice_modules_are_covered():
                    "accel/packet_kernels.py", "accel/traverse_soa.py", "convert.py",
                    "ops/poisson.py", "ops/materials_soa.py", "ops/textures_soa.py",
                    "integrators/gdpt_soa.py", "integrators/render.py",
+                   "integrators/path_fused.py",
                    "tools/visit_microbench.py", "cli.py", "__main__.py", "core/image.py",
                    "core/exr_piz.py", "scene/loaders.py", "scene/parser.py",
                    "scene/xml_writer.py", "integrators/aux.py", "utils/checkpoint.py",
@@ -69,7 +70,8 @@ def test_slice_modules_are_covered():
     assert {p.name for p in NATIVE} == {"brute_intersect.cu", "packet_trace.cu",
                                         "packet_trace_dual.cu", "visit_microbench.cu",
                                         "packet_visit.cuh", "packet_group.cuh",
-                                        "bvh_builder.cpp", "fma_peak.cu"}
+                                        "bvh_builder.cpp", "fma_peak.cu", "path_fused.cu",
+                                        "path_fused.cuh"}
 
 
 # Reference modules whose counterpart in the port has another name.
@@ -131,6 +133,7 @@ NEW_MODULES = ["ops/poisson.py", "integrators/gdpt_soa.py", "integrators/render.
                "integrators/path.py", "integrators/gdpt.py", "accel/packet_trace.py",
                "integrators/path_soa.py", "integrators/volpath_soa.py", "parallel/sharding.py",
                "accel/traverse.py", "accel/super16.py", "tools/stand_ins.py",
+               "integrators/path_fused.py", "integrators/vertex_soa.py",
                *(f"tools/{name}" for name in TOOLS)]
 
 
@@ -157,7 +160,8 @@ def test_native_sources_include_only_cuda_and_std_headers(path):
     # A .cuh holds device code shared by the .cu files and exports nothing.
     assert includes and ('extern "C"' in path.read_text()) == (path.suffix != ".cuh")
     for inc in includes:
-        assert inc in ("<cuda_runtime.h>", '"packet_visit.cuh"', '"packet_group.cuh"') or \
+        assert inc in ("<cuda_runtime.h>", '"packet_visit.cuh"', '"packet_group.cuh"',
+                       '"path_fused.cuh"') or \
             inc.strip("<>") in (
             "algorithm", "cmath", "cstdint", "cstring", "limits", "vector"), inc
 

@@ -317,12 +317,17 @@ def test_spans_leave_the_device_timeline_alone():
     annotation would add one), retried where the profiler lost
     records. The box has unbounded depth, so its banded pass runs
     eagerly and opens every span in every frame (a pass of fixed depth
-    replays a captured graph: test_torch_path_graph)."""
+    replays a captured graph: test_torch_path_graph); on the card its
+    sample takes the fused stages, whose spans (path_fused.SPANS) stand
+    in for trace_paths_soa's path.* spans."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch._C._profiler import ProfilerActivity
 
-    names = {*FRAME_SPANS, "native.load"}
+    from gdpt_tpu_torch.integrators import path_fused
+
+    names = {*(n for n in FRAME_SPANS if not n.startswith("path.")), *path_fused.SPANS,
+             "native.load"}
     cuda_type = torch.autograd.DeviceType.CUDA
     scene = presets.cornell_box(64, 64, spp=1, max_depth=-1)
     render.render(scene, spp=1, seed=1)
