@@ -8,8 +8,11 @@ is a file found by its name:
   integrator, and the correctness check's sampling and limits;
 - benchmark/traffic/<traffic>.json: the frames a client asks for;
 - benchmark/metrics/<metric>.py: a reader `read(record)` of one metric;
-- benchmark/checks/<integrator>.py: `compare(run)`, the comparison with
-  the plain reference that decides `correct`.
+- benchmark/checks/<module>.py: `compare(run)`, the comparison with
+  the plain reference that decides `correct`. <module> is the config's
+  `check.module` where it names one, else the config's integrator: a
+  config whose scene its integrator's reference cannot render names a
+  check of its own, which brings its own reference.
 
 A new configuration, mix, metric or check is a new file, found by the
 name that BENCHMARK.json or a config gives it.
@@ -77,4 +80,7 @@ class Cell:
         return [(m, load_module("metrics", m["name"], self.root)) for m in self.metrics[trace]]
 
     def check(self):
-        return load_module("checks", self.config["integrator"], self.root)
+        """The config's check: checks/<check.module>.py, else
+        checks/<integrator>.py."""
+        module = self.config.get("check", {}).get("module", self.config["integrator"])
+        return load_module("checks", module, self.root)

@@ -2,7 +2,13 @@
 bounces (the program span gdpt.bounce: the base's and four offsets'
 shading and casts of one bounce), per million pixel samples of the
 frames run outside the warm frame and the profiler; None where the
-program opens no such span."""
+program opens no such span.
+
+Not a metric of BENCHMARK.json: a replayed gradpath sample opens no
+gdpt.bounce span, so in the cell it read nothing, and the host's time in
+a replayed pass is render.pass's. The reader stays only as long as
+tests/test_torch_tracing.py's gdpt.* reader tests load it by name.
+"""
 
 from benchmark.harness import spans
 

@@ -3,6 +3,11 @@
 Everything is worked out here from the description: the triangles
 (geometry.Geometry), the camera's matrices, the light's sampling tables
 and power, and the ray epsilons from the scene's bounding sphere. float64 on the host, then `dtype` on `device`.
+It draws triangle meshes with Lambertian materials (RGB triples) only, and
+raises ValueError naming any other entry: a sphere, or a material given
+as a dict (benchmark/scenes/xml_writer.py's disneymetal and
+roughdielectric). A config of such a scene names a check of its own
+(`check.module`).
 """
 
 import math
@@ -54,7 +59,20 @@ def sample_to_camera(fov_deg, width, height):
     return np.linalg.inv(scale @ shift @ _perspective(fov_deg))
 
 
+def _refuse_what_it_cannot_draw(desc):
+    for k, m in enumerate(desc["materials"]):
+        a = None if isinstance(m, dict) else np.asarray(m)
+        if a is None or a.shape != (3,) or not np.issubdtype(a.dtype, np.number):
+            raise ValueError(f"the reference draws Lambertian materials only; material {k} "
+                             f"is {m!r}")
+    for k, s in enumerate(desc["shapes"]):
+        if "positions" not in s:
+            raise ValueError(f"the reference draws triangle meshes only; shape {k} has keys "
+                             f"{sorted(s)}")
+
+
 def build(desc, device="cpu", dtype=torch.float32):
+    _refuse_what_it_cannot_draw(desc)
     cam, opts = desc["camera"], desc["options"]
     pos, tri_mat, tri_light, light_tris, light_rgb = [], [], [], [], []
     for s in desc["shapes"]:

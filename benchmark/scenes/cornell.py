@@ -7,7 +7,9 @@ through the CIE pipeline, here as its RGB numbers.
 A description is a dict of numpy arrays and numbers that
 benchmark/scenes/xml_writer.py writes as XML plus binary PLY and that
 benchmark/reference/scene.py reads directly; nothing here imports the
-program.
+program. The box uses the writer's mesh and RGB-triple forms only
+(xml_writer.py lists the sphere, disneymetal and roughdielectric forms
+too), the forms the reference draws.
 """
 
 import numpy as np

@@ -15,7 +15,7 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-CELLS = ("cbox_512_path.preview_1spp",)
+CELLS = ("cbox_512_path.frames_256spp",)
 
 
 def pytest_configure(config):
@@ -36,13 +36,17 @@ def load_cell(name, root=ROOT):
     return spec.Cell(spec.load_spec(root), name, root)
 
 
-def cpu_run(cell, seed=1234567891234, seconds=0.2, trace=False, film=16, frame_fn=None):
-    """session.run on the CPU at a tiny film: (result, stdout, stderr)."""
+def cpu_run(cell, seed=1234567891234, seconds=0.2, trace=False, film=16, frame_fn=None, spp=1):
+    """session.run on the CPU at a tiny film and spp samples a frame (the
+    cell's own where None; one keeps a 256-spp cell's frames, profiled
+    ones too, well under a second here): (result, stdout, stderr)."""
     import io
     import time
 
     from benchmark.harness import session
 
+    if spp is not None:
+        cell.traffic = dict(cell.traffic, spp_per_frame=spp)
     out, err = io.StringIO(), io.StringIO()
     res = session.run(cell, seed, seconds, trace, time.perf_counter(), device="cpu",
                       film=(film, film), frame_fn=frame_fn, out=out, err=err)

@@ -55,3 +55,27 @@ def test_reference_casts():
     assert prim.tolist() == [0, -1, -1] and t.tolist() == [2.0, 10.0, 1.5]
     assert [c[0].item() for c in n] == [0.0, 0.0, 4.0]
     assert geometry.occluded(g, o, d, 0.0, tfar).tolist() == [True, False, False]
+
+
+@pytest.mark.parametrize("entry", ("sphere", "disneymetal", "roughdielectric"))
+def test_reference_refuses_what_it_cannot_draw(entry):
+    """A sphere or a material given as a dict (the scene writer's other
+    forms) makes reference/scene.build raise, naming the entry, rather
+    than draw another scene than the program's."""
+    from benchmark.harness import session
+    from benchmark.reference import scene
+
+    desc = session.describe(dict(load_cell(CELLS[0]).config, width=4, height=4))
+    scene.build(desc)
+    if entry == "sphere":
+        sphere = {"center": (278.0, 100.0, 280.0), "radius": 60.0, "material": 0,
+                  "emitter": None}
+        bad, match = dict(desc, shapes=[*desc["shapes"], sphere]), "shape 8 "
+    else:
+        forms = {"disneymetal": {"type": "disneymetal", "base_color": (0.9, 0.9, 0.9),
+                                 "roughness": 0.02},
+                 "roughdielectric": {"type": "roughdielectric", "roughness": 0.02,
+                                     "int_ior": 1.5, "ext_ior": 1.0}}
+        bad, match = dict(desc, materials=[*desc["materials"], forms[entry]]), "material 4 "
+    with pytest.raises(ValueError, match=match):
+        scene.build(bad)

@@ -1,7 +1,6 @@
 """The span metrics (benchmark/metrics: render.fixed_ms_per_frame,
-integrator.host_ms_per_msample, cast.host_ms_per_msample,
-setup.first_frame_s) on a synthetic record and span registry, and the
-cases in which each reads nothing."""
+integrator.host_ms_per_msample, setup.first_frame_s) on a synthetic
+record and span registry, and the cases in which each reads nothing."""
 
 import pytest
 
@@ -9,7 +8,7 @@ from benchmark.harness import spec
 from benchmark.harness.session import Frame, Record
 
 METRICS = ("render.fixed_ms_per_frame", "integrator.host_ms_per_msample",
-           "cast.host_ms_per_msample", "setup.first_frame_s")
+           "setup.first_frame_s")
 MS = 1_000_000  # ns
 
 
@@ -63,20 +62,18 @@ def test_readers_on_a_synthetic_registry(profiling):
     msample = 512 * 512 / 1e6  # a frame's, at one sample a pixel
     assert _read("render.fixed_ms_per_frame", rec) == pytest.approx(10.0)
     assert _read("integrator.host_ms_per_msample", rec) == pytest.approx(62.0 / msample)
-    assert _read("cast.host_ms_per_msample", rec) == pytest.approx(4.0 / msample)
     assert _read("setup.first_frame_s", rec) == pytest.approx(2.0)
-    # The three host parts make up the plain frame's 80 ms but the 4 ms
-    # outside every span.
+    # The fixed work, the pass less its casts and the casts' 4 ms make up
+    # the plain frame's 80 ms but the 4 ms outside every span.
     parts = (_read("render.fixed_ms_per_frame", rec)
-             + (_read("integrator.host_ms_per_msample", rec)
-                + _read("cast.host_ms_per_msample", rec)) * msample)
+             + _read("integrator.host_ms_per_msample", rec) * msample + 4.0)
     assert parts == pytest.approx(76.0)
 
 
 def test_samples_follow_the_frames_samples_per_pixel(profiling):
     _fill(profiling)
-    assert _read("cast.host_ms_per_msample", _record(spp=4)) == pytest.approx(
-        4.0 / (4 * 512 * 512 / 1e6))
+    assert _read("integrator.host_ms_per_msample", _record(spp=4)) == pytest.approx(
+        62.0 / (4 * 512 * 512 / 1e6))
 
 
 @pytest.mark.parametrize("name", METRICS)
@@ -96,7 +93,7 @@ def test_nothing_from_a_program_without_spans(profiling, monkeypatch, name):
     assert _read(name, _record()) is None
 
 
-@pytest.mark.parametrize("name", METRICS[:3])
+@pytest.mark.parametrize("name", METRICS[:2])
 def test_nothing_without_an_untraced_frame(profiling, name):
     """Only the warm frame and profiled ones: the untraced metrics read
     nothing; the first frame's still reads."""
@@ -107,12 +104,11 @@ def test_nothing_without_an_untraced_frame(profiling, name):
 
 def test_no_pass_or_no_cast_reads_nothing(profiling):
     """A frame that ran no banded pass (the wavefront, say) has no
-    integrator split; one that cast nothing has no cast time."""
+    integrator split."""
     profiling.add("render.frame", 2000 * MS, warm=True)
     profiling.add("render.frame", 80 * MS)
     rec = _record()
     assert _read("integrator.host_ms_per_msample", rec) is None
-    assert _read("cast.host_ms_per_msample", rec) is None
     assert _read("render.fixed_ms_per_frame", rec) == 0.0
     assert _read("integrator.host_ms_per_msample", Record(512, 512, 9.0, 0.01)) is None
 
@@ -123,5 +119,5 @@ def test_every_span_metric_is_declared_for_the_cell():
     for name in METRICS:
         m = entries[name]
         assert m["source"] == "program_span"
-        assert m["workloads"] == ["cbox_512_path.preview_1spp"]
+        assert m["workloads"] == ["cbox_512_path.frames_256spp"]
         spec.load_module("metrics", name)
